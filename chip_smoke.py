@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths once on an NVIDIA GPU.
 
 Run from the repository root, on a machine with one CUDA card and nvcc:
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
-  build   compile genefaceplusplus_tpu_torch/csrc/fused_field.cu into build/kernels/
-  kernel  the fused-field kernel vs its plain PyTorch version and vs the
-          float32 model field, at the 512^2 x 10-sample main-path size
-          (2,621,440 points), with seeded weights and inputs; timed
-  serve   GeneFaceInfer at the May lm3d_radnerf head config (full width,
-          random weights from a seed) on a synthetic 512^2 identity with the
-          bench's head-sized occupancy: GT-driven requests through
-          prepare_gt_batch -> forward_secc2video, checked and timed
+  build       compile genefaceplusplus_tpu_torch/csrc/fused_field.cu and
+              fused_field_bwd.cu into build/kernels/ (two nvcc, in parallel)
+  kernel      the fused-field forward kernel vs its plain PyTorch version and
+              vs the float32 model field, at the 512^2 x 10-sample serving
+              size (2,621,440 points), with seeded weights and inputs; timed
+  kernel_bwd  the fused-field backward kernel vs its plain PyTorch version at
+              the training size (65,536 rays x 16 samples = 1,048,576
+              points), all 14 gradient blocks, twice (bit-identical); timed
+  serve       GeneFaceInfer at the May lm3d_radnerf head config (full width,
+              random weights from a seed) on a synthetic 512^2 identity with the
+              bench's head-sized occupancy: GT-driven requests through
+              prepare_gt_batch -> forward_secc2video, checked and timed
+  train       HeadNeRFTask + Trainer.fit at the same config with
+              use_fused_field=True on a synthetic 512^2 identity: 20 steps of
+              65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
+              validation, a checkpoint and a resume; checked and timed
 
 Output: the card's name and power limit first; one JSON line
 {"kernels": [...]} before the last; the last line is
@@ -49,6 +57,27 @@ KERNEL_MEAN = {"log_sigma": 5e-4, "rgb": 1e-4, "amb": 1e-5}
 FIELD_MAX = {"log_sigma": 0.3, "rgb": 0.08, "amb": 0.05}
 FIELD_MIN_CORR = 0.98
 PLAIN_FRAME_MIN_PSNR = 40.0  # dB, kernel frame vs plain-field frame (uint8)
+
+N_RAYS, TRAIN_SAMPLES = 65536, 16  # egs/egs_bases/radnerf/base.yaml
+N_TRAIN_POINTS = N_RAYS * TRAIN_SAMPLES
+TRAIN_STEPS = 20  # grid refreshes at steps 0 and 16 (update_extra_interval 16)
+# backward kernel vs plain, every gradient block: (min cosine, max |norm
+# ratio - 1|, max |d| / max |plain|), over two sets of points.
+# All points: the kernel recomputes the forward on the tensor cores, whose
+# float32 sums round differently from the plain version's float32 matmuls;
+# on about 13 % of the points some bf16 activation ends up rounded the
+# other way (their forward outputs move by more than FWD_CLEAN), which
+# moves that point's whole gradient. Measured at 65,537 and 262,144 points
+# over six seeds: cosine >= 0.99724, |ratio - 1| <= 0.026, max |d| <= 0.084.
+BWD_ALL = (0.995, 0.04, 0.15)
+# Clean points, whose forward outputs (log sigma, rgb, ambient) from the
+# forward kernel agree with the plain forward to FWD_CLEAN: only the
+# backward's own bf16 roundings can differ. Measured at the same sizes:
+# cosine >= 0.999997, |ratio - 1| <= 9e-4, max |d| <= 0.0056. A wrong
+# weight, index, mask or rounding point moves these far more.
+FWD_CLEAN = 3e-5
+BWD_CLEAN = (0.9999, 0.005, 0.03)
+BWD_PERMUTED_MAX_REL = 1e-4  # kernel on permuted points vs kernel: float32 summation order only
 
 
 def card_line() -> str:
@@ -102,12 +131,13 @@ def phase_build():
     from genefaceplusplus_tpu_torch.ops import fused_field as ff
 
     t0 = time.perf_counter()
-    lib = ff.build_fused_field()
-    print(f"[build] {lib.relative_to(os.getcwd()) if lib.is_relative_to(os.getcwd()) else lib} "
-          f"in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    libs = ff.build_kernels()
+    print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        print(f"[build] {name}: {lib.relative_to(os.getcwd()) if lib.is_relative_to(os.getcwd()) else lib}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {name} ptxas: {line.strip()}")
 
 
 def phase_kernel(dev):
@@ -245,6 +275,194 @@ def phase_serve(dev):
     return launches
 
 
+def grad_stats(a, b):
+    """(cosine, norm ratio, max |a - b| / max |b|) of two gradient blocks."""
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = a.norm().item(), b.norm().item()
+    if nb == 0.0:  # e.g. no point in the set
+        return (1.0, 1.0, 0.0) if na == 0.0 else (0.0, math.inf, math.inf)
+    cos = (a @ b).item() / max(na * nb, 1e-300)
+    return cos, na / nb, (a - b).abs().max().item() / b.abs().max().item()
+
+
+def backward_vs_plain(xyz, dirs, ab, cb, w, g_sigma, g_rgb, g_amb):
+    """The backward kernel against its plain version over all points and
+    over the clean points (FWD_CLEAN). Returns ({"all": stats, "clean":
+    stats}, number of clean points), stats = [(block, cos, ratio, rel)]."""
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+
+    fk, fp = ff.fused_field(xyz, dirs, ab, cb, w), ff.fused_field_plain(xyz, dirs, ab, cb, w)
+    moved = torch.stack([(fk[0].log() - fp[0].log()).abs(), (fk[1] - fp[1]).abs().amax(-1),
+                         (fk[2] - fp[2]).abs().amax(-1)], -1).amax(-1)
+    clean = (moved <= FWD_CLEAN).nonzero().flatten()
+    out = {}
+    for key, sel in (("all", slice(None)), ("clean", clean)):
+        x, d, gs, gr, ga = (t[sel].contiguous() for t in (xyz, dirs, g_sigma, g_rgb, g_amb))
+        k = ff.fused_field_backward(x, d, ab, cb, w, gs, gr, ga)
+        p = ff.fused_field_backward_plain(x, d, ab, cb, w, gs, gr, ga)
+        check(all(bool(torch.isfinite(t).all()) for t in k), "non-finite backward gradient")
+        out[key] = [(name, *grad_stats(a, b)) for (name, _, _), a, b in zip(ff.GRAD_BLOCKS, k, p)]
+    return out, clean.numel()
+
+
+def bwd_failures(stats) -> list:
+    """Blocks outside BWD_ALL / BWD_CLEAN."""
+    bad = []
+    for key, (min_cos, max_dev, max_rel) in (("all", BWD_ALL), ("clean", BWD_CLEAN)):
+        bad += [(key, name) for name, cos, ratio, rel in stats[key]
+                if not (cos >= min_cos and abs(ratio - 1.0) <= max_dev and rel <= max_rel)]
+    return bad
+
+
+def phase_kernel_bwd(dev):
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+
+    cfg = head_config()
+    model = RADNeRF(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    w = ff.weights_from_params(model, bound=cfg.bound)
+    g = torch.Generator(device=dev).manual_seed(2)
+    n = N_TRAIN_POINTS
+    xyz = torch.rand((n, 3), generator=g, device=dev) * 2.0 - 1.0
+    dirs = torch.randn((n, 3), generator=g, device=dev)
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    g_sigma = torch.randn((n,), generator=g, device=dev) * 1e-2
+    g_rgb = torch.randn((n, 3), generator=g, device=dev) * 1e-2
+    g_amb = torch.randn((n, 3), generator=g, device=dev) * 1e-2
+    cond = torch.randn((cfg.smo_win_size, cfg.cond_win_size, cfg.cond_in_dim), generator=g, device=dev)
+    with torch.no_grad():
+        cond_feat = model.cal_cond_feat(cond, torch.full((1, 1), 0.3, device=dev))
+        ab, cb = ff.bias_rows(cond_feat, model.get_individual_code(0), w)
+        args = (xyz, dirs, ab, cb, w, g_sigma, g_rgb, g_amb)
+        kern = ff.fused_field_backward(*args)
+        again = ff.fused_field_backward(*args)
+        perm = torch.randperm(n, generator=g, device=dev)
+        permuted = ff.fused_field_backward(*(t[perm].contiguous() for t in args[:2]), ab, cb, w,
+                                           *(t[perm].contiguous() for t in args[5:]))
+        plain = ff.fused_field_backward_plain(*args)
+        stats, n_clean = backward_vs_plain(*args)
+        torch.cuda.synchronize()
+    worst = 0.0
+    for (name, _, _), k, k2, kp, p in zip(ff.GRAD_BLOCKS, kern, again, permuted, plain):
+        check(bool(torch.isfinite(k).all()), f"non-finite backward {name}")
+        check(torch.equal(k, k2), f"backward {name} differs between two launches")
+        check(grad_stats(kp, k)[2] <= BWD_PERMUTED_MAX_REL, f"backward {name} depends on the point order")
+        worst = max(worst, (k - p).abs().max().item())
+    print(f"[kernel_bwd] {n_clean} of {n} points clean (forward outputs within {FWD_CLEAN} of the plain "
+          f"forward); bounds (cos, |r-1|, max|d|/max): all points {BWD_ALL}, clean points {BWD_CLEAN}")
+    for (name, *s_all), (_, *s_clean) in zip(stats["all"], stats["clean"]):
+        print(f"[kernel_bwd] {name:9s} all: cos {s_all[0]:.8f}, norm ratio {s_all[1]:.8f}, max|d|/max "
+              f"{s_all[2]:.3e}; clean: cos {s_clean[0]:.8f}, norm ratio {s_clean[1]:.8f}, max|d|/max "
+              f"{s_clean[2]:.3e}")
+    bad = bwd_failures(stats)
+    check(not bad, f"backward kernel vs plain: {bad}")
+    print(f"[kernel_bwd] two launches: bit-identical gradients; permuted points: every block within "
+          f"{BWD_PERMUTED_MAX_REL} of its largest entry")
+    del kern, again, permuted, plain
+
+    def run_kernel():
+        ff.fused_field_backward(*args)
+
+    def run_plain():
+        ff.fused_field_backward_plain(*args)
+
+    with torch.no_grad():
+        for fn in (run_plain, run_kernel):
+            cuda_ms(fn, 2)  # warm-up
+        t_k, t_p = [], []
+        for _ in range(3):  # in turns: plain, kernel, kernel, plain
+            t_p += cuda_ms(run_plain, 1)
+            t_k += cuda_ms(run_kernel, 2)
+            t_p += cuda_ms(run_plain, 1)
+    ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
+    print(f"[kernel_bwd] time at {n} points: kernel median {ms:.4f} ms "
+          f"(min {min(t_k):.4f}, max {max(t_k):.4f}, n={len(t_k)}); plain median "
+          f"{plain_ms:.4f} ms (min {min(t_p):.4f}, max {max(t_p):.4f}, n={len(t_p)})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_train(dev):
+    import tempfile
+
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig
+    from genefaceplusplus_tpu_torch.training.trainer import Trainer
+
+    cfg = head_config()
+    ds = RADNeRFDataset(synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0), smo_win_size=cfg.smo_win_size)
+    task_cfg = HeadTaskConfig(n_rays=N_RAYS, num_samples=TRAIN_SAMPLES, max_steps=16,
+                              update_extra_interval=16, lr=5e-4, use_fused_field=True)
+    task = HeadNeRFTask(ds, cfg, task_cfg, seed=9999, device=dev)
+    init = {k: v.detach().clone() for k, v in task.create_state().model.named_parameters()}
+    print(f"[train] {SIZE}x{SIZE} synthetic identity, {len(ds)} train frames, {N_RAYS} rays x "
+          f"{TRAIN_SAMPLES} samples = {N_TRAIN_POINTS} field points per step, grid {cfg.grid_size}")
+
+    step_ms, losses, occ = [], [], []
+    train_step, refresh = task.train_step, task.update_extra_state
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["total_loss"]))
+        return state, metrics
+
+    def recorded_refresh(state):
+        before = (task.occupancy.clone(), task.density_grid.clone())
+        refresh(state)
+        occ.append((before, (task.occupancy.clone(), task.density_grid.clone())))
+
+    task.train_step, task.update_extra_state = timed_step, recorded_refresh
+    work_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ff.fused_field.launches = ff.fused_field_backward.launches = 0  # the train path's own count
+        trainer = Trainer(task, work_dir, max_updates=TRAIN_STEPS, val_check_interval=1000,
+                          tb_log_interval=10, update_extra_interval=task_cfg.update_extra_interval)
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        fwd, bwd = ff.fused_field.launches, ff.fused_field_backward.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+
+        check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+              f"train losses not all finite: {losses}")
+        check(fwd == TRAIN_STEPS and bwd == TRAIN_STEPS,
+              f"{fwd} forward and {bwd} backward kernel launches for {TRAIN_STEPS} train steps")
+        moved = {k: (v - init[k]).abs().max().item() for k, v in state.model.named_parameters()}
+        for k in ("position_embedder.B", "ambient_embedder.B"):
+            check(moved[k] > 0, f"{k} did not move")
+        check(all(v > 0 for k, v in moved.items() if k.startswith(("ambient_net", "sigma_net", "color_net"))),
+              "a field MLP parameter did not move")
+        check(len(occ) == 2, f"{len(occ)} grid refreshes for {TRAIN_STEPS} steps")
+        check(not torch.equal(occ[0][0][0], occ[0][1][0]), "the first refresh left the occupancy as it was")
+        check(not torch.equal(occ[1][0][1], occ[1][1][1]), "the step-16 refresh left the density grid as it was")
+        ckpts = sorted(f for f in os.listdir(work_dir) if f.endswith(".ckpt"))
+        check(ckpts == [f"model_ckpt_steps_{TRAIN_STEPS}.ckpt"], f"checkpoints {ckpts}")
+        resumed = Trainer(HeadNeRFTask(ds, cfg, task_cfg, seed=9999, device=dev), work_dir,
+                          max_updates=TRAIN_STEPS + 2, val_check_interval=1000, tb_log_interval=10,
+                          update_extra_interval=task_cfg.update_extra_interval).fit()
+        check(resumed.global_step == TRAIN_STEPS + 2, f"resume reached step {resumed.global_step}")
+    finally:
+        shutil.rmtree(work_dir, ignore_errors=True)
+    timed = step_ms[1:]  # the first step includes one-time set-up
+    print(f"[train] {TRAIN_STEPS} steps: losses finite ({losses[0]:.5f} -> {losses[-1]:.5f}); "
+          f"{fwd} forward + {bwd} backward kernel launches (one each per step); occupancy "
+          f"{occ[0][0][0].float().mean().item():.4f} -> {occ[0][1][0].float().mean().item():.4f} -> "
+          f"{occ[1][1][0].float().mean().item():.4f} across the refreshes at steps 0 and 16; all field "
+          f"parameters moved (position B by {moved['position_embedder.B']:.3e}, ambient B by "
+          f"{moved['ambient_embedder.B']:.3e}); checkpoint written and resumed to step "
+          f"{TRAIN_STEPS + 2}")
+    print(f"[train] train step (host wall, synchronised, steps 2..{TRAIN_STEPS}): median "
+          f"{statistics.median(timed):.3f} ms, min {min(timed):.3f}, max {max(timed):.3f}, n={len(timed)}; "
+          f"first step {step_ms[0]:.3f} ms; peak allocated {peak / 2 ** 30:.3f} GiB")
+    return fwd, bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -261,14 +479,23 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     k = phase_kernel(dev)
-    launches = phase_serve(dev)
+    kb = phase_kernel_bwd(dev)
+    serve_launches = phase_serve(dev)
+    train_fwd, train_bwd = phase_train(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(f"[launches] fused_field: {serve_launches} serving + {train_fwd} training; "
+          f"fused_field_backward: {train_bwd} training")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:156",
-        "launches": launches, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"]}]}))
+        "launches": serve_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"]}, {
+        "name": "fused_field_backward", "route": "cuda",
+        "source": "genefaceplusplus_tpu_torch/csrc/fused_field_bwd.cu",
+        "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:278",
+        "launches": train_bwd, "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
+        "plain_ms": kb["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -1,17 +1,41 @@
 """GeneFace++ in PyTorch for an NVIDIA H100: the port of `genefaceplusplus_tpu`.
 
 The package mirrors the JAX package's layout (`ops/`, `models/`, `utils/`,
-`data/`, `inference/`) so each module sits where its JAX counterpart does.
-It imports torch, numpy and scipy only: never jax, flax, yaml or cv2, and
-nothing from `genefaceplusplus_tpu` at run time. The parity tests
-(`tests/test_torch_*.py`) are the only code that imports both packages.
+`data/`, `inference/`, `training/`) so each module sits where its JAX
+counterpart does. It imports torch, numpy and scipy only: never jax, flax,
+yaml or cv2, and nothing from `genefaceplusplus_tpu` at run time. The parity
+tests (`tests/test_torch_*.py`) are the only code that imports both packages.
 
-Ported so far: the GT-driven head-NeRF serving path of the non-SR config
-(`egs/datasets/May/lm3d_radnerf.yaml`): condition encoders, the Fourier
-field, interval ray marching with the probe prepass, compositing, the
-head-only frame renderer and the render half of `GeneFaceInfer`. The field
-on the main path is the hand-written CUDA kernel in `csrc/fused_field.cu`
-(`ops/fused_field.py`). ROADMAP.md lists what is still to port.
+Ported so far, for the non-SR config (`egs/datasets/May/lm3d_radnerf.yaml`):
+the GT-driven head-NeRF serving path (condition encoders, the Fourier field,
+interval ray marching with the probe prepass, compositing, the head-only
+frame renderer and the render half of `GeneFaceInfer`) and head-NeRF
+training (`training/tasks/head_task.py:HeadNeRFTask` and
+`training/trainer.py:Trainer`). The field on both paths is the hand-written
+CUDA forward kernel `csrc/fused_field.cu`; training's backward is
+`csrc/fused_field_bwd.cu` (`ops/fused_field.py`). ROADMAP.md lists what is
+still to port.
 """
 
+import torch
+
 __version__ = "0.1.0"
+
+
+def _settle_cpu_vector_math():
+    """Run each MKL vector-math function the port calls once, on one thread.
+
+    On the CPU, torch evaluates exp, log, log2, log10 and sqrt of float32
+    tensors with MKL's vector math, split into chunks of 2048 elements
+    across threads. When a process's first such call is already split
+    across threads, the second thread's chunk can come out of a less
+    accurate path: exp off by 1.5e-4 of its value, where it is otherwise
+    exact to 1e-7. This was seen in 5 of 320 fresh processes that had run
+    an XLA computation before, and only on that first call; in none of 630
+    whose first call ran on one element, as the call here does."""
+    x = torch.ones(1)
+    for fn in (torch.exp, torch.log, torch.log2, torch.log10, torch.sqrt):
+        fn(x)
+
+
+_settle_cpu_vector_math()

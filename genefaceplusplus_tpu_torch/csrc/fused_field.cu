@@ -26,16 +26,20 @@
 // true division). Only live data moves: [N,3] inputs, [N] and [N,3] outputs,
 // and the ragged last tile is masked here, with no host-side padding.
 //
+// The fast math, SH16 and the tile product live in fused_field_common.cuh,
+// shared with the backward kernel (fused_field_bwd.cu).
+//
 // Build (no PyTorch headers; loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libfused_field.so fused_field.cu
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "fused_field_common.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using gfpp::bf16;
+using gfpp::fast_cos;
+using gfpp::fast_sin;
+using gfpp::fast_tanh;
+using gfpp::sh16;
 
 namespace {
 
@@ -51,81 +55,6 @@ constexpr int SMEM_H = sizeof(bf16) * TM * LDH;
 constexpr int SMEM_C = sizeof(float) * TM * LDC;
 constexpr int SMEM_P = sizeof(float) * TM * 9;  // xyz, dirs, ambient coordinate
 constexpr int SMEM_BYTES = SMEM_X + SMEM_H + SMEM_C + SMEM_P;
-
-// ops/fastmath.py, term for term
-__device__ __forceinline__ float fast_sin(float x) {
-  const float u = x * 0.15915494309189535f;  // 1 / (2 pi)
-  const float t = u - rintf(u);              // round half to even, as jnp.round
-  const float t2 = t * t;
-  return t * (6.2830885f + t2 * (-41.3332475f + t2 * (81.4000898f +
-              t2 * (-74.6758839f + t2 * 33.1680946f))));
-}
-
-__device__ __forceinline__ float fast_cos(float x) {
-  return fast_sin(x + 1.5707963267948966f);
-}
-
-__device__ __forceinline__ float fast_tanh(float x) {
-  x = fminf(fmaxf(x, -7.9f), 7.9f);
-  const float x2 = x * x;
-  const float num = x * (135135.0f + x2 * (17325.0f + x2 * (378.0f + x2)));
-  const float den = 135135.0f + x2 * (62370.0f + x2 * (3150.0f + x2 * 28.0f));
-  return fminf(fmaxf(num / den, -1.0f), 1.0f);
-}
-
-// degree-4 real SH basis, rounded to bf16 (fused_field.py:_sh16)
-__device__ __forceinline__ void sh16(const float* d, bf16* out) {
-  const float x = d[0], y = d[1], z = d[2];
-  const float xy = x * y, xz = x * z, yz = y * z;
-  const float x2 = x * x, y2 = y * y, z2 = z * z;
-  const float v[16] = {
-      0.28209479177387814f,
-      -0.48860251190291987f * y,
-      0.48860251190291987f * z,
-      -0.48860251190291987f * x,
-      1.0925484305920792f * xy,
-      -1.0925484305920792f * yz,
-      0.94617469575755997f * z2 - 0.31539156525251999f,
-      -1.0925484305920792f * xz,
-      0.54627421529603959f * (x2 - y2),
-      0.59004358992664352f * y * (-3.0f * x2 + y2),
-      2.8906114426405538f * xy * z,
-      0.45704579946446572f * y * (1.0f - 5.0f * z2),
-      0.3731763325901154f * z * (5.0f * z2 - 3.0f),
-      0.45704579946446572f * x * (1.0f - 5.0f * z2),
-      1.4453057213202769f * z * (x2 - y2),
-      0.59004358992664352f * x * (-x2 + 3.0f * y2)};
-#pragma unroll
-  for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16_rn(v[i]);
-}
-
-// C[0:TM, 0:N] = A[0:TM, 0:K] . W[0:K, 0:N]: A bf16 in shared memory (row
-// stride LDA), W bf16 row-major in global memory (row stride LDW), C f32 in
-// shared memory. Warp w computes the 16-column strips w, w+4, ... for all
-// TM rows, so each W fragment is loaded once and used TM/16 times.
-template <int K, int N, int LDA, int LDW>
-__device__ __forceinline__ void tile_matmul(const bf16* A, const bf16* __restrict__ W, float* C) {
-  const int warp = threadIdx.x >> 5;
-  for (int nt = warp; nt < N / 16; nt += NWARP) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TM / 16];
-#pragma unroll
-    for (int m = 0; m < TM / 16; ++m) wmma::fill_fragment(acc[m], 0.0f);
-#pragma unroll 2
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, W + k * LDW + nt * 16, LDW);
-#pragma unroll
-      for (int m = 0; m < TM / 16; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + m * 16 * LDA + k, LDA);
-        wmma::mma_sync(acc[m], a, b, acc[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < TM / 16; ++m)
-      wmma::store_matrix_sync(C + m * 16 * LDC + nt * 16, acc[m], LDC, wmma::mem_row_major);
-  }
-}
 
 // H[:, 0:128] = bf16(relu(C[:, 0:128] + bias)), bias optional
 __device__ __forceinline__ void relu_to_bf16(const float* C, const float* __restrict__ bias, bf16* H) {
@@ -187,15 +116,15 @@ __global__ void __launch_bounds__(NTHREAD, 2) fused_field_kernel(
   __syncthreads();
 
   // 2. ambient MLP; the condition enters through amb_bias
-  tile_matmul<256, 128, LDX, 128>(X, amb_w1, C);
+  gfpp::tile_matmul<TM, NWARP, 256, 128, LDX, 128, LDC>(X, amb_w1, C);
   __syncthreads();
   relu_to_bf16(C, amb_bias, H);
   __syncthreads();
-  tile_matmul<128, 128, LDH, 128>(H, amb_w2, C);
+  gfpp::tile_matmul<TM, NWARP, 128, 128, LDH, 128, LDC>(H, amb_w2, C);
   __syncthreads();
   relu_to_bf16(C, nullptr, H);
   __syncthreads();
-  tile_matmul<128, 16, LDH, 128>(H, amb_w3, C);
+  gfpp::tile_matmul<TM, NWARP, 128, 16, LDH, 128, LDC>(H, amb_w3, C);
   __syncthreads();
 
   // 3. ambient coordinate (f32) and its Fourier features
@@ -216,15 +145,15 @@ __global__ void __launch_bounds__(NTHREAD, 2) fused_field_kernel(
   __syncthreads();
 
   // 4. sigma MLP over [pos_feat | amb_feat]
-  tile_matmul<384, 128, LDX, 128>(X, sig_w1, C);
+  gfpp::tile_matmul<TM, NWARP, 384, 128, LDX, 128, LDC>(X, sig_w1, C);
   __syncthreads();
   relu_to_bf16(C, nullptr, H);
   __syncthreads();
-  tile_matmul<128, 128, LDH, 128>(H, sig_w2, C);
+  gfpp::tile_matmul<TM, NWARP, 128, 128, LDH, 128, LDC>(H, sig_w2, C);
   __syncthreads();
   relu_to_bf16(C, nullptr, H);
   __syncthreads();
-  tile_matmul<128, 144, LDH, 256>(H, sig_w3, C);
+  gfpp::tile_matmul<TM, NWARP, 128, 144, LDH, 256, LDC>(H, sig_w3, C);
   __syncthreads();
 
   // 5. sigma = exp(clip(logit, -15, 15)); colour input [SH16 | bf16(geo)]
@@ -238,11 +167,11 @@ __global__ void __launch_bounds__(NTHREAD, 2) fused_field_kernel(
   __syncthreads();
 
   // 6. colour MLP; the individual code enters through col_bias
-  tile_matmul<144, 128, LDH, 128>(H, col_w1, C);
+  gfpp::tile_matmul<TM, NWARP, 144, 128, LDH, 128, LDC>(H, col_w1, C);
   __syncthreads();
   relu_to_bf16(C, col_bias, H);
   __syncthreads();
-  tile_matmul<128, 16, LDH, 128>(H, col_w2, C);
+  gfpp::tile_matmul<TM, NWARP, 128, 16, LDH, 128, LDC>(H, col_w2, C);
   __syncthreads();
   for (int i = tid; i < rows * 3; i += NTHREAD) {
     const int p = i / 3, j = i % 3;

@@ -1,44 +1,107 @@
-"""Inference subset of the RAD-NeRF dataset (port of
+"""RAD-NeRF dataset at full resolution (port of
 `genefaceplusplus_tpu/data/dataset.py`, which imports jax through
-`utils/rotation.py`).
+`utils/rotation.py` and cv2 for images).
 
-Kept: the binarizer record format, ngp poses, the normalised landmark
-conditions, eye-area percents, the background and `synthetic()`, for the
-train split at full resolution (the JAX class with `split="train",
-with_sr=False`). Image loading, the eval split's smoothed camera path and
-the half-resolution SR background need cv2 or serve training and SR; they
-arrive with later PRs (ROADMAP).
+Kept: the binarizer record format, ngp poses (the eval split's smoothed
+camera path included), the normalised landmark conditions, eye-area
+percents, the background, images from the record's in-memory `*_img`
+arrays, the torso-composited background, the convex-hull face mask (numpy,
+no cv2) and `synthetic()`. Only `with_sr=False`: the half-resolution SR
+path, and images read from files, need cv2's resize and decoder and arrive
+with SR (ROADMAP).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+import os
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from genefaceplusplus_tpu_torch.utils.rotation import nerf_matrix_to_ngp
+from genefaceplusplus_tpu_torch.utils.smoothing import smooth_camera_sequence
+
+
+def _convex_hull(pts: np.ndarray) -> np.ndarray:
+    """Counter-clockwise convex hull (monotone chain) of integer points [P, 2]
+    (x, y), collinear points dropped."""
+    p = sorted(set(map(tuple, pts.tolist())))
+    if len(p) <= 2:
+        return np.asarray(p, np.int64)
+
+    def cross(o, a, b):
+        return (a[0] - o[0]) * (b[1] - o[1]) - (a[1] - o[1]) * (b[0] - o[0])
+
+    lower, upper = [], []
+    for q in p:
+        while len(lower) >= 2 and cross(lower[-2], lower[-1], q) <= 0:
+            lower.pop()
+        lower.append(q)
+    for q in reversed(p):
+        while len(upper) >= 2 and cross(upper[-2], upper[-1], q) <= 0:
+            upper.pop()
+        upper.append(q)
+    return np.asarray(lower[:-1] + upper[:-1], np.int64)
+
+
+def get_boundary_mask(lm2d: np.ndarray, H: int, W: int) -> np.ndarray:
+    """Filled convex hull of the normalised 2D landmarks -> bool [H, W] face
+    mask (the JAX version's cv2.convexHull + cv2.fillConvexPoly, in numpy):
+    each pixel row between the hull's top and bottom vertex is filled from
+    the rounded left to the rounded right crossing of the hull's edges."""
+    pts = np.clip((lm2d * np.asarray([W, H])).astype(np.int32), 0, [W - 1, H - 1])
+    hull = _convex_hull(pts).astype(np.float64)
+    mask = np.zeros((H, W), bool)
+    y0, y1 = int(hull[:, 1].min()), int(hull[:, 1].max())
+    ys = np.arange(y0, y1 + 1, dtype=np.float64)
+    left = np.full(ys.shape, np.inf)
+    right = np.full(ys.shape, -np.inf)
+    for a, b in zip(hull, np.roll(hull, -1, axis=0)):
+        lo, hi = min(a[1], b[1]), max(a[1], b[1])
+        on = (ys >= lo) & (ys <= hi)
+        if a[1] == b[1]:
+            xa, xb = np.full(ys.shape, min(a[0], b[0])), np.full(ys.shape, max(a[0], b[0]))
+        else:
+            xa = xb = a[0] + (ys - a[1]) * (b[0] - a[0]) / (b[1] - a[1])
+        left = np.where(on, np.minimum(left, xa), left)
+        right = np.where(on, np.maximum(right, xb), right)
+    xs = np.arange(W)
+    lo = np.floor(left + 0.5)[:, None]
+    hi = np.floor(right + 0.5)[:, None]
+    mask[y0:y1 + 1] = (xs[None, :] >= lo) & (xs[None, :] <= hi)
+    return mask
 
 
 class RADNeRFDataset:
-    """Train split of a binarized identity (`ds` dict or .npy path)."""
+    """A split of a binarized identity (`ds` dict or .npy path)."""
 
-    def __init__(self, ds: Dict | str, camera_scale: float = 4.0,
-                 camera_offset=(0.0, 0.0, 0.0), cond_win_size: int = 1, smo_win_size: int = 3):
+    def __init__(self, ds: Dict | str, split: str = "train", camera_scale: float = 4.0,
+                 camera_offset=(0.0, 0.0, 0.0), smooth_eval_camera: bool = True,
+                 camera_smooth_kernel: int = 7, cond_win_size: int = 1,
+                 smo_win_size: int = 3, with_sr: bool = False):
+        if with_sr:
+            raise NotImplementedError("with_sr=True (half-resolution SR rendering) is not "
+                                      "ported: it arrives with the SR stage (ROADMAP)")
         if isinstance(ds, str):
             ds = np.load(ds, allow_pickle=True).tolist()
         self.ds = ds
+        self.split = split
         self.H = int(ds["H"])
         self.W = int(ds["W"])
         self.focal = float(ds["focal"])
         self.intrinsics = (self.focal, self.focal, float(ds["cx"]), float(ds["cy"]))
-        self.samples: List[Dict] = ds["train_samples"]
+        self.samples: List[Dict] = ds[f"{split}_samples"]
         self.cond_win_size = cond_win_size
         self.smo_win_size = smo_win_size
+        self._img_cache: Dict[tuple, np.ndarray] = {}
 
         c2ws = np.stack([s["c2w"] for s in self.samples])
-        self.poses = np.stack([
+        poses = np.stack([
             nerf_matrix_to_ngp(c, scale=camera_scale, offset=camera_offset) for c in c2ws
-        ]).astype(np.float32)
+        ])
+        if split != "train" and smooth_eval_camera:
+            poses = smooth_camera_sequence(poses, camera_smooth_kernel)
+        self.poses = poses.astype(np.float32)
 
         lm = np.asarray(ds["idexp_lm3d"], np.float32)  # [T, 204]
         self.idexp_lm3d_mean = np.asarray(ds.get("idexp_lm3d_mean", lm.mean(0)), np.float32)
@@ -74,6 +137,43 @@ class RADNeRFDataset:
         win = self.conds_all[np.clip(offs, 0, T - 1)].copy()
         win[~valid] = 0.0
         return win
+
+    def load_image(self, i: int, kind: str = "gt", with_alpha: bool = False) -> Optional[np.ndarray]:
+        """gt/head/torso image of frame i as float [H, W, 3] in [0, 1] (or
+        [H, W, 4] with `with_alpha` when the stored image has alpha), from
+        the record's `{kind}_img` array, quantised through uint8 exactly as
+        the JAX dataset's image cache does. None when the record has none."""
+        key = (i, kind)
+        u8 = self._img_cache.get(key)
+        if u8 is None:
+            arr = self.samples[i].get(f"{kind}_img")
+            if arr is None:
+                fname = self.samples[i].get(f"{kind}_img_fname")
+                if fname is not None and os.path.exists(fname):
+                    raise NotImplementedError(f"{fname}: image files need a decoder (cv2), "
+                                              "which the port does not use; store the images "
+                                              f"in the record as '{kind}_img'")
+                return None
+            img = np.asarray(arr, np.float32)
+            if img.max() > 1.5:
+                img = img / 255.0
+            if img.shape[:2] != (self.H, self.W):
+                raise ValueError(f"{kind}_img of frame {i} is {img.shape[:2]}, expected "
+                                 f"{(self.H, self.W)} (resizing needs cv2)")
+            u8 = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+            self._img_cache[key] = u8
+        img = u8.astype(np.float32) / 255.0
+        return img if (with_alpha and img.shape[-1] == 4) else img[..., :3]
+
+    def frame_bg_torso(self, i: int) -> Optional[np.ndarray]:
+        """Inpainted-torso image composited over the static background (the
+        head task's per-frame render background); None without torso
+        images."""
+        t = self.load_image(i, "torso", with_alpha=True)
+        if t is None or t.shape[-1] != 4:
+            return None
+        alpha = t[..., 3:]
+        return t[..., :3] * alpha + self.bg_img * (1.0 - alpha)
 
 
 def synthetic(num_frames: int = 24, H: int = 64, W: int = 64, seed: int = 0) -> Dict:

@@ -33,6 +33,7 @@ class RenderOptions:
     n_probe: int = 32
     color_topk: int = 0
     compact_frac: float = 0.0
+    perturb: bool = False  # training: the caller passes `noise` to render_rays
 
 
 class RenderOutput(NamedTuple):
@@ -52,10 +53,12 @@ def make_aabb(bound: float, device=None) -> torch.Tensor:
 
 
 def render_rays(field_fn, rays_o, rays_d, occupancy, bound: float, min_near: float,
-                bg_color, opts: RenderOptions, image_hw: Optional[tuple] = None) -> RenderOutput:
+                bg_color, opts: RenderOptions, noise: Optional[torch.Tensor] = None,
+                image_hw: Optional[tuple] = None) -> RenderOutput:
     """Render rays [R, 3] through `field_fn(xyz [M,3], dirs [M,3]) ->
     (sigma [M], rgb [M,3], amb [M,D])`, which closes over the per-frame
-    condition. `image_hw` enables `entry_mode='probe'`."""
+    condition. `noise` [R] in [0, 1) perturbs the sample lattice (training);
+    `image_hw` enables `entry_mode='probe'`."""
     if 0 < opts.color_topk < opts.num_samples:
         raise NotImplementedError("color_topk is not ported (ROADMAP queue A item 2)")
     if 0.0 < opts.compact_frac < 1.0:
@@ -74,7 +77,7 @@ def render_rays(field_fn, rays_o, rays_d, occupancy, bound: float, min_near: flo
             n_probe=opts.n_probe, min_near=min_near)
     m = raymarch.march_rays_interval(
         rays_o, rays_d, nears, fars, occ_box, bound=bound, max_steps=opts.max_steps,
-        num_samples=S, min_near=min_near, grid_size=occupancy.shape[0],
+        num_samples=S, noise=noise, min_near=min_near, grid_size=occupancy.shape[0],
         t_entry=t_entry, t_exit=t_exit)
 
     N = R * S

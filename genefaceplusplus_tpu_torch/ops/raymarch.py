@@ -3,8 +3,9 @@ interval path of `genefaceplusplus_tpu/ops/raymarch.py`).
 
 Ported: `near_far_from_aabb`, `occupancy_lookup`, `occupancy_aabb`,
 `coarsen_occupancy`, `probe_entry_exit`, `entry_exit_depth_map` and
-`march_rays_interval`. The grid-mode marcher and the entry-only probe are
-not on the serving path (ROADMAP queue A, items 2 and 7).
+`march_rays_interval` (with training's `noise`). The grid-mode marcher and
+the entry-only probe are on neither the serving nor the training path
+(ROADMAP queue A, items 2 and 7).
 
 Conversions from JAX: `lax.reduce_window` SAME 3x3 max is
 `max_pool2d(3, 1, padding=1)`; the ones-kernel dilation conv is
@@ -137,12 +138,14 @@ def entry_exit_depth_map(rays_o, rays_d, occupancy, occ_aabb, bound: float,
 
 
 def march_rays_interval(rays_o, rays_d, nears, fars, occ_aabb, bound: float = 1.0,
-                        max_steps: int = 16, num_samples: int = 16, min_near: float = 0.05,
+                        max_steps: int = 16, num_samples: int = 16,
+                        noise: Optional[torch.Tensor] = None, min_near: float = 0.05,
                         grid_size: int = 128, t_entry: Optional[torch.Tensor] = None,
                         t_exit: Optional[torch.Tensor] = None) -> MarchResult:
     """Place `num_samples` lattice samples per ray over the occupied
     interval; with `t_exit` the per-ray spacing stretches over the probed
-    span (dt_ray = max(dt_min, (t_exit - t0) / S))."""
+    span (dt_ray = max(dt_min, (t_exit - t0) / S)). `noise` [R] in [0, 1)
+    shifts each ray's lattice by noise * dt_ray (training's perturb)."""
     R = rays_o.shape[0]
     dt_min, _ = step_size(grid_size, 1, max_steps)
     n2, f2 = near_far_from_aabb(rays_o, rays_d, occ_aabb, min_near)
@@ -158,6 +161,8 @@ def march_rays_interval(rays_o, rays_d, nears, fars, occ_aabb, bound: float = 1.
         dt_ray = torch.clamp((te - t0) / float(num_samples), min=dt_min)[:, None]
     else:
         dt_ray = torch.full((R, 1), dt_min, dtype=rays_o.dtype, device=rays_o.device)
+    if noise is not None:
+        t0 = t0 + dt_ray[:, 0] * noise
     steps = torch.arange(num_samples, dtype=torch.float32, device=rays_o.device)
     t_start = t0[:, None] + steps[None, :] * dt_ray  # [R, S]
     t_end = t_start + dt_ray

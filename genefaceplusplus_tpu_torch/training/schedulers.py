@@ -1,0 +1,98 @@
+"""The exponential LR schedule and the grouped RAD-NeRF Adam (port of
+`exponential_schedule`, `_radnerf_group`, `grad_norms_by_group` and
+`make_radnerf_optimizer` in `genefaceplusplus_tpu/training/schedulers.py`).
+
+The optimizer is `torch.optim.Adam` (eps 1e-15, betas 0.9 / 0.999) with
+one parameter group per label: net x1, grid x10 (the Fourier `B`s), att x5.
+Before each step every group's lr is set to schedule(count) * its
+multiplier, where count is the number of steps taken so far, as optax's
+`scale_by_schedule` does under `multi_transform`. A parameter without a
+gradient steps with a zero gradient, as optax's Adam does.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Iterable, Tuple
+
+import torch
+
+GROUP_MULT = {"net": 1.0, "grid": 10.0, "att": 5.0}
+
+
+def exponential_schedule(lr: float, warmup_updates: int = 0, floor: float = 1e-5,
+                         decay_steps: int = 250_000) -> Callable[[int], float]:
+    def sched(step) -> float:
+        step = float(step)
+        out = max(lr * (0.1 ** (step / decay_steps)), floor)
+        if warmup_updates > 0 and step <= warmup_updates:
+            out = max(lr * min(step / warmup_updates, 1.0), floor)
+        return out
+
+    return sched
+
+
+def _radnerf_group(name: str) -> str:
+    """Label of a parameter by its dotted name: grid (Fourier encoders),
+    att (the condition attention net) or net."""
+    if "position_embedder" in name or "ambient_embedder" in name or "torso_embedder" in name:
+        return "grid"
+    if "cond_att_net" in name:
+        return "att"
+    return "net"
+
+
+def grad_norms_by_group(named_grads: Iterable[Tuple[str, torch.Tensor]],
+                        group_fn=_radnerf_group) -> Dict[str, torch.Tensor]:
+    """Per-group L2 gradient norms and the total, as a metrics dict."""
+    sq: Dict[str, torch.Tensor] = {}
+    for name, g in named_grads:
+        k = group_fn(name)
+        sq[k] = sq.get(k, 0.0) + torch.sum(torch.square(g.float()))
+    out = {f"grad_norm/{k}": torch.sqrt(v) for k, v in sq.items()}
+    out["grad_norm/total"] = torch.sqrt(sum(sq.values()))
+    return out
+
+
+class RADNeRFAdam:
+    """Adam over a module's parameters in the RAD-NeRF groups."""
+
+    def __init__(self, model: torch.nn.Module, lr: float = 5e-4, warmup_updates: int = 0,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15):
+        groups: Dict[str, list] = {k: [] for k in GROUP_MULT}
+        for name, p in model.named_parameters():
+            groups[_radnerf_group(name)].append(p)
+        self.params = [p for _, p in model.named_parameters()]
+        self.sched = exponential_schedule(lr, warmup_updates)
+        self.opt = torch.optim.Adam(
+            [{"params": ps, "mult": GROUP_MULT[k], "label": k} for k, ps in groups.items() if ps],
+            lr=lr, betas=(b1, b2), eps=eps)
+        self.count = 0
+
+    def zero_grad(self):
+        self.opt.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self):
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        lr = self.sched(self.count)
+        for g in self.opt.param_groups:
+            g["lr"] = lr * g["mult"]
+        self.opt.step()
+        self.count += 1
+
+    def state_dict(self):
+        return {"opt": self.opt.state_dict(), "count": self.count}
+
+    def load_state_dict(self, d):
+        self.opt.load_state_dict(d["opt"])
+        self.count = int(d["count"])
+
+
+def make_radnerf_optimizer(lr: float = 5e-4, warmup_updates: int = 0, b1: float = 0.9,
+                           b2: float = 0.999, eps: float = 1e-15) -> Callable[[torch.nn.Module], RADNeRFAdam]:
+    """Adam with RAD-NeRF param groups (grid x10, att x5, rest x1), as a
+    function of the module it steps: `make_radnerf_optimizer(lr)(model)`."""
+    return functools.partial(RADNeRFAdam, lr=lr, warmup_updates=warmup_updates, b1=b1, b2=b2, eps=eps)

@@ -6,7 +6,9 @@ flax `Dense` kernels `[in, out]` become `Linear` weights `[out, in]`; flax
 `Embed.embedding` becomes `Embedding.weight`. Module paths map `Conv_i` ->
 `convs.i`, `Dense_i` -> `dense.i`, `blink_encoder_i` -> `blink_encoder.i`.
 Every leaf must land on a port parameter of the same shape, and every port
-parameter must receive one: anything else raises.
+parameter must receive one: anything else raises. A JAX `TrainState`'s
+`params` (and a gradient tree of the same structure) convert the same way,
+so a port optimizer can start from them (`TrainState.model.load_state_dict`).
 """
 
 from __future__ import annotations

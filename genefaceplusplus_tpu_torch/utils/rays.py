@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -17,13 +17,15 @@ def get_bg_coords(H: int, W: int, device=None) -> torch.Tensor:
 
 
 def pixel_rays(poses: torch.Tensor, intrinsics: Tuple[float, float, float, float],
-               H: int, W: int):
-    """Rays through every pixel, row-major.
+               H: int, W: int, inds: Optional[torch.Tensor] = None):
+    """Rays through pixels, row-major.
 
-    poses: [B, 4, 4] c2w; intrinsics: (fx, fy, cx, cy).
-    Returns rays_o, rays_d [B, H*W, 3]."""
+    poses: [B, 4, 4] c2w; intrinsics: (fx, fy, cx, cy); inds: optional
+    [B, N] flat pixel indices (i * W + j), None for all H*W pixels.
+    Returns rays_o, rays_d [B, N, 3]."""
     fx, fy, cx, cy = intrinsics
-    inds = torch.arange(H * W, dtype=torch.int32, device=poses.device)
+    if inds is None:
+        inds = torch.arange(H * W, dtype=torch.int32, device=poses.device)[None]
     i = (inds % W).float() + 0.5
     j = torch.div(inds, W, rounding_mode="floor").float() + 0.5
     zs = torch.ones_like(i)
@@ -31,6 +33,6 @@ def pixel_rays(poses: torch.Tensor, intrinsics: Tuple[float, float, float, float
     ys = (j - cy) / fy * zs
     directions = torch.stack([xs, ys, zs], dim=-1)
     directions = directions / torch.linalg.norm(directions, dim=-1, keepdim=True)
-    rays_d = torch.einsum("nc,brc->bnr", directions, poses[:, :3, :3])
+    rays_d = torch.einsum("bnc,brc->bnr", directions.expand(poses.shape[0], -1, -1), poses[:, :3, :3])
     rays_o = poses[:, None, :3, 3].expand(rays_d.shape)
     return rays_o, rays_d
