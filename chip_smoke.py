@@ -11,6 +11,8 @@ Phases (any failure exits non-zero, and no result line is printed):
   kernel      the fused-field forward kernel vs its plain PyTorch version and
               vs the float32 model field, at the 512^2 x 10-sample serving
               size (2,621,440 points), with seeded weights and inputs; timed
+              in turns with the plain version, against its bound, beside
+              its ptxas report
   kernel_bwd  the fused-field backward kernel vs its plain PyTorch version at
               the training size (65,536 rays x 16 samples = 1,048,576
               points), all 14 gradient blocks, twice (bit-identical); timed
@@ -33,6 +35,7 @@ non-zero before printing either.
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -78,6 +81,29 @@ BWD_ALL = (0.995, 0.04, 0.15)
 FWD_CLEAN = 3e-5
 BWD_CLEAN = (0.9999, 0.005, 0.03)
 BWD_PERMUTED_MAX_REL = 1e-4  # kernel on permuted points vs kernel: float32 summation order only
+
+# bounds: the function's bf16 multiply-adds a point, at their live widths
+# (no padding a kernel adds), at the H100's dense bf16 peak, against the
+# bytes each point moves at its HBM rate. The float32 Fourier projections
+# (3 x 128 + 3 x 64 multiply-adds a point) run beside them on the CUDA cores.
+PEAK_BF16_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+AMB_OUT = 3
+# (K, N) of the eight forward products: amb_w1..3, sig_w1 (pos_feat |
+# amb_feat), sig_w2, sig_w3 (sigma + geo), col_w1 (SH | geo), col_w2
+FWD_PRODUCTS = ((256, 128), (128, 128), (128, AMB_OUT), (384, 128), (128, 128), (128, 129), (144, 128), (128, 3))
+FWD_MACS = sum(k * n for k, n in FWD_PRODUCTS)  # 150,400
+# the backward: the forward recomputed; the weight gradient of each product,
+# of pos_B (3 x 128) and of amb_B (3 x 64); the input gradient of each
+# product but SH's rows of col_w1, and of amb_B (64 -> 3)
+BWD_MACS = FWD_MACS + (FWD_MACS + 3 * 128 + 3 * 64) + (FWD_MACS - 16 * 128 + 64 * AMB_OUT)  # 449,920
+FWD_BYTES, BWD_BYTES = 52, 52  # xyz, dirs in + sigma, rgb, amb out; xyz, dirs, three output grads in
+
+
+def kernel_bound(n: int, macs: int, point_bytes: int, fixed_bytes: int = 0):
+    """(bound ms, "operations" or "bytes") for n points."""
+    ops_ms = 2.0 * macs * n / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = (point_bytes * n + fixed_bytes) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def card_line() -> str:
@@ -127,6 +153,13 @@ def errors(a, b):
     return out
 
 
+def ptxas_report(lib) -> list:
+    """The -Xptxas -v lines of a built kernel library: entries, registers,
+    shared memory, spills."""
+    return [line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line]
+
+
 def phase_build():
     from genefaceplusplus_tpu_torch.ops import fused_field as ff
 
@@ -135,9 +168,10 @@ def phase_build():
     print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
         print(f"[build] {name}: {lib.relative_to(os.getcwd()) if lib.is_relative_to(os.getcwd()) else lib}")
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"[build] {name} ptxas: {line.strip()}")
+        for line in ptxas_report(lib):
+            print(f"[build] {name} ptxas: {line}")
+        spills = [int(v) for x in ptxas_report(lib) for v in re.findall(r"(\d+) bytes spill", x)]
+        check(not any(spills), f"{name} spills registers")
 
 
 def phase_kernel(dev):
@@ -195,15 +229,23 @@ def phase_kernel(dev):
         for fn in (run_plain, run_kernel):
             cuda_ms(fn, 2)  # warm-up
         t_k, t_p = [], []
-        for _ in range(3):  # in turns: plain, kernel, kernel, plain
+        for _ in range(4):  # in turns: plain, kernel, kernel, plain
             t_p += cuda_ms(run_plain, 1)
             t_k += cuda_ms(run_kernel, 2)
             t_p += cuda_ms(run_plain, 1)
     ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
+    bound_ms, bound_by = kernel_bound(N_POINTS, FWD_MACS, FWD_BYTES)
+    tile, step, smem = ff.fwd_config(ff._library("fused_field"))
+    print(f"[kernel] {card_line()}; ptxas: " + "; ".join(
+        x for x in ptxas_report(ff.build_kernels(["fused_field"])["fused_field"]) if "Compiling" not in x)
+          + f"; {smem} bytes of dynamic shared memory a block; {tile} points a consumer tile, {step} a block step")
     print(f"[kernel] time at {N_POINTS} points: kernel median {ms:.4f} ms "
           f"(min {min(t_k):.4f}, max {max(t_k):.4f}, n={len(t_k)}); plain median "
           f"{plain_ms:.4f} ms (min {min(t_p):.4f}, max {max(t_p):.4f}, n={len(t_p)})")
-    return {"max_abs_err": max(e["rgb"][0], e["amb"][0]), "ms": ms, "plain_ms": plain_ms}
+    print(f"[kernel] {2.0 * FWD_MACS * N_POINTS / ms / 1e9:.1f} TFLOP/s; bound {bound_ms:.4f} ms "
+          f"({bound_by}): {100.0 * bound_ms / ms:.1f} % of the bound")
+    return {"max_abs_err": max(e["rgb"][0], e["amb"][0]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_serve(dev):
@@ -375,10 +417,12 @@ def phase_kernel_bwd(dev):
             t_k += cuda_ms(run_kernel, 2)
             t_p += cuda_ms(run_plain, 1)
     ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
+    bound_ms, bound_by = kernel_bound(n, BWD_MACS, BWD_BYTES, 4 * ff.PACKED_SIZE)
     print(f"[kernel_bwd] time at {n} points: kernel median {ms:.4f} ms "
           f"(min {min(t_k):.4f}, max {max(t_k):.4f}, n={len(t_k)}); plain median "
           f"{plain_ms:.4f} ms (min {min(t_p):.4f}, max {max(t_p):.4f}, n={len(t_p)})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    print(f"[kernel_bwd] bound {bound_ms:.4f} ms ({bound_by}): {100.0 * bound_ms / ms:.1f} % of the bound")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_train(dev):
@@ -490,12 +534,14 @@ def main() -> int:
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:156",
         "launches": serve_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-        "plain_ms": k["plain_ms"]}, {
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+        "library_ms": None}, {
         "name": "fused_field_backward", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field_bwd.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:278",
         "launches": train_bwd, "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
-        "plain_ms": kb["plain_ms"]}]}))
+        "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
+        "library_ms": None}]}))  # no single PyTorch call computes the fused field or its backward
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -7,175 +7,450 @@
 //   -> SH16(dirs) -> colour MLP x2 (ind code folded into a bias row) -> sigmoid
 // at the flagship width (pos 128, amb 64, hidden 128, geo 128, cond 64).
 //
-// What bounds it on an H100: arithmetic. A point costs ~150k multiply-adds in
-// nine small products (K <= 384, N <= 144) against 52 bytes of device traffic
-// (xyz and dirs in, sigma, rgb and amb out), thousands of FLOP per byte, far
-// above the card's bf16 ridge of ~295. The weights (~0.33 MB that are read)
-// exceed a block's 227 KB of shared memory but stay resident in the 50 MB L2.
+// What bounds it on an H100: arithmetic. A point costs 150,400 multiply-adds
+// at their live widths in eight dependent products (K <= 384, N <= 129;
+// the kernel issues 152,576, padding N to 8 or 136) against 52 bytes of
+// device traffic (xyz and dirs in, sigma, rgb and amb out): 0.797 ms of
+// dense bf16 tensor-core work for a 512^2 x 10-sample frame. The weights the products
+// read (298 KB) exceed a block's shared memory, so they stream from L2.
 //
-// What the design does about it: a block of 4 warps carries a tile of 64
-// points through the whole chain. Activations never leave shared memory. Every
-// product runs on the tensor cores (WMMA m16n16k16, bf16 inputs, f32
-// accumulation); each warp owns whole 16-column strips of a layer's output for
-// all 64 rows, so each weight fragment is read from L2 once per tile and used
-// four times. The padding of the TPU layout is skipped: the narrow layers run
-// 16 output columns (144 for sigma|geo), not 128 (256). Activations round to
-// bf16 at the same places as the Pallas kernel (pos_feat, each post-ReLU
-// hidden, amb_feat, geo, SH16); the Fourier projections and every
-// nonlinearity stay f32 on the CUDA cores (FMAs, never TF32; expf, rintf and
-// true division). Only live data moves: [N,3] inputs, [N] and [N,3] outputs,
-// and the ragged last tile is masked here, with no host-side padding.
-//
-// The fast math, SH16 and the tile product live in fused_field_common.cuh,
-// shared with the backward kernel (fused_field_bwd.cu).
+// What the design does about it:
+// - Every product is a warpgroup product (wgmma m64nNk16, bf16 in, f32
+//   sums), one consumer warpgroup per 64-point tile. The A operand of each
+//   hidden layer comes from registers: a layer's f32 accumulator gets bias,
+//   ReLU and bf16 rounding in registers and is the next layer's A fragment
+//   (sm90.cuh), with no shared-memory round trip and no block barrier.
+//   amb_feat and SH16 are computed straight into A fragments.
+// - Persistent: one block per SM walks steps of NCONS x 64 points, NCONS =
+//   3 consumer warpgroups. One producer thread streams the weights, packed
+//   on the host in the wgmma layout (ops/fused_field.py,
+//   pack_field_weights), chunk by chunk with bulk copies into a ring of
+//   NSTAGE shared-memory stages (mbarriers full/empty); every consumer reads
+//   each staged chunk, so a weight byte fetched from L2 serves 192 points.
+// - The position features (256 sin/cos a point, the largest CUDA-core job)
+//   do not wait in the consumers' chain: the producer warpgroup's other
+//   three warps compute them ahead into a ring of NPOS pos_feat tiles in
+//   shared memory (mbarriers pos_full/pos_empty), which the two layers that
+//   read pos_feat take as descriptor operands. The consumers run
+//   unsynchronised but for the rings, so one warpgroup's CUDA-core work
+//   (epilogues) overlaps another's products; amb_feat and SH16 are computed
+//   while the warpgroup's own products that do not need them are in
+//   flight; setmaxnreg moves the producers' registers to the consumers.
+// Measured on an H100 (PERF.md): about half of the bound; what is left is
+// mostly the position features, which three warps only just keep ahead of.
+// Rounding points are the Pallas kernel's: bf16 at pos_feat, each post-ReLU
+// hidden layer, amb_feat, geo and SH16; the Fourier phases as the f32 FMA
+// chain; rintf inside fast_sin; expf(clip(+-15)) for sigma; sigmoid by true
+// division; f32 sums in every product (never TF32), k in ascending 16-steps.
+// The padding of the TPU layout is skipped (N = 8 for the 3-wide outputs,
+// 136 for sigma|geo) and the ragged last tile is masked here.
 //
 // Build (no PyTorch headers; loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libfused_field.so fused_field.cu
 
 #include "fused_field_common.cuh"
+#include "sm90.cuh"
 
 using gfpp::bf16;
 using gfpp::fast_cos;
 using gfpp::fast_sin;
 using gfpp::fast_tanh;
-using gfpp::sh16;
+using namespace gfpp::sm90;
 
 namespace {
 
-constexpr int TM = 64;                 // points per block
-constexpr int NWARP = 4;
-constexpr int NTHREAD = 32 * NWARP;
-constexpr int AMB = 3;                 // ambient coordinate dim
-constexpr int LDX = 384 + 8;           // [pos_feat 256 | amb_feat 128] bf16 rows
-constexpr int LDH = 144 + 8;           // hidden, or [SH 16 | geo 128], bf16 rows
-constexpr int LDC = 144 + 4;           // f32 product tile rows
-constexpr int SMEM_X = sizeof(bf16) * TM * LDX;
-constexpr int SMEM_H = sizeof(bf16) * TM * LDH;
-constexpr int SMEM_C = sizeof(float) * TM * LDC;
-constexpr int SMEM_P = sizeof(float) * TM * 9;  // xyz, dirs, ambient coordinate
-constexpr int SMEM_BYTES = SMEM_X + SMEM_H + SMEM_C + SMEM_P;
+constexpr int TM = 64;     // points per consumer warpgroup
+constexpr int NCONS = 3;   // consumer warpgroups sharing each weight chunk
+constexpr int NTHREAD = 128 * (1 + NCONS);  // warpgroup 0 produces
+constexpr int NSTAGE = 3;  // weight ring depth
+constexpr int NPOS = 5;    // pos_feat ring depth
+// registers: each thread starts with the launch bound's share (128 a thread
+// at 512 threads); the producers give theirs down to 56, the consumers take
+// them (152)
+constexpr int LAUNCH_REGS = 65536 / NTHREAD / 8 * 8, PRODUCER_REGS = 56;
+constexpr int CONSUMER_REGS = (65536 - 128 * PRODUCER_REGS) / (128 * NCONS) / 8 * 8;
+static_assert(CONSUMER_REGS >= LAUNCH_REGS && CONSUMER_REGS <= 256, "register split");
 
-// H[:, 0:128] = bf16(relu(C[:, 0:128] + bias)), bias optional
-__device__ __forceinline__ void relu_to_bf16(const float* C, const float* __restrict__ bias, bf16* H) {
-  for (int i = threadIdx.x; i < TM * 128; i += NTHREAD) {
-    const int p = i >> 7, j = i & 127;
-    float v = C[p * LDC + j];
-    if (bias != nullptr) v += bias[j];
-    H[p * LDH + j] = __float2bfloat16_rn(fmaxf(v, 0.0f));
+// The packed weight stream, in the order the products read it: each layer's
+// B operand (N rows x K, K-major, sm90.cuh layout), cut into chunks of whole
+// k16 steps. {k16 steps, N, k16 steps per chunk}; ops/fused_field.py's
+// FWD_LAYERS is the same table (checked when the library loads).
+constexpr int SPEC[8][3] = {
+    {16, 128, 4},  // amb_w1 rows 0..255 (pos_feat)
+    {8, 128, 4},   // amb_w2
+    {8, 8, 8},     // amb_w3 columns 0..2, zero-padded to 8
+    {24, 128, 4},  // sig_w1: pos_feat 256 | amb_feat 128
+    {8, 128, 4},   // sig_w2
+    {8, 136, 4},   // sig_w3 columns 1..128 (geo), then column 0 (sigma) + 7 zero columns
+    {9, 128, 3},   // col_w1 rows 0..143: SH 16 | geo 128
+    {8, 8, 8},     // col_w2 columns 0..2, zero-padded to 8
+};
+
+template <int L>
+struct Layer {
+  static constexpr int ksteps = SPEC[L][0], n = SPEC[L][1], chunk = SPEC[L][2];
+  static constexpr int nchunk = ksteps / chunk;
+  static constexpr int kstep_bytes = n * 32, chunk_bytes = chunk * kstep_bytes;
+  static_assert(ksteps % chunk == 0, "whole chunks");
+};
+
+constexpr int STAGE_BYTES = Layer<5>::chunk_bytes;  // the largest chunk, 17,408 bytes
+constexpr int POS_BYTES = TM * 256 * 2;             // one tile's pos_feat (16 k16 steps of A)
+constexpr int PARAM_FLOATS = 3 * 128 + 3 * 64 + 128 + 128;  // pos_B, amb_B, amb_bias, col_bias
+constexpr int OFF_POS = NSTAGE * STAGE_BYTES;
+constexpr int OFF_PARAM = OFF_POS + NPOS * POS_BYTES;
+constexpr int OFF_BAR = OFF_PARAM + PARAM_FLOATS * 4;
+constexpr int SMEM_BYTES = OFF_BAR + 2 * (NSTAGE + NPOS) * 8;
+static_assert(STAGE_BYTES % 128 == 0 && POS_BYTES % 128 == 0 && OFF_BAR % 8 == 0, "alignment");
+static_assert(SMEM_BYTES <= 232448, "shared memory");
+
+// the ring's read side, as one consumer warpgroup walks it
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t base;  // shared address of stage 0
+  int stage, prev;
+  uint32_t phase;
+
+  __device__ __forceinline__ void release(int s) const {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[s]);  // one arrival per warp
+  }
+  __device__ __forceinline__ void advance() {
+    prev = stage;
+    if (++stage == NSTAGE) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// One layer's product: for each chunk, wait for it, start its k steps
+// (products(k, B descriptor address)), run after(c) (CUDA-core work that
+// overlaps the products in flight), and release the previous chunk's stage
+// once its products have completed. Returns with every product done.
+template <int L, class Products, class After>
+__device__ __forceinline__ void layer(Ring& r, Products&& products, After&& after) {
+  using S = Layer<L>;
+#pragma unroll
+  for (int c = 0; c < S::nchunk; ++c) {
+    mbar_wait(&r.full[r.stage], r.phase);
+    const uint32_t b = r.base + r.stage * STAGE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < S::chunk; ++kk) products(c * S::chunk + kk, b + kk * S::kstep_bytes);
+    wgmma_commit();
+    after(c);
+    if (c > 0) {
+      wgmma_wait<1>();
+      r.release(r.prev);
+    }
+    r.advance();
+  }
+  wgmma_wait<0>();
+  r.release(r.prev);
+}
+
+template <int L, class Products>
+__device__ __forceinline__ void layer(Ring& r, Products&& products) {
+  layer<L>(r, products, [](int) {});
+}
+
+// The producer's side of one layer: each chunk into the next free stage.
+template <int L>
+__device__ __forceinline__ void produce(const unsigned char*& src, unsigned char* stages, uint64_t* full,
+                                        uint64_t* empty, int& stage, uint32_t& phase) {
+  using S = Layer<L>;
+#pragma unroll 1
+  for (int c = 0; c < S::nchunk; ++c) {
+    mbar_wait(&empty[stage], phase ^ 1u);
+    mbar_arrive_expect_tx(&full[stage], S::chunk_bytes);
+    bulk_copy(stages + stage * STAGE_BYTES, src, S::chunk_bytes, &full[stage]);
+    src += S::chunk_bytes;
+    if (++stage == NSTAGE) {
+      stage = 0;
+      phase ^= 1u;
+    }
   }
 }
 
-__global__ void __launch_bounds__(NTHREAD, 2) fused_field_kernel(
-    const float* __restrict__ xyz,       // [n, 3]
-    const float* __restrict__ dirs,      // [n, 3]
+// pos_feat of the 64-point tile at `base` into `buf` (A operand, 16 k16
+// steps: sin at k = f, cos at k = 128 + f, bf16). The tile is 32 units of
+// (8-feature chunk, 32 rows); feature warp fw of 3 takes units fw, fw + 3,
+// ... (11, 11 and 10 units), its lane one row of each.
+__device__ __forceinline__ void position_features(unsigned char* buf, const float* __restrict__ xyz, int n,
+                                                  int base, const float* P, int fw, int lane) {
+  float x[2][3];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = base + lane + 32 * h;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) x[h][j] = p < n ? xyz[3 * p + j] : 0.0f;
+  }
+  for (int u = fw; u < 32; u += 3) {
+    const int c = u >> 1, h = u & 1, r = lane + 32 * h;
+    const float x0 = h ? x[1][0] : x[0][0], x1 = h ? x[1][1] : x[0][1], x2 = h ? x[1][2] : x[0][2];
+    float b[3][8];  // rows 0..2 of pos_B, features 8c .. 8c + 7
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float4 lo = *reinterpret_cast<const float4*>(P + 128 * i + 8 * c);
+      const float4 hi = *reinterpret_cast<const float4*>(P + 128 * i + 8 * c + 4);
+      b[i][0] = lo.x, b[i][1] = lo.y, b[i][2] = lo.z, b[i][3] = lo.w;
+      b[i][4] = hi.x, b[i][5] = hi.y, b[i][6] = hi.z, b[i][7] = hi.w;
+    }
+    uint32_t sn[4], cs[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p0 = fmaf(x2, b[2][2 * e], fmaf(x1, b[1][2 * e], x0 * b[0][2 * e]));
+      const float p1 = fmaf(x2, b[2][2 * e + 1], fmaf(x1, b[1][2 * e + 1], x0 * b[0][2 * e + 1]));
+      sn[e] = pack_bf16(fast_sin(p0), fast_sin(p1));
+      cs[e] = pack_bf16(fast_cos(p0), fast_cos(p1));
+    }
+    const int off = (c >> 1) * 2048 + ((r >> 3) * 2 + (c & 1)) * 128 + (r & 7) * 16;
+    *reinterpret_cast<uint4*>(buf + off) = make_uint4(sn[0], sn[1], sn[2], sn[3]);
+    *reinterpret_cast<uint4*>(buf + 8 * 2048 + off) = make_uint4(cs[0], cs[1], cs[2], cs[3]);
+  }
+}
+
+// column of accumulator register i (m64nN layout), for lane quad position t
+__device__ __forceinline__ int acc_col(int i, int t) { return 8 * (i >> 2) + 2 * t + (i & 1); }
+
+// next layer's A fragments: bf16(relu(acc + bias)), bias optional
+template <bool BIAS, bool RELU>
+__device__ __forceinline__ void to_fragments(const float (&d)[64], const float* bias, uint32_t (&h)[8][4], int t) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 8 * s + 2 * i;
+      float v0 = d[j], v1 = d[j + 1];
+      if (BIAS) {
+        const int col = acc_col(j, t);
+        v0 += bias[col];
+        v1 += bias[col + 1];
+      }
+      if (RELU) {
+        v0 = fmaxf(v0, 0.0f);
+        v1 = fmaxf(v1, 0.0f);
+      }
+      h[s][i] = pack_bf16(v0, v1);
+    }
+}
+
+__global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
+    const float* __restrict__ xyz,             // [n, 3]
+    const float* __restrict__ dirs,            // [n, 3]
     int n,
-    const float* __restrict__ pos_B,     // [8, 128] f32, rows 0..2 live (2 pi / bound folded in)
-    const bf16* __restrict__ amb_w1,     // [384, 128], rows 0..255 (pos_feat) read
-    const bf16* __restrict__ amb_w2,     // [128, 128]
-    const bf16* __restrict__ amb_w3,     // [128, 128], columns 0..15 read (3 live)
-    const float* __restrict__ amb_B,     // [128, 64] f32, rows 0..2 live (2 pi folded in)
-    const bf16* __restrict__ sig_w1,     // [384, 128] rows: pos_feat 256 | amb_feat 128
-    const bf16* __restrict__ sig_w2,     // [128, 128]
-    const bf16* __restrict__ sig_w3,     // [128, 256], columns 0..143 read (129 live)
-    const bf16* __restrict__ col_w1,     // [256, 128], rows 0..143 read (SH 16 | geo 128)
-    const bf16* __restrict__ col_w2,     // [128, 128], columns 0..15 read (3 live)
-    const float* __restrict__ amb_bias,  // [128] bf16(cond) . amb_w1[256:], as f32
-    const float* __restrict__ col_bias,  // [128] bf16(ind) . col_w1[144:160], as f32
-    float* __restrict__ sigma_out,       // [n]
-    float* __restrict__ rgb_out,         // [n, 3]
-    float* __restrict__ amb_out) {       // [n, 3]
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem);
-  bf16* H = reinterpret_cast<bf16*>(smem + SMEM_X);
-  float* C = reinterpret_cast<float*>(smem + SMEM_X + SMEM_H);
-  float* PX = reinterpret_cast<float*>(smem + SMEM_X + SMEM_H + SMEM_C);
-  float* PD = PX + TM * 3;
-  float* PA = PX + TM * 6;
+    const unsigned char* __restrict__ packed,  // the weight stream (SPEC)
+    const float* __restrict__ pos_B,           // [8, 128] f32, rows 0..2 live (2 pi / bound folded in)
+    const float* __restrict__ amb_B,           // [128, 64] f32, rows 0..2 live (2 pi folded in)
+    const float* __restrict__ amb_bias,        // [128] bf16(cond) . amb_w1[256:], as f32
+    const float* __restrict__ col_bias,        // [128] bf16(ind) . col_w1[144:160], as f32
+    float* __restrict__ sigma_out,             // [n]
+    float* __restrict__ rgb_out,               // [n, 3]
+    float* __restrict__ amb_out) {             // [n, 3]
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* P = reinterpret_cast<float*>(smem + OFF_PARAM);  // pos_B rows 0..2 | amb_B rows 0..2 | biases
+  float* AB = P + 384;
+  float* BIAS_AMB = AB + 192;
+  float* BIAS_COL = BIAS_AMB + 128;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);  // weight ring
+  uint64_t* empty = full + NSTAGE;
+  uint64_t* pos_full = empty + NSTAGE;  // pos_feat ring
+  uint64_t* pos_empty = pos_full + NPOS;
 
-  const int tid = threadIdx.x;
-  const int base = blockIdx.x * TM;
-  const int rows = min(TM, n - base);
-
-  // 0. stage the tile's inputs; rows past the ragged end read zeros
-  for (int i = tid; i < TM * 3; i += NTHREAD) {
-    const bool live = i < rows * 3;
-    PX[i] = live ? xyz[base * 3 + i] : 0.0f;
-    PD[i] = live ? dirs[base * 3 + i] : 0.0f;
+  for (int i = threadIdx.x; i < PARAM_FLOATS; i += NTHREAD)
+    P[i] = i < 384 ? pos_B[i] : i < 576 ? amb_B[i - 384] : i < 704 ? amb_bias[i - 576] : col_bias[i - 704];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NCONS);  // one arrival per consumer warp
+    }
+    for (int b = 0; b < NPOS; ++b) {
+      mbar_init(&pos_full[b], 3);   // one arrival per feature warp
+      mbar_init(&pos_empty[b], 4);  // one per warp of the consumer that read it
+    }
+    fence_mbar_init();
   }
   __syncthreads();
 
-  // 1. position Fourier features, rounded to bf16
-  for (int i = tid; i < TM * 128; i += NTHREAD) {
-    const int p = i >> 7, f = i & 127;
-    const float* x = PX + p * 3;
-    const float proj = fmaf(x[2], pos_B[256 + f], fmaf(x[1], pos_B[128 + f], x[0] * pos_B[f]));
-    X[p * LDX + f] = __float2bfloat16_rn(fast_sin(proj));
-    X[p * LDX + 128 + f] = __float2bfloat16_rn(fast_cos(proj));
-  }
-  __syncthreads();
+  const int nsuper = (n + NCONS * TM - 1) / (NCONS * TM);
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp > 0) {
+      // ---- feature warps: pos_feat of each tile, in the consumers' order ----
+      int j = 0;  // the block's tile count: step i, consumer cw -> NCONS i + cw
+      for (int st = blockIdx.x; st < nsuper; st += gridDim.x)
+        for (int cw = 0; cw < NCONS; ++cw, ++j) {
+          const int pb = j % NPOS;
+          mbar_wait(&pos_empty[pb], ((j / NPOS) & 1) ^ 1u);
+          position_features(smem + OFF_POS + pb * POS_BYTES, xyz, n, (st * NCONS + cw) * TM, P, warp - 1, lane);
+          fence_proxy_async();  // the writes, to the products that read them
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&pos_full[pb]);
+        }
+    } else if (lane == 0) {
+      // ---- weight producer: one thread streams the weights, step after step ----
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int st = blockIdx.x; st < nsuper; st += gridDim.x) {
+        const unsigned char* src = packed;
+        produce<0>(src, smem, full, empty, stage, phase);
+        produce<1>(src, smem, full, empty, stage, phase);
+        produce<2>(src, smem, full, empty, stage, phase);
+        produce<3>(src, smem, full, empty, stage, phase);
+        produce<4>(src, smem, full, empty, stage, phase);
+        produce<5>(src, smem, full, empty, stage, phase);
+        produce<6>(src, smem, full, empty, stage, phase);
+        produce<7>(src, smem, full, empty, stage, phase);
+      }
+    }
+  } else {
+    // ---- consumers: one 64-point tile each per step ----
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    Ring ring{full, empty, smem_addr(smem), 0, 0, 0u};
 
-  // 2. ambient MLP; the condition enters through amb_bias
-  gfpp::tile_matmul<TM, NWARP, 256, 128, LDX, 128, LDC>(X, amb_w1, C);
-  __syncthreads();
-  relu_to_bf16(C, amb_bias, H);
-  __syncthreads();
-  gfpp::tile_matmul<TM, NWARP, 128, 128, LDH, 128, LDC>(H, amb_w2, C);
-  __syncthreads();
-  relu_to_bf16(C, nullptr, H);
-  __syncthreads();
-  gfpp::tile_matmul<TM, NWARP, 128, 16, LDH, 128, LDC>(H, amb_w3, C);
-  __syncthreads();
+    for (int st = blockIdx.x, j = cw; st < nsuper; st += gridDim.x, j += NCONS) {
+      const int base = (st * NCONS + cw) * TM;
+      const int row_g = base + 16 * warp + g, row_h = row_g + 8;  // this thread's two rows
+      const int pb = j % NPOS;  // this tile's pos_feat
+      const uint32_t pos_addr = smem_addr(smem + OFF_POS + pb * POS_BYTES);
+      float dg[3] = {0.0f, 0.0f, 0.0f}, dh[3] = {0.0f, 0.0f, 0.0f};  // view dirs, for SH16
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        if (row_g < n) dg[i] = dirs[3 * row_g + i];
+        if (row_h < n) dh[i] = dirs[3 * row_h + i];
+      }
+      mbar_wait(&pos_full[pb], (j / NPOS) & 1);
 
-  // 3. ambient coordinate (f32) and its Fourier features
-  for (int i = tid; i < TM * AMB; i += NTHREAD) {
-    const int p = i / AMB, j = i % AMB;
-    const float a = fast_tanh(C[p * LDC + j]);
-    PA[i] = a;
-    if (i < rows * AMB) amb_out[base * AMB + i] = a;
-  }
-  __syncthreads();
-  for (int i = tid; i < TM * 64; i += NTHREAD) {
-    const int p = i >> 6, f = i & 63;
-    const float* a = PA + p * AMB;
-    const float proj = fmaf(a[2], amb_B[128 + f], fmaf(a[1], amb_B[64 + f], a[0] * amb_B[f]));
-    X[p * LDX + 256 + f] = __float2bfloat16_rn(fast_sin(proj));
-    X[p * LDX + 320 + f] = __float2bfloat16_rn(fast_cos(proj));
-  }
-  __syncthreads();
+      // 1. ambient MLP; the condition enters through amb_bias
+      float acc[64];
+      uint32_t h[8][4];
+      layer<0>(ring, [&](int k, uint32_t b) {
+        wgmma_m64n128k16_ss(acc, desc(pos_addr + k * 2048), desc(b), k > 0);
+      });
+      fence_regs(acc);
+      to_fragments<true, true>(acc, BIAS_AMB, h, t);
+      layer<1>(ring, [&](int k, uint32_t b) { wgmma_m64n128k16_rs(acc, h[k], desc(b), k > 0); });
+      fence_regs(acc);
+      to_fragments<false, true>(acc, nullptr, h, t);
+      float a8[4];
+      layer<2>(ring, [&](int k, uint32_t b) { wgmma_m64n8k16_rs(a8, h[k], desc(b), k > 0); });
+      fence_regs(a8);
 
-  // 4. sigma MLP over [pos_feat | amb_feat]
-  gfpp::tile_matmul<TM, NWARP, 384, 128, LDX, 128, LDC>(X, sig_w1, C);
-  __syncthreads();
-  relu_to_bf16(C, nullptr, H);
-  __syncthreads();
-  gfpp::tile_matmul<TM, NWARP, 128, 128, LDH, 128, LDC>(H, sig_w2, C);
-  __syncthreads();
-  relu_to_bf16(C, nullptr, H);
-  __syncthreads();
-  gfpp::tile_matmul<TM, NWARP, 128, 144, LDH, 256, LDC>(H, sig_w3, C);
-  __syncthreads();
+      // 2. ambient coordinate (f32): columns 0, 1 sit in lane t = 0, column
+      // 2 in t = 1; each lane of the quad gets all three for both its rows
+      {
+        const float tg0 = fast_tanh(a8[0]), tg1 = fast_tanh(a8[1]);
+        const float th0 = fast_tanh(a8[2]), th1 = fast_tanh(a8[3]);
+        if (t == 0) {
+          if (row_g < n) {
+            amb_out[3 * row_g] = tg0;
+            amb_out[3 * row_g + 1] = tg1;
+          }
+          if (row_h < n) {
+            amb_out[3 * row_h] = th0;
+            amb_out[3 * row_h + 1] = th1;
+          }
+        } else if (t == 1) {
+          if (row_g < n) amb_out[3 * row_g + 2] = tg0;
+          if (row_h < n) amb_out[3 * row_h + 2] = th0;
+        }
+        const int q = lane & ~3;
+        const float ag[3] = {__shfl_sync(0xffffffffu, tg0, q), __shfl_sync(0xffffffffu, tg1, q),
+                             __shfl_sync(0xffffffffu, tg0, q + 1)};
+        const float ah[3] = {__shfl_sync(0xffffffffu, th0, q), __shfl_sync(0xffffffffu, th1, q),
+                             __shfl_sync(0xffffffffu, th0, q + 1)};
+        // 3. sigma MLP over [pos_feat | amb_feat]. amb_feat, as A fragments
+        // (k steps 0..3 sin, 4..7 cos of the same phases), is computed a
+        // quarter at a time while the pos_feat products (chunks 0..3) run.
+        uint32_t af[8][4];
+        layer<3>(ring, [&](int k, uint32_t b) {
+          if (k < 16)
+            wgmma_m64n128k16_ss(acc, desc(pos_addr + k * 2048), desc(b), k > 0);
+          else
+            wgmma_m64n128k16_rs(acc, af[k >= 16 ? k - 16 : 0], desc(b), 1);
+        }, [&](int s) {
+          if (s < 4) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float* a = (i & 1) ? ah : ag;
+              const int f = 16 * s + 8 * (i >> 1) + 2 * t;
+              const float p0 = fmaf(a[2], AB[128 + f], fmaf(a[1], AB[64 + f], a[0] * AB[f]));
+              const float p1 = fmaf(a[2], AB[129 + f], fmaf(a[1], AB[65 + f], a[0] * AB[f + 1]));
+              af[s][i] = pack_bf16(fast_sin(p0), fast_sin(p1));
+              af[s + 4][i] = pack_bf16(fast_cos(p0), fast_cos(p1));
+            }
+          }
+        });
+        static_assert(Layer<3>::chunk == 4, "chunks 0..3 are the pos_feat k steps");
+      }
+      if (lane == 0) mbar_arrive(&pos_empty[pb]);  // done with pos_feat
+      fence_regs(acc);
+      to_fragments<false, true>(acc, nullptr, h, t);
+      layer<4>(ring, [&](int k, uint32_t b) { wgmma_m64n128k16_rs(acc, h[k], desc(b), k > 0); });
+      fence_regs(acc);
+      to_fragments<false, true>(acc, nullptr, h, t);
+      float s8[4];
+      uint32_t sh[4] = {0u, 0u, 0u, 0u};  // SH16 as the A fragment of col_w1's first k step
+      layer<5>(ring, [&](int k, uint32_t b) {
+        wgmma_m64n128k16_rs(acc, h[k], desc(b), k > 0);                          // geo
+        wgmma_m64n8k16_rs(s8, h[k], desc(b + Layer<5>::kstep_bytes - 256), k > 0);  // sigma
+      }, [&](int c) {
+        if (c == 0) {  // while the first geo products run
+          bf16 vg[16], vh[16];
+          gfpp::sh16(dg, vg);
+          gfpp::sh16(dh, vh);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (t == q) {
+              sh[0] = pack_bf16(__bfloat162float(vg[2 * q]), __bfloat162float(vg[2 * q + 1]));
+              sh[1] = pack_bf16(__bfloat162float(vh[2 * q]), __bfloat162float(vh[2 * q + 1]));
+              sh[2] = pack_bf16(__bfloat162float(vg[2 * q + 8]), __bfloat162float(vg[2 * q + 9]));
+              sh[3] = pack_bf16(__bfloat162float(vh[2 * q + 8]), __bfloat162float(vh[2 * q + 9]));
+            }
+        }
+      });
+      fence_regs(acc);
+      fence_regs(s8);
 
-  // 5. sigma = exp(clip(logit, -15, 15)); colour input [SH16 | bf16(geo)]
-  for (int p = tid; p < rows; p += NTHREAD)
-    sigma_out[base + p] = expf(fminf(fmaxf(C[p * LDC], -15.0f), 15.0f));
-  for (int i = tid; i < TM * 128; i += NTHREAD) {
-    const int p = i >> 7, j = i & 127;
-    H[p * LDH + 16 + j] = __float2bfloat16_rn(C[p * LDC + 1 + j]);
-  }
-  for (int p = tid; p < TM; p += NTHREAD) sh16(PD + p * 3, H + p * LDH);
-  __syncthreads();
+      // 4. sigma = exp(clip(logit, -15, 15)); colour input [SH16 | bf16(geo)]
+      if (t == 0) {
+        if (row_g < n) sigma_out[row_g] = expf(fminf(fmaxf(s8[0], -15.0f), 15.0f));
+        if (row_h < n) sigma_out[row_h] = expf(fminf(fmaxf(s8[2], -15.0f), 15.0f));
+      }
+      to_fragments<false, false>(acc, nullptr, h, t);
 
-  // 6. colour MLP; the individual code enters through col_bias
-  gfpp::tile_matmul<TM, NWARP, 144, 128, LDH, 128, LDC>(H, col_w1, C);
-  __syncthreads();
-  relu_to_bf16(C, col_bias, H);
-  __syncthreads();
-  gfpp::tile_matmul<TM, NWARP, 128, 16, LDH, 128, LDC>(H, col_w2, C);
-  __syncthreads();
-  for (int i = tid; i < rows * 3; i += NTHREAD) {
-    const int p = i / 3, j = i % 3;
-    rgb_out[base * 3 + i] = 1.0f / (1.0f + expf(-C[p * LDC + j]));
+      // 5. colour MLP; the individual code enters through col_bias
+      layer<6>(ring, [&](int k, uint32_t b) {
+        if (k == 0)
+          wgmma_m64n128k16_rs(acc, sh, desc(b), 0);
+        else
+          wgmma_m64n128k16_rs(acc, h[k > 0 ? k - 1 : 0], desc(b), 1);
+      });
+      fence_regs(acc);
+      to_fragments<true, true>(acc, BIAS_COL, h, t);
+      float c8[4];
+      layer<7>(ring, [&](int k, uint32_t b) { wgmma_m64n8k16_rs(c8, h[k], desc(b), k > 0); });
+      fence_regs(c8);
+      if (t == 0) {
+        if (row_g < n) {
+          rgb_out[3 * row_g] = 1.0f / (1.0f + expf(-c8[0]));
+          rgb_out[3 * row_g + 1] = 1.0f / (1.0f + expf(-c8[1]));
+        }
+        if (row_h < n) {
+          rgb_out[3 * row_h] = 1.0f / (1.0f + expf(-c8[2]));
+          rgb_out[3 * row_h + 1] = 1.0f / (1.0f + expf(-c8[3]));
+        }
+      } else if (t == 1) {
+        if (row_g < n) rgb_out[3 * row_g + 2] = 1.0f / (1.0f + expf(-c8[0]));
+        if (row_h < n) rgb_out[3 * row_h + 2] = 1.0f / (1.0f + expf(-c8[2]));
+      }
+    }
   }
 }
 
@@ -184,27 +459,49 @@ __global__ void __launch_bounds__(NTHREAD, 2) fused_field_kernel(
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-int gfpp_fused_field_forward(const void* xyz, const void* dirs, int n, const void* pos_B,
-                             const void* amb_w1, const void* amb_w2, const void* amb_w3,
-                             const void* amb_B, const void* sig_w1, const void* sig_w2,
-                             const void* sig_w3, const void* col_w1, const void* col_w2,
-                             const void* amb_bias, const void* col_bias, void* sigma,
-                             void* rgb, void* amb, void* stream) {
+// `packed` is pack_field_weights' stream (16-byte aligned, SPEC's layout).
+int gfpp_fused_field_forward(const void* xyz, const void* dirs, int n, const void* packed,
+                             const void* pos_B, const void* amb_B, const void* amb_bias,
+                             const void* col_bias, void* sigma, void* rgb, void* amb, void* stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_field_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(fused_field_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>((n + TM - 1) / TM);
+  // setmaxnreg's register moves assume the launch bound's full allocation
+  // (ptxas gives it to a kernel that uses setmaxnreg); refuse, not hang
+  cudaFuncAttributes attr;
+  if ((err = cudaFuncGetAttributes(&attr, fused_field_kernel)) != cudaSuccess) return static_cast<int>(err);
+  if (attr.numRegs != LAUNCH_REGS) return static_cast<int>(cudaErrorInvalidConfiguration);
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int nsuper = (n + NCONS * TM - 1) / (NCONS * TM);
+  const unsigned grid = static_cast<unsigned>(nsuper < sms ? nsuper : sms);
   fused_field_kernel<<<grid, NTHREAD, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz), static_cast<const float*>(dirs), n,
-      static_cast<const float*>(pos_B), static_cast<const bf16*>(amb_w1),
-      static_cast<const bf16*>(amb_w2), static_cast<const bf16*>(amb_w3),
-      static_cast<const float*>(amb_B), static_cast<const bf16*>(sig_w1),
-      static_cast<const bf16*>(sig_w2), static_cast<const bf16*>(sig_w3),
-      static_cast<const bf16*>(col_w1), static_cast<const bf16*>(col_w2),
-      static_cast<const float*>(amb_bias), static_cast<const float*>(col_bias),
-      static_cast<float*>(sigma), static_cast<float*>(rgb), static_cast<float*>(amb));
+      static_cast<const unsigned char*>(packed), static_cast<const float*>(pos_B),
+      static_cast<const float*>(amb_B), static_cast<const float*>(amb_bias),
+      static_cast<const float*>(col_bias), static_cast<float*>(sigma), static_cast<float*>(rgb),
+      static_cast<float*>(amb));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The weight stream's layout as the kernel reads it: row l of `spec` gets
+// SPEC[l] (k16 steps, N, k16 steps per chunk). Returns the number of layers.
+int gfpp_fused_field_layout(int* spec, int rows) {
+  for (int l = 0; l < 8 && l < rows; ++l)
+    for (int j = 0; j < 3; ++j) spec[3 * l + j] = SPEC[l][j];
+  return 8;
+}
+
+// Points per consumer tile and per persistent step (the tests' ragged
+// edges), and the block's dynamic shared memory in bytes.
+int gfpp_fused_field_tile(int* tile, int* step, int* smem_bytes) {
+  *tile = TM;
+  *step = NCONS * TM;
+  *smem_bytes = SMEM_BYTES;
+  return 0;
 }
 
 const char* gfpp_cuda_error_string(int code) {

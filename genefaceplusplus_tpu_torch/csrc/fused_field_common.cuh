@@ -1,7 +1,7 @@
-// Device functions shared by the fused head-field kernels (fused_field.cu,
-// the forward, and fused_field_bwd.cu, its backward): the fast sin/cos/tanh
-// of ops/fastmath.py, the SH16 basis of the Pallas kernel, and the tile
-// products on the tensor cores (WMMA m16n16k16, bf16 inputs, f32 sums).
+// Device functions of the fused head-field kernels: the fast sin/cos/tanh
+// of ops/fastmath.py and the SH16 basis of the Pallas kernel (both kernels),
+// and the backward's tile products on the tensor cores (fused_field_bwd.cu;
+// WMMA m16n16k16, bf16 inputs, f32 sums).
 //
 // Every product walks k in ascending 16-steps into one accumulator per
 // output fragment, whichever warp owns the fragment, so a block of 4 warps

@@ -24,6 +24,7 @@ from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
 from genefaceplusplus_tpu_torch.models.renderer import RenderOptions
 from genefaceplusplus_tpu_torch.ops import fused_field as ff
 from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+from genefaceplusplus_tpu_torch.utils.device import resolve_device
 from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
 
@@ -52,11 +53,12 @@ class GeneFaceInfer:
     cfg: the head config; params: a `RADNeRF` state_dict (random init, or
     converted from a JAX checkpoint by `utils.convert_jax`); dataset: the
     identity's poses, condition statistics and background; occupancy:
-    [G,G,G] bool density grid. Everything lives on `device`."""
+    [G,G,G] bool density grid. Everything lives on `device`: the CUDA card
+    unless another device is named (raises when there is no card)."""
 
     def __init__(self, cfg: RADNeRFConfig, params: Mapping[str, torch.Tensor],
-                 dataset: RADNeRFDataset, occupancy, device="cpu"):
-        self.device = torch.device(device)
+                 dataset: RADNeRFDataset, occupancy, device=None):
+        self.device = resolve_device(device)
         self.head_cfg = cfg
         self.head_model = RADNeRF(cfg)
         self.head_model.load_state_dict(params)

@@ -255,4 +255,11 @@ class RADNeRF(nn.Module):
     def get_individual_code(self, index) -> Optional[torch.Tensor]:
         if self.cfg.individual_embedding_dim <= 0:
             return None
+        # JAX's gather semantics: a negative index wraps once, then the index
+        # clamps to [0, n - 1]
+        n = self.individual_embeddings.shape[0]
+        if isinstance(index, torch.Tensor):
+            index = torch.where(index < 0, index + n, index).clamp(0, n - 1)
+        else:
+            index = min(max(index + n if index < 0 else index, 0), n - 1)
         return self.individual_embeddings[index]

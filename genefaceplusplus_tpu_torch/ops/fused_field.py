@@ -8,7 +8,9 @@ their plain PyTorch versions (port of
 `csrc/fused_field.cu` (built with nvcc at first use, loaded with ctypes) or
 raises; for a CPU tensor it runs `fused_field_plain`, the same function in
 PyTorch: bf16 matrix products with float32 results, bf16 rounding at the
-same places as the kernel, the same per-frame bias rows.
+same places as the kernel, the same per-frame bias rows. The kernel reads
+its weights as one stream packed in the Hopper matrix-product layout
+(`pack_field_weights`, cached per `FieldWeights`).
 
 `fused_field_backward` is its backward: `csrc/fused_field_bwd.cu` on the
 card, `fused_field_backward_plain` (the Pallas backward's explicit math,
@@ -29,18 +31,20 @@ import math
 import os
 import shutil
 import subprocess
+import weakref
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from genefaceplusplus_tpu_torch.ops.fastmath import fast_cos, fast_sin, fast_tanh
 from genefaceplusplus_tpu_torch.ops.fourier_encoder import project
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"fused_field": CSRC / "fused_field.cu", "fused_field_bwd": CSRC / "fused_field_bwd.cu"}
-HEADERS = (CSRC / "fused_field_common.cuh",)
+HEADERS = (CSRC / "fused_field_common.cuh", CSRC / "sm90.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -83,6 +87,17 @@ GRAD_BLOCKS = (
     ("col_bias", (8, 128), (1, 128)), ("col_w2", (128, 128), (128, 16)),
 )
 PACKED_SIZE = sum(r * c for _, _, (r, c) in GRAD_BLOCKS)  # 156,480
+
+# The forward kernel's weight stream (csrc/fused_field.cu, SPEC), in the
+# order its products read it: (name, N, K, k16 steps per chunk). Each layer
+# is its B operand, the weight's live block transposed to N rows x K,
+# packed by `pack_kmajor`; the 3-wide outputs are zero-padded to N = 8, and
+# sig_w3's block is its geo columns 1..128, then column 0 (sigma) and 7
+# zero columns.
+FWD_TILE, FWD_STEP = 64, 192  # points per consumer tile, per persistent block step
+FWD_LAYERS = (("amb_w1", 128, 256, 4), ("amb_w2", 128, 128, 4), ("amb_w3", 8, 128, 8),
+              ("sig_w1", 128, 384, 4), ("sig_w2", 128, 128, 4), ("sig_w3", 136, 128, 4),
+              ("col_w1", 128, 144, 3), ("col_w2", 8, 128, 8))
 
 
 def weights_from_params(model, bound: float = 1.0, differentiable: bool = False) -> FieldWeights:
@@ -299,6 +314,58 @@ def fused_field_backward_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
 
 
 # ---------------------------------------------------------------------------
+# The forward kernel's packed weights
+# ---------------------------------------------------------------------------
+
+def pack_kmajor(x: torch.Tensor) -> torch.Tensor:
+    """[R, K] (R rows of a wgmma operand, K contiguous; R % 8 == 0, K % 16
+    == 0) -> flat, in csrc/sm90.cuh's layout: k16 step s is a block of R x
+    16 values in which the 8 x 8 core matrix (row group j, k half h) sits at
+    (2 j + h) x 64 values, its rows 8 values apart."""
+    R, K = x.shape
+    return x.reshape(R // 8, 8, K // 16, 2, 8).permute(2, 0, 3, 1, 4).contiguous().flatten()
+
+
+def pack_field_weights(w: FieldWeights) -> torch.Tensor:
+    """The forward kernel's weight stream (FWD_LAYERS), bf16, flat, on w's
+    device: only the blocks the kernel reads, and zeros where a block is
+    wider than its live columns."""
+    with torch.no_grad():
+        def cols(x, live, n):  # the first `live` columns, zero-padded to n, as [n, K]
+            return F.pad(x[:, :live], (0, n - live)).t()
+
+        operands = {
+            "amb_w1": w.amb_w1[:256].t(), "amb_w2": w.amb_w2.t(), "amb_w3": cols(w.amb_w3, AMB_DIM, 8),
+            "sig_w1": w.sig_w1.t(), "sig_w2": w.sig_w2.t(),
+            "sig_w3": torch.cat([w.sig_w3[:, 1:129], cols(w.sig_w3, 1, 8).t()], dim=1).t(),
+            "col_w1": w.col_w1[:144].t(), "col_w2": cols(w.col_w2, 3, 8),
+        }
+        parts = []
+        for name, n, k, _ in FWD_LAYERS:
+            x = operands[name]
+            assert tuple(x.shape) == (n, k), (name, tuple(x.shape))
+            parts.append(pack_kmajor(x.to(torch.bfloat16)))
+        return torch.cat(parts)
+
+
+_PACKED = WeakIdKeyDictionary()  # w.amb_w1 -> (weakrefs to w's tensors, versions, packed)
+
+
+def packed_weights(w: FieldWeights) -> torch.Tensor:
+    """`pack_field_weights(w)`, cached per FieldWeights (the same tensors,
+    unmodified since: in-place updates bump a tensor's version). Inference
+    tensors (made under `torch.inference_mode`) keep no version counter, so
+    for them only the tensors' identity is checked."""
+    versions = tuple(None if t.is_inference() else t._version for t in w)
+    hit = _PACKED.get(w.amb_w1)
+    if hit is not None and hit[1] == versions and all(r() is t for r, t in zip(hit[0], w)):
+        return hit[2]
+    packed = pack_field_weights(w)
+    _PACKED[w.amb_w1] = (tuple(weakref.ref(t) for t in w), versions, packed)
+    return packed
+
+
+# ---------------------------------------------------------------------------
 # The CUDA kernels: build, load, launch
 # ---------------------------------------------------------------------------
 
@@ -359,13 +426,31 @@ def build_fused_field() -> Path:
     return build_kernels(["fused_field"])["fused_field"]
 
 
+def fwd_config(lib: ctypes.CDLL) -> Tuple[int, int, int]:
+    """The built forward's (points per consumer tile, points per persistent
+    block step, dynamic shared memory bytes per block)."""
+    out = [ctypes.c_int() for _ in range(3)]
+    lib.gfpp_fused_field_tile(*[ctypes.byref(v) for v in out])
+    return tuple(v.value for v in out)
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_kernels([name])[name]))
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     if name == "fused_field":
-        lib.gfpp_fused_field_forward.argtypes = [ptr, ptr, c_int] + [ptr] * 15 + [ptr]
+        lib.gfpp_fused_field_forward.argtypes = [ptr, ptr, c_int] + [ptr] * 9
         lib.gfpp_fused_field_forward.restype = c_int
+        lib.gfpp_fused_field_layout.argtypes = [ctypes.POINTER(c_int), c_int]
+        lib.gfpp_fused_field_layout.restype = c_int
+        lib.gfpp_fused_field_tile.argtypes = [ctypes.POINTER(c_int)] * 3
+        lib.gfpp_fused_field_tile.restype = c_int
+        spec = (ctypes.c_int * (3 * len(FWD_LAYERS)))()
+        n = lib.gfpp_fused_field_layout(spec, len(FWD_LAYERS))
+        if n != len(FWD_LAYERS) or list(spec) != [v for _, n_, k, c in FWD_LAYERS for v in (k // 16, n_, c)]:
+            raise RuntimeError("csrc/fused_field.cu's weight stream differs from FWD_LAYERS")
+        if fwd_config(lib)[:2] != (FWD_TILE, FWD_STEP):
+            raise RuntimeError("csrc/fused_field.cu's tiles differ from FWD_TILE, FWD_STEP")
     else:
         lib.gfpp_fused_field_backward.argtypes = (
             [ptr, ptr, c_int] + [ptr] * 3 + [ptr] * 12 + [ptr, c_int, ptr, ptr])
@@ -436,11 +521,12 @@ def fused_field(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: int = A
     if N == 0:
         return sigma, rgb, amb
     lib = _library("fused_field")
+    packed = packed_weights(w)
     with torch.cuda.device(dev):  # the launch goes to the current device
         rc = lib.gfpp_fused_field_forward(
-            xyz.data_ptr(), dirs.data_ptr(), N, *_weight_ptrs(w),
-            amb_bias.data_ptr(), col_bias.data_ptr(), sigma.data_ptr(), rgb.data_ptr(),
-            amb.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            xyz.data_ptr(), dirs.data_ptr(), N, packed.data_ptr(), w.pos_B.data_ptr(),
+            w.amb_B.data_ptr(), amb_bias.data_ptr(), col_bias.data_ptr(), sigma.data_ptr(),
+            rgb.data_ptr(), amb.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, rc, "fused_field")
     fused_field.launches += 1
     return sigma, rgb, amb

@@ -32,6 +32,7 @@ from genefaceplusplus_tpu_torch.training.radnerf_task import (
     make_train_step,
 )
 from genefaceplusplus_tpu_torch.training.schedulers import make_radnerf_optimizer
+from genefaceplusplus_tpu_torch.utils.device import resolve_device
 from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
 
@@ -89,7 +90,7 @@ class HeadNeRFTask:
         self.cfg = model_cfg
         self.task_cfg = task_cfg
         self.hp = hp
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)  # the card unless named
         self.tx = make_radnerf_optimizer(task_cfg.lr, task_cfg.warmup_updates)
         self.opts = RenderOptions(max_steps=task_cfg.max_steps,
                                   num_samples=task_cfg.num_samples, perturb=True)

@@ -42,8 +42,14 @@ def _points(n, dev, seed=0):
     return xyz, d / d.norm(dim=-1, keepdim=True)
 
 
+# the forward's ragged edges: a consumer tile (FWD_TILE points) and a
+# persistent block step (FWD_STEP) +- 1, and more steps than an H100 has
+# SMs (132), so that every persistent block loops
+EDGES = [ff.FWD_TILE - 1, ff.FWD_TILE + 1, ff.FWD_STEP - 1, ff.FWD_STEP + 1, 2 * 132 * ff.FWD_STEP + 77]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 64, 300, 65537])
+@pytest.mark.parametrize("n", [1, 64, 300, 65537] + EDGES)
 def test_kernel_matches_plain(cuda_setup, n):
     dev, w, ab, cb = cuda_setup
     xyz, d = _points(n, dev)
@@ -62,14 +68,17 @@ def test_kernel_matches_plain(cuda_setup, n):
 
 @pytest.mark.cuda
 def test_ragged_tail_is_independent_of_the_tile(cuda_setup):
-    """A point's result must not depend on which tile it lands in."""
+    """A point's result must not depend on which tile it lands in: the tail
+    from FWD_TILE + 3 on crosses tile and block-step boundaries at other
+    points than the whole set does."""
     dev, w, ab, cb = cuda_setup
-    xyz, d = _points(200, dev, seed=1)
+    n, start = 2 * ff.FWD_STEP + ff.FWD_TILE + 9, ff.FWD_TILE + 3
+    xyz, d = _points(n, dev, seed=1)
     with torch.no_grad():
         full = ff.fused_field(xyz, d, ab, cb, w)
-        tail = ff.fused_field(xyz[130:].contiguous(), d[130:].contiguous(), ab, cb, w)
+        tail = ff.fused_field(xyz[start:].contiguous(), d[start:].contiguous(), ab, cb, w)
     for a, b in zip(full, tail):
-        torch.testing.assert_close(a[130:], b, rtol=0, atol=0)
+        torch.testing.assert_close(a[start:], b, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -113,3 +113,98 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_flagship_width_is_enforced():
     with pytest.raises(ValueError, match="flagship"):
         ff.weights_from_params(TRADNeRF(TConfig(hidden_dim_sigma=64, individual_embedding_num=4)))
+
+
+def _sentinel_weights():
+    """Random FieldWeights whose entries the forward kernel does not read
+    (cond / ind / padding rows, padded columns) hold 7.0, which no live
+    entry (|x| < 1) does."""
+    g = torch.Generator().manual_seed(11)
+    w = {name: (torch.rand(shape, generator=g) * 2 - 1).to(dtype) for name, (shape, dtype) in ff.FIELD_SHAPES.items()}
+    for name, sl in (("amb_w1", np.s_[256:]), ("amb_w3", np.s_[:, 3:]), ("sig_w3", np.s_[:, 129:]),
+                     ("col_w1", np.s_[144:]), ("col_w2", np.s_[:, 3:])):
+        w[name][sl] = 7.0
+    return ff.FieldWeights(**w)
+
+
+def _unpack(packed, n, k, off):
+    """Operand [n, k] of one layer, read back from the flat stream by the
+    layout's index formula (csrc/sm90.cuh), independently of pack_kmajor."""
+    s, r, kk = np.meshgrid(np.arange(k // 16), np.arange(n), np.arange(16), indexing="ij")
+    idx = off + s * n * 16 + ((r // 8) * 2 + kk // 8) * 64 + (r % 8) * 8 + kk % 8
+    out = np.full((n, k), np.nan, np.float32)
+    out[r, 16 * s + kk] = packed[idx]
+    return out
+
+
+@pytest.mark.parametrize("layer", [name for name, *_ in ff.FWD_LAYERS])
+def test_packed_weights_hold_every_live_entry(layer):
+    w = _sentinel_weights()
+    packed = ff.pack_field_weights(w).float().numpy()
+    assert packed.size == sum(n * k for _, n, k, _ in ff.FWD_LAYERS) == 152_576
+    assert not (packed == 7.0).any()  # no padding, cond or ind row reaches the stream
+    off = 0
+    for name, n, k, _ in ff.FWD_LAYERS:
+        if name == layer:
+            break
+        off += n * k
+    _, n, k, _ = ff.FWD_LAYERS[[x[0] for x in ff.FWD_LAYERS].index(layer)]
+    got = _unpack(packed, n, k, off)
+    f = {name: getattr(w, name).float().numpy() for name in ff.FIELD_SHAPES}
+    want = {
+        "amb_w1": f["amb_w1"][:256].T, "amb_w2": f["amb_w2"].T, "sig_w1": f["sig_w1"].T,
+        "sig_w2": f["sig_w2"].T, "col_w1": f["col_w1"][:144].T,
+        "amb_w3": np.pad(f["amb_w3"][:, :3].T, ((0, 5), (0, 0))),
+        "col_w2": np.pad(f["col_w2"][:, :3].T, ((0, 5), (0, 0))),
+        "sig_w3": np.concatenate([f["sig_w3"][:, 1:129].T, f["sig_w3"][:, :1].T, np.zeros((7, 128), np.float32)]),
+    }[layer]
+    np.testing.assert_array_equal(got, want)  # bit for bit: bf16 values, exact in float32
+
+
+def _chunks():
+    """(byte offset, bytes) of each chunk of the stream, as the kernel walks
+    FWD_LAYERS (its SPEC): whole k16 steps, layer after layer."""
+    out, off = [], 0
+    for _, n, k, chunk in ff.FWD_LAYERS:
+        for _ in range(k // 16 // chunk):
+            out.append((off, chunk * n * 32))
+            off += chunk * n * 32
+    return out
+
+
+def test_weight_chunks_are_what_the_layout_says():
+    chunks = _chunks()
+    assert len(chunks) == sum(k // 16 // c for _, _, k, c in ff.FWD_LAYERS) == 21
+    off, i = 0, 0
+    for _, n, k, c in ff.FWD_LAYERS:
+        layer_start = off
+        for j in range(k // 16 // c):
+            assert chunks[i] == (layer_start + j * c * n * 32, c * n * 32)  # whole k16 steps of one layer
+            assert chunks[i][0] % 16 == 0 and chunks[i][1] % 16 == 0  # bulk-copy alignment
+            off += chunks[i][1]
+            i += 1
+    assert off == ff.pack_field_weights(_sentinel_weights()).numel() * 2 == 305_152
+    assert max(b for _, b in chunks) == 4 * 136 * 32  # the kernel's stage size (sig_w3's chunk)
+
+
+def test_packed_weights_are_cached_per_field_weights():
+    w = _sentinel_weights()
+    first = ff.packed_weights(w)
+    assert ff.packed_weights(w) is first
+    assert ff.packed_weights(w._replace(sig_w2=w.sig_w2.clone())) is not first  # other tensors
+    w.amb_w2.mul_(0.5)  # in place: a new version
+    again = ff.packed_weights(w)
+    assert again is not first
+    torch.testing.assert_close(again, ff.pack_field_weights(w), rtol=0, atol=0)
+
+
+def test_packed_weights_of_inference_tensors():
+    """Weights made under inference_mode (a serving idiom) have no version
+    counter: they pack, and the pack is cached by identity."""
+    with torch.inference_mode():
+        w = ff.FieldWeights(*(t.clone() for t in _sentinel_weights()))
+    assert all(t.is_inference() for t in w)
+    first = ff.packed_weights(w)
+    assert ff.packed_weights(w) is first
+    torch.testing.assert_close(first, ff.pack_field_weights(_sentinel_weights()), rtol=0, atol=0)
+    assert ff.packed_weights(w._replace(sig_w2=w.sig_w2.clone())) is not first

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from genefaceplusplus_tpu.config import save_config, set_hparams
 from genefaceplusplus_tpu.data.dataset import RADNeRFDataset as JDataset
@@ -63,7 +64,7 @@ def pair(tmp_path_factory):
     model = RADNeRF(cfg)
     params = convert_flax_params(jax.tree.map(np.asarray, j_inf.head_params), model)
     t_ds = TDataset(t_synthetic(num_frames=12, H=H, W=W), smo_win_size=5)
-    t_inf = TInfer(cfg, params, t_ds, occ)
+    t_inf = TInfer(cfg, params, t_ds, occ, device="cpu")
     return j_inf, t_inf
 
 
@@ -145,3 +146,27 @@ def test_chip_smoke_config_is_may_lm3d_radnerf():
     ref = JConfig.from_hparams(set_hparams(config=os.path.join(REPO, "egs/datasets/May/lm3d_radnerf.yaml")))
     assert dataclasses.asdict(cs.head_config()) == dataclasses.asdict(ref)
     assert cs.head_config() == TConfig.from_hparams(MAY_LM3D_RADNERF)
+
+
+@pytest.mark.parametrize("entry", ["GeneFaceInfer", "HeadNeRFTask"])
+def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch, entry):
+    """Without `device` the entry points target the CUDA card; with no card
+    they raise instead of running on the CPU."""
+    from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TConfig.from_hparams(HEAD)
+    ds = TDataset(t_synthetic(num_frames=12, H=H, W=W), smo_win_size=5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "GeneFaceInfer":
+            TInfer(cfg, RADNeRF(cfg).state_dict(), ds, _bench_occupancy(16))
+        else:
+            HeadNeRFTask(ds, cfg)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    from genefaceplusplus_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")

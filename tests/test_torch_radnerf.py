@@ -102,6 +102,18 @@ def test_radnerf_cond_field_density_match_jax():
                tm.density(torch.from_numpy(xyz), torch.from_numpy(cf)))
 
 
+@pytest.mark.parametrize("index", [8, 100, -1, -8, -20])
+@pytest.mark.parametrize("as_array", [False, True])
+def test_individual_code_out_of_range_matches_jax(index, as_array):
+    """Past the table (8 codes) or negative: JAX's gather wraps a negative
+    index once and clamps; the port gives the same code, exactly."""
+    jm, params, tm = _pair(**SMALL)
+    j_idx, t_idx = (jnp.int32(index), torch.tensor(index)) if as_array else (index, index)
+    ind_j = jm.apply(params, j_idx, method=JRADNeRF.get_individual_code)
+    with torch.no_grad():
+        _close(ind_j, tm.get_individual_code(t_idx), atol=0)
+
+
 def test_radnerf_without_blink_or_attention_matches_jax():
     jm, params, tm = _pair(**{**SMALL, "add_eye_blink_cond": False, "with_att": False, "smo_win_size": 1})
     cond, _, _, _ = _inputs(jm.cfg, seed=1)

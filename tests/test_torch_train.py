@@ -419,7 +419,8 @@ def test_head_task_draws_match_jax_and_trainer_resumes(data, tmp_path):
 
     ds_t, ds_j = data["ds_t"], data["ds_j"]
     task_j = JTask(ds_j, JConfig(**FLAGSHIP), JTaskCfg(n_rays=R, num_samples=4), seed=5)
-    task_t = HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), HeadTaskConfig(n_rays=R, num_samples=4), seed=5)
+    task_t = HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), HeadTaskConfig(n_rays=R, num_samples=4), seed=5,
+                          device="cpu")
     np.testing.assert_array_equal(task_t.density_grid.numpy(), np.asarray(task_j.density_grid))
     for step in range(3):
         b_j, b_t = task_j.sample_train_batch(global_step=step), task_t.sample_train_batch(global_step=step)
@@ -433,7 +434,7 @@ def test_head_task_draws_match_jax_and_trainer_resumes(data, tmp_path):
     assert (gt_t["mask"].numpy() != np.asarray(gt_j["mask"])).mean() < 0.02
 
     cfg_t = HeadTaskConfig(n_rays=R, num_samples=4, use_fused_field=True)
-    task = HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), cfg_t, seed=5)
+    task = HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), cfg_t, seed=5, device="cpu")
     trainer = Trainer(task, str(tmp_path), max_updates=5, val_check_interval=100, tb_log_interval=1,
                       update_extra_interval=4, num_sanity_val_steps=1)
     state = trainer.fit()
@@ -444,10 +445,10 @@ def test_head_task_draws_match_jax_and_trainer_resumes(data, tmp_path):
     assert all(math.isfinite(float(ln.split('"total_loss": ')[1].split(",")[0]))
                for ln in lines if '"total_loss"' in ln)
     assert os.listdir(tmp_path).count("model_ckpt_steps_5.ckpt") == 1
-    resumed = Trainer(HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), cfg_t, seed=5), str(tmp_path), max_updates=6,
-                      val_check_interval=100, tb_log_interval=1, update_extra_interval=4)
+    resumed = Trainer(HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), cfg_t, seed=5, device="cpu"), str(tmp_path),
+                      max_updates=6, val_check_interval=100, tb_log_interval=1, update_extra_interval=4)
     state2 = resumed.fit()
     assert state2.global_step == 6
     assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".ckpt")) == ["model_ckpt_steps_6.ckpt"]
     with pytest.raises(NotImplementedError):
-        HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), HeadTaskConfig(train_compact_start=10))
+        HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), HeadTaskConfig(train_compact_start=10), device="cpu")
