@@ -6,16 +6,22 @@ Run from the repository root, on a machine with one CUDA card and nvcc:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
-  build       compile genefaceplusplus_tpu_torch/csrc/fused_field.cu and
-              fused_field_bwd.cu into build/kernels/ (two nvcc, in parallel)
+  build       compile genefaceplusplus_tpu_torch/csrc/fused_field.cu,
+              fused_field_bwd.cu and fused_field_wgrad.cu into build/kernels/
+              (three nvcc, in parallel); print each ptxas report (0 spills)
   kernel      the fused-field forward kernel vs its plain PyTorch version and
               vs the float32 model field, at the 512^2 x 10-sample serving
               size (2,621,440 points), with seeded weights and inputs; timed
               in turns with the plain version, against its bound, beside
               its ptxas report
-  kernel_bwd  the fused-field backward kernel vs its plain PyTorch version at
-              the training size (65,536 rays x 16 samples = 1,048,576
-              points), all 14 gradient blocks, twice (bit-identical); timed
+  kernel_bwd  the fused-field backward (tile chain + weight-gradient kernel)
+              vs its plain PyTorch version at the training size (65,536 rays
+              x 16 samples = 1,048,576 points), all 14 gradient blocks,
+              twice (bit-identical), on permuted points; the weight-gradient
+              kernel vs its plain version on the chain's operands; the chain,
+              the weight-gradient kernel and the whole backward each timed in
+              turns with its plain version, and bf16 torch.matmul on the
+              same operands beside the weight-gradient kernel
   serve       GeneFaceInfer at the May lm3d_radnerf head config (full width,
               random weights from a seed) on a synthetic 512^2 identity with the
               bench's head-sized occupancy: GT-driven requests through
@@ -97,6 +103,19 @@ FWD_MACS = sum(k * n for k, n in FWD_PRODUCTS)  # 150,400
 # product but SH's rows of col_w1, and of amb_B (64 -> 3)
 BWD_MACS = FWD_MACS + (FWD_MACS + 3 * 128 + 3 * 64) + (FWD_MACS - 16 * 128 + 64 * AMB_OUT)  # 449,920
 FWD_BYTES, BWD_BYTES = 52, 52  # xyz, dirs in + sigma, rgb, amb out; xyz, dirs, three output grads in
+# the weight-gradient kernel: the weight gradients of the eight products and
+# of pos_B and amb_B, against its operands read once at their live widths
+# (2,141 bf16 a point; the buffer stores 2,168 with padding)
+WGRAD_MACS = FWD_MACS + 3 * 128 + 3 * 64  # 150,976
+WGRAD_BYTES = 2 * 2141
+# weight-gradient kernel vs its plain version on the same operands: both
+# float32 sums of the same bf16 products, in other orders, the kernel's
+# through the tensor cores' float32 accumulation (8,192-point chunks, then
+# across chunks). Measured on an H100 (tests/test_torch_cuda.py::
+# test_wgrad_kernel_matches_plain, 1 to 1,146,957 points): 1.28e-5 to
+# 1.43e-5 of the block's largest entry, whatever the number of points; on
+# the chain's operands at 1,048,576 points (this script): 1.13e-5
+WGRAD_MAX_REL = 5e-5
 
 
 def kernel_bound(n: int, macs: int, point_bytes: int, fixed_bytes: int = 0):
@@ -402,27 +421,74 @@ def phase_kernel_bwd(dev):
           f"{BWD_PERMUTED_MAX_REL} of its largest entry")
     del kern, again, permuted, plain
 
-    def run_kernel():
-        ff.fused_field_backward(*args)
-
-    def run_plain():
-        ff.fused_field_backward_plain(*args)
-
     with torch.no_grad():
-        for fn in (run_plain, run_kernel):
-            cuda_ms(fn, 2)  # warm-up
-        t_k, t_p = [], []
-        for _ in range(3):  # in turns: plain, kernel, kernel, plain
-            t_p += cuda_ms(run_plain, 1)
-            t_k += cuda_ms(run_kernel, 2)
-            t_p += cuda_ms(run_plain, 1)
-    ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
+        # the weight-gradient kernel alone, on the chain's operands
+        ops = ff.fused_field_bwd_chain(*args)
+        unpacked = ff.unpack_operands(ops, n)
+        wk, wp = ff.fused_field_wgrad(ops, n), ff.fused_field_wgrad_plain(unpacked)
+        torch.cuda.synchronize()
+        wgrad_err, wgrad_rel = 0.0, 0.0
+        for (name, _, _), a, b in zip(ff.GRAD_BLOCKS, wk, wp):
+            check(bool(torch.isfinite(a).all()), f"non-finite weight gradient {name}")
+            d = (a - b).abs().max().item()
+            rel = d / max(b.abs().max().item(), 1e-30)
+            wgrad_err, wgrad_rel = max(wgrad_err, d), max(wgrad_rel, rel)
+            check(rel <= WGRAD_MAX_REL, f"weight-gradient kernel vs plain {name}: {rel:.3e}")
+        print(f"[kernel_bwd] weight-gradient kernel vs plain on the chain's operands: every block within "
+              f"{wgrad_rel:.3e} of its largest entry (<= {WGRAD_MAX_REL}); operand buffer "
+              f"{ops.numel() * 2 / 2 ** 30:.3f} GiB")
+        del wk, wp
+
+        # bf16 torch.matmul on the same operands (timed only; the port never calls it)
+        X = torch.cat([unpacked[k] for k in ("x0", "x1", "x2", "x3", "xa")], dim=1)
+        gc1 = torch.cat([unpacked["gc1a"], unpacked["gc1b"]], dim=1)
+        u = unpacked
+
+        def run_library():
+            return (X.t() @ u["gs1"], X[:, :256].t() @ u["ga1"], u["a1"].t() @ u["ga2"],
+                    u["s1"].t() @ u["gs2"], u["s2"].t() @ u["gsig"], u["g"].t() @ gc1,
+                    u["a2"].t() @ u["gamb"], u["c1"].t() @ u["grgb"], u["apos"].t() @ u["gaproj"],
+                    u["xyzb"].t() @ u["gproj"], u["ga1"].float().sum(0), gc1.float().sum(0))
+
+        timings = {
+            "chain": (lambda: ff.fused_field_bwd_chain(*args),
+                      lambda: ff.pack_operands(ff.fused_field_bwd_operands_plain(*args))),
+            "wgrad": (lambda: ff.fused_field_wgrad(ops, n), lambda: ff.fused_field_wgrad_plain(unpacked)),
+            "backward": (lambda: ff.fused_field_backward(*args), lambda: ff.fused_field_backward_plain(*args)),
+        }
+        times = {}
+        for key, (run_kernel, run_plain) in timings.items():
+            for fn in (run_plain, run_kernel):
+                cuda_ms(fn, 2)  # warm-up
+            t_k, t_p = [], []
+            for _ in range(3):  # in turns: plain, kernel, kernel, plain
+                t_p += cuda_ms(run_plain, 1)
+                t_k += cuda_ms(run_kernel, 2)
+                t_p += cuda_ms(run_plain, 1)
+            times[key] = (t_k, t_p)
+        cuda_ms(run_library, 2)
+        t_lib = []
+        for _ in range(3):  # in turns with the kernel
+            t_lib += cuda_ms(run_library, 1)
+            times["wgrad"][0].extend(cuda_ms(timings["wgrad"][0], 1))
+        del ops, unpacked, X, gc1, u
+    print(f"[kernel_bwd] {card_line()}; times at {n} points, medians in turns with the plain versions:")
+    for key, (t_k, t_p) in times.items():
+        print(f"[kernel_bwd] {key}: kernel {statistics.median(t_k):.4f} ms (min {min(t_k):.4f}, max "
+              f"{max(t_k):.4f}, n={len(t_k)}); plain {statistics.median(t_p):.4f} ms (min {min(t_p):.4f}, "
+              f"max {max(t_p):.4f}, n={len(t_p)})")
+    ms, plain_ms = statistics.median(times["backward"][0]), statistics.median(times["backward"][1])
     bound_ms, bound_by = kernel_bound(n, BWD_MACS, BWD_BYTES, 4 * ff.PACKED_SIZE)
-    print(f"[kernel_bwd] time at {n} points: kernel median {ms:.4f} ms "
-          f"(min {min(t_k):.4f}, max {max(t_k):.4f}, n={len(t_k)}); plain median "
-          f"{plain_ms:.4f} ms (min {min(t_p):.4f}, max {max(t_p):.4f}, n={len(t_p)})")
-    print(f"[kernel_bwd] bound {bound_ms:.4f} ms ({bound_by}): {100.0 * bound_ms / ms:.1f} % of the bound")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    w_ms, w_plain_ms = statistics.median(times["wgrad"][0]), statistics.median(times["wgrad"][1])
+    w_bound_ms, w_bound_by = kernel_bound(n, WGRAD_MACS, WGRAD_BYTES, 4 * ff.PACKED_SIZE)
+    library_ms = statistics.median(t_lib)
+    print(f"[kernel_bwd] backward bound {bound_ms:.4f} ms ({bound_by}): {100.0 * bound_ms / ms:.1f} % of the bound")
+    print(f"[kernel_bwd] weight-gradient kernel bound {w_bound_ms:.4f} ms ({w_bound_by}): "
+          f"{100.0 * w_bound_ms / w_ms:.1f} % of the bound; bf16 torch.matmul on the same operands "
+          f"{library_ms:.4f} ms (min {min(t_lib):.4f}, max {max(t_lib):.4f}, n={len(t_lib)})")
+    return ({"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+            {"max_abs_err": wgrad_err, "ms": w_ms, "plain_ms": w_plain_ms, "bound_ms": w_bound_ms,
+             "bound_by": w_bound_by, "library_ms": library_ms})
 
 
 def phase_train(dev):
@@ -465,18 +531,22 @@ def phase_train(dev):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        ff.fused_field.launches = ff.fused_field_backward.launches = 0  # the train path's own count
+        ff.fused_field.launches = ff.fused_field_bwd_chain.launches = ff.fused_field_wgrad.launches = 0
+        ff.fused_field_backward.launches = 0  # the backward wrapper's calls (it launches nothing itself)
         trainer = Trainer(task, work_dir, max_updates=TRAIN_STEPS, val_check_interval=1000,
                           tb_log_interval=10, update_extra_interval=task_cfg.update_extra_interval)
         state = trainer.fit()
         torch.cuda.synchronize()
-        fwd, bwd = ff.fused_field.launches, ff.fused_field_backward.launches
+        fwd, chain, wgrad = ff.fused_field.launches, ff.fused_field_bwd_chain.launches, ff.fused_field_wgrad.launches
+        bwd_calls = ff.fused_field_backward.launches
         peak = torch.cuda.max_memory_allocated(dev)
 
         check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
               f"train losses not all finite: {losses}")
-        check(fwd == TRAIN_STEPS and bwd == TRAIN_STEPS,
-              f"{fwd} forward and {bwd} backward kernel launches for {TRAIN_STEPS} train steps")
+        check(fwd == TRAIN_STEPS and chain == TRAIN_STEPS and wgrad == TRAIN_STEPS,
+              f"{fwd} forward, {chain} backward-chain and {wgrad} weight-gradient kernel launches for "
+              f"{TRAIN_STEPS} train steps")
+        check(bwd_calls == TRAIN_STEPS, f"{bwd_calls} fused_field_backward calls for {TRAIN_STEPS} train steps")
         moved = {k: (v - init[k]).abs().max().item() for k, v in state.model.named_parameters()}
         for k in ("position_embedder.B", "ambient_embedder.B"):
             check(moved[k] > 0, f"{k} did not move")
@@ -495,7 +565,8 @@ def phase_train(dev):
         shutil.rmtree(work_dir, ignore_errors=True)
     timed = step_ms[1:]  # the first step includes one-time set-up
     print(f"[train] {TRAIN_STEPS} steps: losses finite ({losses[0]:.5f} -> {losses[-1]:.5f}); "
-          f"{fwd} forward + {bwd} backward kernel launches (one each per step); occupancy "
+          f"{fwd} forward, {chain} backward-chain and {wgrad} weight-gradient kernel launches in "
+          f"{bwd_calls} fused_field_backward calls (one each per step); occupancy "
           f"{occ[0][0][0].float().mean().item():.4f} -> {occ[0][1][0].float().mean().item():.4f} -> "
           f"{occ[1][1][0].float().mean().item():.4f} across the refreshes at steps 0 and 16; all field "
           f"parameters moved (position B by {moved['position_embedder.B']:.3e}, ambient B by "
@@ -504,7 +575,7 @@ def phase_train(dev):
     print(f"[train] train step (host wall, synchronised, steps 2..{TRAIN_STEPS}): median "
           f"{statistics.median(timed):.3f} ms, min {min(timed):.3f}, max {max(timed):.3f}, n={len(timed)}; "
           f"first step {step_ms[0]:.3f} ms; peak allocated {peak / 2 ** 30:.3f} GiB")
-    return fwd, bwd
+    return fwd, chain, wgrad
 
 
 def main() -> int:
@@ -523,12 +594,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     k = phase_kernel(dev)
-    kb = phase_kernel_bwd(dev)
+    kb, kw = phase_kernel_bwd(dev)
     serve_launches = phase_serve(dev)
-    train_fwd, train_bwd = phase_train(dev)
+    train_fwd, train_chain, train_wgrad = phase_train(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(f"[launches] fused_field: {serve_launches} serving + {train_fwd} training; "
-          f"fused_field_backward: {train_bwd} training")
+          f"fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
@@ -536,12 +607,19 @@ def main() -> int:
         "launches": serve_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {
+        # B2: launches of its source's kernel (the chain); times of the whole backward
         "name": "fused_field_backward", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field_bwd.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:278",
-        "launches": train_bwd, "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
+        "launches": train_chain, "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
-        "library_ms": None}]}))  # no single PyTorch call computes the fused field or its backward
+        "library_ms": None}, {  # no single PyTorch call computes the fused field or its backward
+        "name": "fused_field_wgrad", "route": "cuda",
+        "source": "genefaceplusplus_tpu_torch/csrc/fused_field_wgrad.cu",
+        "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:347",
+        "launches": train_wgrad, "max_abs_err": kw["max_abs_err"], "ms": kw["ms"],
+        "plain_ms": kw["plain_ms"], "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
+        "library_ms": kw["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -1,39 +1,41 @@
-// Fused RAD-NeRF head-field backward for Hopper (sm_90a).
+// Fused RAD-NeRF head-field backward for Hopper (sm_90a): the tile chain.
 //
-// Replaces the TPU kernel genefaceplusplus_tpu/ops/pallas/fused_field.py:_bwd_kernel
-// (launched by _fused_backward, pallas_call at :423, under fused_field_train).
-// Per tile of points it recomputes the forward chain of fused_field.cu
-// (same device functions, same bf16 rounding points), backpropagates the
-// output gradients (sigma, rgb, ambient coordinate) through the colour,
-// sigma and ambient MLPs and both Fourier projections, and sums the weight
-// gradients over all points: the 12 weight blocks plus the two bias rows that
-// carry the per-frame condition and individual code.
+// Replaces, with fused_field_wgrad.cu, the TPU kernel
+// genefaceplusplus_tpu/ops/pallas/fused_field.py:_bwd_kernel (launched by
+// _fused_backward, pallas_call at :423, under fused_field_train). Per tile
+// of points it recomputes the forward chain of fused_field.cu (same device
+// functions, same bf16 rounding points), backpropagates the output
+// gradients (sigma, rgb, ambient coordinate) through the colour, sigma and
+// ambient MLPs and both Fourier projections, and writes the bf16 operands
+// of every weight-gradient product (fused_field_common.cuh, Operand) to
+// device memory. fused_field_wgrad.cu sums their products over all points.
 //
-// What bounds it on an H100: arithmetic again, about three times the
-// forward's (each layer has a forward, an input-gradient and a
-// weight-gradient product, plus the forward recompute), against 76 bytes of
-// point traffic. The cross-tile sum is the new cost: the weight gradients are
-// 156,480 f32 (626 KB), more than a block's 227 KB of shared memory.
+// What bounds it on an H100: arithmetic, about twice the forward's (the
+// forward recomputed and an input-gradient product per layer), against 52
+// bytes of point traffic in and 4,336 bytes of operands out a point
+// (1.36 ms for 4.5 GB at 1,048,576 points).
 //
 // Design:
-// * Cross-tile accumulation. The Pallas kernel adds every tile into one VMEM
-//   accumulator, which relies on the TPU grid running in order. Here one
-//   persistent block per SM walks the tiles blockIdx.x, blockIdx.x + grid, ...
-//   and adds each tile's products into its own f32 partial in device memory
-//   (WMMA accumulators loaded from and stored back to it; the first tile
-//   stores). A second kernel sums the partials in block order. No atomics: a
-//   given grid gives bit-identical gradients run to run.
+// * Why two kernels. The Pallas kernel adds every tile's weight gradients
+//   into one VMEM accumulator, which relies on the TPU grid running in
+//   order on one core. The 14 gradient blocks (605 KB of f32) fit neither
+//   in an SM's shared memory nor in its registers, so a one-kernel port
+//   reads and rewrites a per-block f32 partial for every 64 points. Here
+//   the chain only writes the bf16 operands, once, and the weight-gradient
+//   kernel keeps its sums in registers over thousands of points.
+// * Operand stores. Each operand's 64-point tile is a contiguous 64 x rows
+//   block in the wgmma layout (K = points); a thread gathers 8 points of
+//   one feature from the tile's shared-memory buffer and writes them as
+//   one 16-byte store, consecutive threads to consecutive addresses. Rows
+//   past n are written as zeros. Each store sits between the barriers
+//   that keep its source buffer unchanged.
 // * Products with transposed weights. The input gradient g . W^T reads the
-//   same bf16 weights as the forward, loaded column-major as the B fragment;
-//   the weight gradient act^T . g (K = the tile's 64 points) loads the stored
-//   activation column-major as the A fragment. No transposed copy exists.
+//   same bf16 weights as the forward, loaded column-major as the B
+//   fragment. No transposed copy exists.
 // * Padding. Only live columns move, as in the forward: 3 of 128 ambient
 //   (16-wide fragments), 1 + 128 of 256 sigma|geo (144), 3 of 128 rgb (16).
-//   The packed gradient holds only the live regions; the wrapper places
-//   them in the padded JAX shapes.
 // * The ragged last tile. Rows past n read zero inputs and zero output
-//   gradients, so every gradient they touch is exactly zero and they add
-//   nothing.
+//   gradients, so every gradient they touch is exactly zero.
 // * Rounding and derivatives as the Pallas kernel has them. g_rgb_logit,
 //   g_c1, g_sig_out, g_s2, g_s1, g_amb_logit, g_a2 and g_a1 round to bf16 (the
 //   tensor-core inputs); a ReLU mask tests the activation (relu(x) > 0, read
@@ -88,25 +90,6 @@ static_assert(SMEM_BYTES <= 232448, "shared memory");
 static_assert(4 * TM * LDP <= 4 * TM * LDH, "GP fits in S1|S2");
 static_assert(2 * TM * (LDQ + LDS) <= 2 * TM * LDG, "GQ|GS fit in G");
 
-// packed gradient: live regions of the 14 JAX gradient blocks, in
-// _fused_backward's order, each row-major [rows, cols]
-constexpr int P_POS_B = 0;                          // [3, 128]
-constexpr int P_AMB_W1P = P_POS_B + 3 * 128;        // [256, 128]
-constexpr int P_AMB_BIAS = P_AMB_W1P + 256 * 128;   // [1, 128]
-constexpr int P_AMB_W2 = P_AMB_BIAS + 128;          // [128, 128]
-constexpr int P_AMB_W3 = P_AMB_W2 + 128 * 128;      // [128, 16]
-constexpr int P_AMB_B = P_AMB_W3 + 128 * 16;        // [3, 64]
-constexpr int P_SIG_W1P = P_AMB_B + 3 * 64;         // [256, 128]
-constexpr int P_SIG_W1A = P_SIG_W1P + 256 * 128;    // [128, 128]
-constexpr int P_SIG_W2 = P_SIG_W1A + 128 * 128;     // [128, 128]
-constexpr int P_SIG_W3 = P_SIG_W2 + 128 * 128;      // [128, 144]
-constexpr int P_COL_W1S = P_SIG_W3 + 128 * 144;     // [16, 128]
-constexpr int P_COL_W1G = P_COL_W1S + 16 * 128;     // [128, 128]
-constexpr int P_COL_BIAS = P_COL_W1G + 128 * 128;   // [1, 128]
-constexpr int P_COL_W2 = P_COL_BIAS + 128;          // [128, 16]
-constexpr int P_TOTAL = P_COL_W2 + 128 * 16;        // 156,480
-static_assert(P_TOTAL % 8 == 0, "32-byte aligned block partials");
-
 template <int TK, int TN, int LDA, int LDW>
 __device__ __forceinline__ void mm(const bf16* A, const bf16* __restrict__ W, float* C) {
   gfpp::tile_matmul<TM, NW, TK, TN, LDA, LDW, LDC>(A, W, C);
@@ -118,9 +101,47 @@ __device__ __forceinline__ void mm_wt(const bf16* A, const bf16* __restrict__ W,
   gfpp::tile_matmul_wt<TM, NW, TK, TN, LDA, LDW, LDC, LDA2>(A, W, A2, W2, C);
 }
 
-template <int M, int N, int LDA, int LDGR, int LDPART>
-__device__ __forceinline__ void wgrad(const bf16* A, const bf16* G, float* P, bool first) {
-  gfpp::tile_wgrad<TM, NW, M, N, LDA, LDGR, LDPART>(A, G, P, first);
+// Operand O's tile at `tile` (ops' layout, fused_field_common.cuh):
+// value(p, f) for point p < rows of the tile and feature f < OP_ROWS[O],
+// zero for p >= rows. 16-byte chunk u of the tile's block is k16 step u /
+// (2 R), core matrix (u % 2R) / 8 = (feature group j, point half h), row
+// u % 8: features 8 j + u % 8, points 16 s + 8 h .. + 7.
+template <int O, class Value>
+__device__ __forceinline__ void store_operand(bf16* __restrict__ ops, int npad, int tile, int rows,
+                                              Value&& value) {
+  constexpr int R = gfpp::OP_ROWS[O];
+  constexpr int FIRST = gfpp::op_first_row(O);
+  uint4* dst = reinterpret_cast<uint4*>(ops + static_cast<size_t>(npad) * FIRST +
+                                        static_cast<size_t>(tile) * TM * R);
+  for (int u = threadIdx.x; u < TM * R / 8; u += NT) {
+    const int s = u / (2 * R), cm = (u % (2 * R)) >> 3;
+    const int f = (cm >> 1) * 8 + (u & 7), p0 = s * 16 + (cm & 1) * 8;
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + 2 * e;
+      const bf16 lo = p < rows ? value(p, f) : __float2bfloat16_rn(0.0f);
+      const bf16 hi = p + 1 < rows ? value(p + 1, f) : __float2bfloat16_rn(0.0f);
+      w[e] = static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+             (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+    }
+    dst[u] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// the operand that is columns [c0, c0 + R) of a bf16 tile buffer (row stride ld)
+template <int O>
+__device__ __forceinline__ void store_cols(bf16* ops, int npad, int tile, int rows, const bf16* B, int ld,
+                                           int c0 = 0) {
+  store_operand<O>(ops, npad, tile, rows, [&](int p, int f) { return B[p * ld + c0 + f]; });
+}
+
+// the operand bf16(V[:, 0:3]) zero-padded to 8, from an f32 [TM, 3] tile
+template <int O>
+__device__ __forceinline__ void store_xyz3(bf16* ops, int npad, int tile, int rows, const float* V) {
+  store_operand<O>(ops, npad, tile, rows, [&](int p, int f) {
+    return __float2bfloat16_rn(f < 3 ? V[p * 3 + f] : 0.0f);
+  });
 }
 
 // H[:, 0:128] = bf16(relu(C[:, 0:128] + bias)), bias optional
@@ -139,15 +160,6 @@ __device__ __forceinline__ void relu_grad_to_bf16(const float* C, const bf16* ac
     const int p = i >> 7, j = i & 127;
     const bool on = __bfloat162float(act[p * LDH + j]) > 0.0f;
     D[p * ldd + j] = __float2bfloat16_rn(on ? C[p * LDC + j] : 0.0f);
-  }
-}
-
-// P[j] (+)= sum over the tile's rows of D[:, j], j < 128, rows in order
-__device__ __forceinline__ void colsum(const bf16* D, int ldd, float* P, bool first) {
-  for (int j = threadIdx.x; j < 128; j += NT) {
-    float s = 0.0f;
-    for (int p = 0; p < TM; ++p) s += __bfloat162float(D[p * ldd + j]);
-    P[j] = first ? s : P[j] + s;
   }
 }
 
@@ -170,7 +182,8 @@ __global__ void __launch_bounds__(NT, 1) fused_field_bwd_kernel(
     const bf16* __restrict__ col_w2,     // [128, 128]
     const float* __restrict__ amb_bias,  // [128]
     const float* __restrict__ col_bias,  // [128]
-    float* __restrict__ partial) {       // [gridDim.x, P_TOTAL]
+    bf16* __restrict__ ops,              // the weight-gradient operands (Operand)
+    int npad) {                          // points each operand holds: ntiles * TM
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* X = reinterpret_cast<bf16*>(smem);
   bf16* A1 = reinterpret_cast<bf16*>(smem + OFF_A1);
@@ -196,10 +209,8 @@ __global__ void __launch_bounds__(NT, 1) fused_field_bwd_kernel(
   bf16* GS = G + TM * LDQ;                              // bf16(g_amb_logit) [TM, 16]
 
   const int tid = threadIdx.x;
-  float* part = partial + static_cast<size_t>(blockIdx.x) * P_TOTAL;
 
-  bool first = true;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x, first = false) {
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int base = tile * TM;
     const int rows = min(TM, n - base);
 
@@ -282,14 +293,21 @@ __global__ void __launch_bounds__(NT, 1) fused_field_bwd_kernel(
       GB[p * LDG + j] = __float2bfloat16_rn(v);
     }
     __syncthreads();
-    wgrad<128, 16, LDH, LDG, 16>(C1, GB, part + P_COL_W2, first);
+    // operands go out while their buffers hold them: C1, S1|S2 and G are
+    // reused for gradients later in the tile, X, A1 and A2 are not
+    store_cols<gfpp::OP_GRGB>(ops, npad, tile, rows, GB, LDG);
+    store_cols<gfpp::OP_C1>(ops, npad, tile, rows, C1, LDH);
+    store_cols<gfpp::OP_S2>(ops, npad, tile, rows, S2, LDH);
+    store_cols<gfpp::OP_S1>(ops, npad, tile, rows, S1, LDH);
+    store_operand<gfpp::OP_G>(ops, npad, tile, rows, [&](int p, int f) {  // [geo | SH]
+      return G[p * LDG + (f < 128 ? 16 + f : f - 128)];
+    });
     mm_wt<16, 128, LDG, 128>(GB, col_w2, C);
     __syncthreads();
     relu_grad_to_bf16(C, C1, GB, LDG);  // g_c1
     __syncthreads();
-    wgrad<16, 128, LDG, LDG, 128>(G, GB, part + P_COL_W1S, first);
-    wgrad<128, 128, LDG, LDG, 128>(G + 16, GB, part + P_COL_W1G, first);
-    colsum(GB, LDG, part + P_COL_BIAS, first);
+    store_cols<gfpp::OP_GC1A>(ops, npad, tile, rows, GB, LDG);
+    store_cols<gfpp::OP_GC1B>(ops, npad, tile, rows, GB, LDG, 64);
     mm_wt<128, 128, LDG, 128>(GB, col_w1 + 16 * 128, C);  // g_geo
     __syncthreads();
 
@@ -307,18 +325,19 @@ __global__ void __launch_bounds__(NT, 1) fused_field_bwd_kernel(
       GB[p * LDG + j] = __float2bfloat16_rn(v);
     }
     __syncthreads();
-    wgrad<128, 144, LDH, LDG, 144>(S2, GB, part + P_SIG_W3, first);
+    store_operand<gfpp::OP_GSIG>(ops, npad, tile, rows, [&](int p, int f) {  // [g_geo | g_sigma_logit | 0]
+      return f < 128 ? GB[p * LDG + 1 + f] : f == 128 ? GB[p * LDG] : __float2bfloat16_rn(0.0f);
+    });
     mm_wt<144, 128, LDG, 256>(GB, sig_w3, C);
     __syncthreads();
     relu_grad_to_bf16(C, S2, GB, LDG);  // g_s2
     __syncthreads();
-    wgrad<128, 128, LDH, LDG, 128>(S1, GB, part + P_SIG_W2, first);
+    store_cols<gfpp::OP_GS2>(ops, npad, tile, rows, GB, LDG);
     mm_wt<128, 128, LDG, 128>(GB, sig_w2, C);
     __syncthreads();
     relu_grad_to_bf16(C, S1, GB, LDG);  // g_s1
     __syncthreads();
-    wgrad<256, 128, LDX, LDG, 128>(X, GB, part + P_SIG_W1P, first);
-    wgrad<128, 128, LDX, LDG, 128>(X + 256, GB, part + P_SIG_W1A, first);
+    store_cols<gfpp::OP_GS1>(ops, npad, tile, rows, GB, LDG);
     mm_wt<128, 128, LDG, 128>(GB, sig_w1 + 256 * 128, C);  // g_amb_feat
     __syncthreads();
 
@@ -331,13 +350,8 @@ __global__ void __launch_bounds__(NT, 1) fused_field_bwd_kernel(
       GQ[p * LDQ + f] = __float2bfloat16_rn(v);  // g_aproj
     }
     __syncthreads();
-    // g_amb_B[j, f] (+)= sum_p bf16(amb_pos[p, j]) * bf16(g_aproj[p, f])
-    for (int i = tid; i < AMB * 64; i += NT) {
-      const int j = i >> 6, f = i & 63;
-      float s = 0.0f;
-      for (int p = 0; p < TM; ++p) s = fmaf(bf16_round(PA[p * AMB + j]), __bfloat162float(GQ[p * LDQ + f]), s);
-      part[P_AMB_B + i] = first ? s : part[P_AMB_B + i] + s;
-    }
+    store_cols<gfpp::OP_GAPROJ>(ops, npad, tile, rows, GQ, LDQ);
+    store_xyz3<gfpp::OP_APOS>(ops, npad, tile, rows, PA);
     // g_amb_logit = bf16((bf16(g_aproj) . bf16(amb_B)^T + g_amb) * (1 - amb_pos^2)), 16 columns, 3 live
     for (int i = tid; i < TM * 16; i += NT) {
       const int p = i >> 4, j = i & 15;
@@ -353,18 +367,24 @@ __global__ void __launch_bounds__(NT, 1) fused_field_bwd_kernel(
     __syncthreads();
 
     // ---- ambient MLP ----
-    wgrad<128, 16, LDH, LDS, 16>(A2, GS, part + P_AMB_W3, first);
+    store_cols<gfpp::OP_GAMB>(ops, npad, tile, rows, GS, LDS);
     mm_wt<16, 128, LDS, 128>(GS, amb_w3, C);
     __syncthreads();
     relu_grad_to_bf16(C, A2, GA, LDH);  // g_a2
     __syncthreads();
-    wgrad<128, 128, LDH, LDH, 128>(A1, GA, part + P_AMB_W2, first);
+    store_cols<gfpp::OP_GA2>(ops, npad, tile, rows, GA, LDH);
     mm_wt<128, 128, LDH, 128>(GA, amb_w2, C);
     __syncthreads();
     relu_grad_to_bf16(C, A1, GA, LDH);  // g_a1
     __syncthreads();
-    wgrad<256, 128, LDX, LDH, 128>(X, GA, part + P_AMB_W1P, first);
-    colsum(GA, LDH, part + P_AMB_BIAS, first);
+    store_cols<gfpp::OP_GA1>(ops, npad, tile, rows, GA, LDH);
+    store_cols<gfpp::OP_X0>(ops, npad, tile, rows, X, LDX);
+    store_cols<gfpp::OP_X1>(ops, npad, tile, rows, X, LDX, 64);
+    store_cols<gfpp::OP_X2>(ops, npad, tile, rows, X, LDX, 128);
+    store_cols<gfpp::OP_X3>(ops, npad, tile, rows, X, LDX, 192);
+    store_cols<gfpp::OP_XA>(ops, npad, tile, rows, X, LDX, 256);
+    store_cols<gfpp::OP_A1>(ops, npad, tile, rows, A1, LDH);
+    store_cols<gfpp::OP_A2>(ops, npad, tile, rows, A2, LDH);
 
     // ---- position Fourier features ----
     // g_pos_feat = g_s1 . sig_w1p^T + g_a1 . amb_w1p^T, in its sin and cos halves;
@@ -387,51 +407,35 @@ __global__ void __launch_bounds__(NT, 1) fused_field_bwd_kernel(
       GB[p * LDG + f] = __float2bfloat16_rn(GP[p * LDP + f] - C[p * LDC + f] * fast_sin(proj));
     }
     __syncthreads();
-    // g_pos_B[j, f] (+)= sum_p bf16(xyz[p, j]) * bf16(g_proj[p, f])
-    for (int i = tid; i < 3 * 128; i += NT) {
-      const int j = i >> 7, f = i & 127;
-      float s = 0.0f;
-      for (int p = 0; p < TM; ++p) s = fmaf(bf16_round(PX[p * 3 + j]), __bfloat162float(GB[p * LDG + f]), s);
-      part[P_POS_B + i] = first ? s : part[P_POS_B + i] + s;
-    }
+    store_cols<gfpp::OP_GPROJ>(ops, npad, tile, rows, GB, LDG);
+    store_xyz3<gfpp::OP_XYZB>(ops, npad, tile, rows, PX);
     __syncthreads();
   }
-}
-
-// out[j] = sum over blocks b in order of partial[b, j]
-__global__ void __launch_bounds__(256) reduce_partials_kernel(const float* __restrict__ partial,
-                                                              int nblocks, float* __restrict__ out) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= P_TOTAL) return;
-  float s = 0.0f;
-  for (int b = 0; b < nblocks; ++b) s += partial[static_cast<size_t>(b) * P_TOTAL + j];
-  out[j] = s;
 }
 
 }  // namespace
 
 extern "C" {
 
-int gfpp_fused_field_bwd_packed_size() { return P_TOTAL; }
+int gfpp_fused_field_bwd_operand_rows() { return gfpp::OPERAND_ROWS; }
 
-// Launches the backward and the block-order reduction on `stream` and
-// returns cudaGetLastError() (0 on success). `partial` is scratch of
-// nblocks * P_TOTAL floats; `out` receives the packed P_TOTAL gradient.
+// Launches the tile chain on `stream` and returns cudaGetLastError() (0 on
+// success). `ops` receives the weight-gradient operands: npad *
+// OPERAND_ROWS bf16, npad = n rounded up to the 64-point tile.
 int gfpp_fused_field_backward(const void* xyz, const void* dirs, int n, const void* g_sigma,
                               const void* g_rgb, const void* g_amb, const void* pos_B,
                               const void* amb_w1, const void* amb_w2, const void* amb_w3,
                               const void* amb_B, const void* sig_w1, const void* sig_w2,
                               const void* sig_w3, const void* col_w1, const void* col_w2,
-                              const void* amb_bias, const void* col_bias, void* partial,
-                              int nblocks, void* out, void* stream) {
-  if (n <= 0 || nblocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                              const void* amb_bias, const void* col_bias, void* ops, int npad,
+                              int nblocks, void* stream) {
+  const int ntiles = (n + TM - 1) / TM;
+  if (n <= 0 || nblocks <= 0 || npad != ntiles * TM) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       fused_field_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ntiles = (n + TM - 1) / TM;
   if (nblocks > ntiles) nblocks = ntiles;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fused_field_bwd_kernel<<<nblocks, NT, SMEM_BYTES, s>>>(
+  fused_field_bwd_kernel<<<nblocks, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz), static_cast<const float*>(dirs), n, ntiles,
       static_cast<const float*>(g_sigma), static_cast<const float*>(g_rgb),
       static_cast<const float*>(g_amb), static_cast<const float*>(pos_B),
@@ -440,11 +444,7 @@ int gfpp_fused_field_backward(const void* xyz, const void* dirs, int n, const vo
       static_cast<const bf16*>(sig_w1), static_cast<const bf16*>(sig_w2),
       static_cast<const bf16*>(sig_w3), static_cast<const bf16*>(col_w1),
       static_cast<const bf16*>(col_w2), static_cast<const float*>(amb_bias),
-      static_cast<const float*>(col_bias), static_cast<float*>(partial));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials_kernel<<<(P_TOTAL + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partial), nblocks, static_cast<float*>(out));
+      static_cast<const float*>(col_bias), static_cast<bf16*>(ops), npad);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,9 @@
 // Device functions of the fused head-field kernels: the fast sin/cos/tanh
-// of ops/fastmath.py and the SH16 basis of the Pallas kernel (both kernels),
-// and the backward's tile products on the tensor cores (fused_field_bwd.cu;
-// WMMA m16n16k16, bf16 inputs, f32 sums).
+// of ops/fastmath.py and the SH16 basis of the Pallas kernel (all
+// kernels), the backward chain's tile products on the tensor cores
+// (fused_field_bwd.cu; WMMA m16n16k16, bf16 inputs, f32 sums), and the
+// table of the weight-gradient operands the chain hands to
+// fused_field_wgrad.cu.
 //
 // Every product walks k in ascending 16-steps into one accumulator per
 // output fragment, whichever warp owns the fragment, so a block of 4 warps
@@ -12,6 +14,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+#include <stdint.h>
 
 namespace gfpp {
 
@@ -135,35 +138,37 @@ __device__ __forceinline__ void tile_matmul_wt(const bf16* A1, const bf16* __res
   }
 }
 
-// P[0:M, 0:N] (+)= A[0:TM, 0:M]^T . G[0:TM, 0:N]: the weight-gradient
-// product of a layer over one tile of TM points (K = TM). A is the layer's
-// bf16 input and G its bf16 output gradient, both row-major in shared
-// memory, A read column-major as the A fragment. P is f32 row-major (row
-// stride LDP) in device memory, owned by this block alone: `first` stores
-// the tile's product, otherwise the accumulator starts from P. A fragment
-// is always handled by the same warp, so a block sees its own writes.
-template <int TM, int NW, int M, int N, int LDA, int LDG, int LDP>
-__device__ __forceinline__ void tile_wgrad(const bf16* A, const bf16* G, float* P, bool first) {
-  const int warp = threadIdx.x >> 5;
-  constexpr int NT = N / 16;
-  for (int f = warp; f < (M / 16) * NT; f += NW) {
-    const int mt = f / NT, nt = f % NT;
-    float* p = P + mt * 16 * LDP + nt * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (first)
-      wmma::fill_fragment(acc, 0.0f);
-    else
-      wmma::load_matrix_sync(acc, p, LDP, wmma::mem_row_major);
-#pragma unroll
-    for (int k = 0; k < TM; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, A + k * LDA + mt * 16, LDA);
-      wmma::load_matrix_sync(b, G + k * LDG + nt * 16, LDG);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(p, acc, LDP, wmma::mem_row_major);
-  }
+// The backward's weight-gradient operands: fused_field_bwd.cu (the tile
+// chain) writes them, fused_field_wgrad.cu sums their products over all
+// points. Each is [n points, rows] bf16, zero past n, in one buffer in this
+// order (ops/fused_field.py, WGRAD_OPERANDS), operand o at npad * first row
+// of o values, npad = n rounded up to the chain's 64-point tile. Within an
+// operand the points are K of a wgmma operand: K-major in sm90.cuh's
+// layout, k16 step s (points 16 s .. 16 s + 15) a block of rows * 16
+// values, so a run of k steps is one contiguous bulk copy.
+enum Operand {
+  OP_X0, OP_X1, OP_X2, OP_X3,  // pos_feat, 64 features each
+  OP_XA,                       // amb_feat
+  OP_A1, OP_A2, OP_S1, OP_S2, OP_C1,  // bf16 hidden layers
+  OP_GC1A, OP_GC1B,            // g_c1 features 0..63, 64..127
+  OP_GAPROJ, OP_GPROJ,         // bf16(g_aproj), bf16(g_proj)
+  OP_GS1, OP_GA1, OP_GA2, OP_GS2,
+  OP_GSIG,                     // [g_geo 128 | g_sigma_logit | 0 x 7]
+  OP_G,                        // [geo 128 | SH 16]
+  OP_GRGB, OP_GAMB,            // g_rgb_logit, g_amb_logit: 3 live of 8
+  OP_APOS, OP_XYZB,            // bf16(amb_pos), bf16(xyz): 3 live of 8
+  N_OPERANDS
+};
+constexpr int OP_ROWS[N_OPERANDS] = {64, 64, 64, 64, 128, 128, 128, 128, 128, 128, 64, 64,
+                                     64, 128, 128, 128, 128, 128, 136, 144, 8, 8, 8, 8};
+
+__host__ __device__ constexpr int op_first_row(int o) {
+  int r = 0;
+  for (int i = 0; i < o; ++i) r += OP_ROWS[i];
+  return r;
 }
+
+constexpr int OPERAND_ROWS = op_first_row(N_OPERANDS);  // 2,168 bf16 a point
+static_assert(OPERAND_ROWS == 2168, "operand table");
 
 }  // namespace gfpp

@@ -12,9 +12,12 @@ same places as the kernel, the same per-frame bias rows. The kernel reads
 its weights as one stream packed in the Hopper matrix-product layout
 (`pack_field_weights`, cached per `FieldWeights`).
 
-`fused_field_backward` is its backward: `csrc/fused_field_bwd.cu` on the
-card, `fused_field_backward_plain` (the Pallas backward's explicit math,
-with its rounding points) on the CPU. `fused_field_train` ties the two into
+`fused_field_backward` is its backward, in two kernels on the card: the
+tile chain `csrc/fused_field_bwd.cu` writes the bf16 operands of every
+weight-gradient product, and `csrc/fused_field_wgrad.cu` sums their
+products over all points. On the CPU it is `fused_field_backward_plain`
+(the Pallas backward's explicit math, with its rounding points), which is
+the chain's plain version followed by the weight-gradient kernel's. `fused_field_train` ties the two into
 a `torch.autograd.Function`, the counterpart of the JAX custom VJP.
 
 Widths are the flagship's (pos 128, amb 64, hidden 128, geo 128, cond 64),
@@ -43,7 +46,8 @@ from genefaceplusplus_tpu_torch.ops.fastmath import fast_cos, fast_sin, fast_tan
 from genefaceplusplus_tpu_torch.ops.fourier_encoder import project
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"fused_field": CSRC / "fused_field.cu", "fused_field_bwd": CSRC / "fused_field_bwd.cu"}
+SOURCES = {"fused_field": CSRC / "fused_field.cu", "fused_field_bwd": CSRC / "fused_field_bwd.cu",
+           "fused_field_wgrad": CSRC / "fused_field_wgrad.cu"}
 HEADERS = (CSRC / "fused_field_common.cuh", CSRC / "sm90.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,17 +80,71 @@ FIELD_SHAPES = {
 }
 
 # the backward's 14 gradient blocks, in `_fused_backward`'s order: name,
-# full (padded) shape, and the live region [rows, cols] the kernel computes
+# full (padded) shape, and the live region [rows, cols] the kernels compute
+# (the rest of each block is zero)
 GRAD_BLOCKS = (
     ("pos_B", (8, 128), (3, 128)), ("amb_w1p", (256, 128), (256, 128)),
     ("amb_bias", (8, 128), (1, 128)), ("amb_w2", (128, 128), (128, 128)),
-    ("amb_w3", (128, 128), (128, 16)), ("amb_B", (128, 64), (3, 64)),
+    ("amb_w3", (128, 128), (128, 3)), ("amb_B", (128, 64), (3, 64)),
     ("sig_w1p", (256, 128), (256, 128)), ("sig_w1a", (128, 128), (128, 128)),
-    ("sig_w2", (128, 128), (128, 128)), ("sig_w3", (128, 256), (128, 144)),
+    ("sig_w2", (128, 128), (128, 128)), ("sig_w3", (128, 256), (128, 129)),
     ("col_w1s", (16, 128), (16, 128)), ("col_w1g", (128, 128), (128, 128)),
-    ("col_bias", (8, 128), (1, 128)), ("col_w2", (128, 128), (128, 16)),
+    ("col_bias", (8, 128), (1, 128)), ("col_w2", (128, 128), (128, 3)),
 )
-PACKED_SIZE = sum(r * c for _, _, (r, c) in GRAD_BLOCKS)  # 156,480
+PACKED_SIZE = sum(r * c for _, _, (r, c) in GRAD_BLOCKS)  # 151,232
+
+# The backward in two kernels: the tile chain (csrc/fused_field_bwd.cu)
+# writes the bf16 operands of every weight-gradient product, and the
+# weight-gradient kernel (csrc/fused_field_wgrad.cu) sums their products
+# over all points. WGRAD_OPERANDS: (name, rows), in buffer order; each is
+# [n points, rows] bf16, stored by `pack_operands`. Rows past a live width
+# are zero: gsig is [g_geo 128 | g_sigma_logit | 0 x 7], g is [geo 128 |
+# SH 16], the 3-wide ones are zero-padded to 8.
+WGRAD_OPERANDS = (
+    ("x0", 64), ("x1", 64), ("x2", 64), ("x3", 64),  # pos_feat in 64-feature blocks
+    ("xa", 128),  # amb_feat
+    ("a1", 128), ("a2", 128), ("s1", 128), ("s2", 128), ("c1", 128),  # bf16 hidden layers
+    ("gc1a", 64), ("gc1b", 64),  # g_c1 in two halves
+    ("gaproj", 64), ("gproj", 128),  # bf16(g_aproj), bf16(g_proj)
+    ("gs1", 128), ("ga1", 128), ("ga2", 128), ("gs2", 128), ("gsig", 136), ("g", 144),
+    ("grgb", 8), ("gamb", 8), ("apos", 8), ("xyzb", 8),  # g_rgb_logit, g_amb_logit, bf16(amb_pos), bf16(xyz)
+)
+OPERAND_ROWS = sum(r for _, r in WGRAD_OPERANDS)  # 2,168 bf16 a point
+OPERAND_TILE = 64  # the chain's tile: operand buffers hold n rounded up to it
+WGRAD_CHUNK = 8192  # points a weight-gradient work item sums (the last chunk of n is shorter)
+ONES = "ones"  # a constant [1, 0 x 7] operand: its product with a gradient is a bias row
+
+# The weight-gradient kernel's work items: the operands one item streams,
+# and its products D = M^T . N over the points of one chunk (wgmma: M is a
+# 64-row block of an operand, N = 8 or 128 rows of another). Each product:
+# (M operand, M block, N operand, N first row, N rows, gradient block,
+# row0, col0, live columns of N, transposed). D[i, j] for j < live goes to
+# block[row0 + i, col0 + j], or to block[row0 + j, col0 + i] if transposed.
+WGRAD_ITEMS = (
+    (("x0", "gs1", "ga1"), (("x0", 0, "gs1", 0, 128, "sig_w1p", 0, 0, 128, False),
+                            ("x0", 0, "ga1", 0, 128, "amb_w1p", 0, 0, 128, False),
+                            ("ga1", 0, ONES, 0, 8, "amb_bias", 0, 0, 1, True),
+                            ("ga1", 1, ONES, 0, 8, "amb_bias", 0, 64, 1, True))),
+    *((("x%d" % b, "gs1", "ga1"), (("x%d" % b, 0, "gs1", 0, 128, "sig_w1p", 64 * b, 0, 128, False),
+                                   ("x%d" % b, 0, "ga1", 0, 128, "amb_w1p", 64 * b, 0, 128, False)))
+      for b in (1, 2, 3)),
+    (("xa", "gs1"), tuple(("xa", b, "gs1", 0, 128, "sig_w1a", 64 * b, 0, 128, False) for b in (0, 1))),
+    (("a1", "ga2"), tuple(("a1", b, "ga2", 0, 128, "amb_w2", 64 * b, 0, 128, False) for b in (0, 1))),
+    (("s1", "gs2"), tuple(("s1", b, "gs2", 0, 128, "sig_w2", 64 * b, 0, 128, False) for b in (0, 1))),
+    (("s2", "gsig"), tuple(p for b in (0, 1) for p in (
+        ("s2", b, "gsig", 0, 128, "sig_w3", 64 * b, 1, 128, False),
+        ("s2", b, "gsig", 128, 8, "sig_w3", 64 * b, 0, 1, False)))),
+    *(((m, "g"), ((m, 0, "g", 0, 128, "col_w1g", 0, c0, 128, True),
+                  (m, 0, "g", 128, 8, "col_w1s", 0, c0, 8, True),
+                  (m, 0, "g", 136, 8, "col_w1s", 8, c0, 8, True),
+                  (m, 0, ONES, 0, 8, "col_bias", 0, c0, 1, True)))
+      for m, c0 in (("gc1a", 0), ("gc1b", 64))),
+    (("a2", "c1", "gaproj", "gproj", "gamb", "grgb", "apos", "xyzb"), (
+        ("a2", 0, "gamb", 0, 8, "amb_w3", 0, 0, 3, False), ("a2", 1, "gamb", 0, 8, "amb_w3", 64, 0, 3, False),
+        ("c1", 0, "grgb", 0, 8, "col_w2", 0, 0, 3, False), ("c1", 1, "grgb", 0, 8, "col_w2", 64, 0, 3, False),
+        ("gaproj", 0, "apos", 0, 8, "amb_B", 0, 0, 3, True),
+        ("gproj", 0, "xyzb", 0, 8, "pos_B", 0, 0, 3, True), ("gproj", 1, "xyzb", 0, 8, "pos_B", 0, 64, 3, True))),
+)
 
 # The forward kernel's weight stream (csrc/fused_field.cu, SPEC), in the
 # order its products read it: (name, N, K, k16 steps per chunk). Each layer
@@ -226,22 +284,22 @@ def fused_field_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: i
     return sigma, rgb, amb_pos
 
 
-def fused_field_backward_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
-                               g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM):
-    """Plain PyTorch version of the fused backward (`_bwd_kernel`'s explicit
+def fused_field_bwd_operands_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
+                                   g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM) -> Dict[str, torch.Tensor]:
+    """Plain version of the backward's tile chain (`_bwd_kernel`'s explicit
     math, not autograd of `fused_field_plain`): recompute the forward, then
     backprop with bf16 rounding of every tensor-core input at the Pallas
     kernel's places, ReLU masks from the float32 activations, the fast
     sin/cos values as the Fourier derivatives and 1 - amb_pos^2 for tanh.
 
-    g_sigma [N], g_rgb [N, 3], g_amb [N, amb_dim] f32. Returns the 14 f32
-    gradient blocks of `_fused_backward`, in its order and padded shapes
-    (see GRAD_BLOCKS)."""
+    g_sigma [N], g_rgb [N, 3], g_amb [N, amb_dim] f32. Returns the operands
+    of every weight-gradient product (WGRAD_OPERANDS): {name: [N, rows]}
+    float32 holding bf16 values, the values `_bwd_kernel`'s weight-gradient
+    `dot`s take."""
     relu = torch.relu
     f = [t.float() for t in w]
     pos_B, amb_w1, amb_w2, amb_w3, amb_B, sig_w1, sig_w2, sig_w3, col_w1, col_w2 = f
     xyz, dirs = xyz.float(), dirs.float()
-    dev = xyz.device
 
     # ---- forward recompute ----
     proj = project(xyz, pos_B[:3])
@@ -268,49 +326,116 @@ def fused_field_backward_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
     c1b = _r(c1)
     rgb = 1.0 / (1.0 + torch.exp(-(c1b @ col_w2[:, :3])))
 
-    def padded(live, shape):
-        out = torch.zeros(shape, dtype=torch.float32, device=dev)
-        out[: live.shape[0], : live.shape[1]] = live
-        return out
-
-    # ---- backward ----
+    # ---- backward: the input-gradient chain ----
     g_rgb_logit = _r(g_rgb.float() * rgb * (1.0 - rgb))
-    g_col_w2 = padded(c1b.t() @ g_rgb_logit, (128, 128))
     g_c1 = _r((g_rgb_logit @ col_w2[:, :3].t()) * (c1 > 0.0))
-    g_col_w1s = sh.t() @ g_c1
-    g_col_w1g = geo.t() @ g_c1
-    g_col_bias = padded(g_c1.sum(0, keepdim=True), (8, 128))
     g_geo = g_c1 @ col_w1[16:144].t()
 
     in_range = (sig_logit > -15.0) & (sig_logit < 15.0)
     g_sig0 = torch.where(in_range, g_sigma.float() * sigma, torch.zeros_like(sigma))
     g_sig_out = _r(torch.cat([g_sig0[:, None], g_geo], dim=-1))  # [N, 129]
-    g_sig_w3 = padded(s2b.t() @ g_sig_out, (128, 256))
     g_s2 = _r((g_sig_out @ sig_w3[:, :129].t()) * (s2 > 0.0))
-    g_sig_w2 = s1b.t() @ g_s2
     g_s1 = _r((g_s2 @ sig_w2.t()) * (s1 > 0.0))
-    g_sig_w1p = pos_feat.t() @ g_s1
-    g_sig_w1a = amb_feat.t() @ g_s1
     g_pos_feat_s = g_s1 @ sig_w1[:256].t()
     g_amb_feat = g_s1 @ sig_w1[256:384].t()
 
-    g_aproj = g_amb_feat[:, :64] * cos_a - g_amb_feat[:, 64:] * sin_a
-    g_amb_B = padded(_r(amb_pos).t() @ _r(g_aproj), (128, 64))
-    g_amb_pos = _r(g_aproj) @ _r(amb_B[:amb_dim]).t() + g_amb.float()
+    g_aproj = _r(g_amb_feat[:, :64] * cos_a - g_amb_feat[:, 64:] * sin_a)
+    g_amb_pos = g_aproj @ _r(amb_B[:amb_dim]).t() + g_amb.float()
     g_amb_logit = _r(g_amb_pos * (1.0 - amb_pos * amb_pos))
-    g_amb_w3 = padded(a2b.t() @ g_amb_logit, (128, 128))
     g_a2 = _r((g_amb_logit @ amb_w3[:, :amb_dim].t()) * (a2 > 0.0))
-    g_amb_w2 = a1b.t() @ g_a2
     g_a1 = _r((g_a2 @ amb_w2.t()) * (a1 > 0.0))
-    g_amb_w1p = pos_feat.t() @ g_a1
-    g_amb_bias = padded(g_a1.sum(0, keepdim=True), (8, 128))
     g_pos_feat = g_pos_feat_s + g_a1 @ amb_w1[:256].t()
+    g_proj = _r(g_pos_feat[:, :128] * cos_p - g_pos_feat[:, 128:] * sin_p)
 
-    g_proj = g_pos_feat[:, :128] * cos_p - g_pos_feat[:, 128:] * sin_p
-    g_pos_B = padded(_r(xyz).t() @ _r(g_proj), (8, 128))
-    return (g_pos_B, g_amb_w1p, g_amb_bias, g_amb_w2, g_amb_w3, g_amb_B,
-            g_sig_w1p, g_sig_w1a, g_sig_w2, g_sig_w3, g_col_w1s, g_col_w1g,
-            g_col_bias, g_col_w2)
+    def cols(x, n):  # zero-padded to n columns
+        return F.pad(x, (0, n - x.shape[1]))
+
+    return {
+        "x0": pos_feat[:, 0:64], "x1": pos_feat[:, 64:128], "x2": pos_feat[:, 128:192],
+        "x3": pos_feat[:, 192:256], "xa": amb_feat, "a1": a1b, "a2": a2b, "s1": s1b, "s2": s2b,
+        "c1": c1b, "gc1a": g_c1[:, :64], "gc1b": g_c1[:, 64:], "gaproj": g_aproj, "gproj": g_proj,
+        "gs1": g_s1, "ga1": g_a1, "ga2": g_a2, "gs2": g_s2,
+        "gsig": cols(torch.cat([g_sig_out[:, 1:129], g_sig_out[:, :1]], dim=-1), 136),
+        "g": torch.cat([geo, sh], dim=-1), "grgb": cols(g_rgb_logit, 8), "gamb": cols(g_amb_logit, 8),
+        "apos": cols(_r(amb_pos), 8), "xyzb": cols(_r(xyz), 8),
+    }
+
+
+def fused_field_wgrad_plain(ops: Dict[str, torch.Tensor]):
+    """Plain version of the weight-gradient kernel: float32 products of the
+    bf16 operands (`fused_field_bwd_operands_plain`), summed over the
+    points. Returns the 14 f32 gradient blocks of `_fused_backward`, in its
+    order and padded shapes (see GRAD_BLOCKS)."""
+    o = {k: v.float() for k, v in ops.items()}
+    dev = o["x0"].device
+
+    def padded(live, shape):
+        out = torch.zeros(shape, dtype=torch.float32, device=dev)
+        out[: live.shape[0], : live.shape[1]] = live
+        return out
+
+    pos_feat = torch.cat([o["x0"], o["x1"], o["x2"], o["x3"]], dim=-1)
+    g_c1 = torch.cat([o["gc1a"], o["gc1b"]], dim=-1)
+    g_sig_out = torch.cat([o["gsig"][:, 128:129], o["gsig"][:, :128]], dim=-1)
+    xyzb, gamb, apos, grgb = (o[k][:, :3] for k in ("xyzb", "gamb", "apos", "grgb"))  # live columns
+    return (padded(xyzb.t() @ o["gproj"], (8, 128)),
+            pos_feat.t() @ o["ga1"],
+            padded(o["ga1"].sum(0, keepdim=True), (8, 128)),
+            o["a1"].t() @ o["ga2"],
+            padded(o["a2"].t() @ gamb, (128, 128)),
+            padded(apos.t() @ o["gaproj"], (128, 64)),
+            pos_feat.t() @ o["gs1"],
+            o["xa"].t() @ o["gs1"],
+            o["s1"].t() @ o["gs2"],
+            padded(o["s2"].t() @ g_sig_out, (128, 256)),
+            o["g"][:, 128:144].t() @ g_c1,
+            o["g"][:, :128].t() @ g_c1,
+            padded(g_c1.sum(0, keepdim=True), (8, 128)),
+            padded(o["c1"].t() @ grgb, (128, 128)))
+
+
+def fused_field_backward_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
+                               g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM):
+    """Plain PyTorch version of the fused backward: the chain's operands,
+    then their weight-gradient products. Same arguments as
+    `fused_field_bwd_operands_plain`; returns the 14 f32 gradient blocks of
+    `_fused_backward`, in its order and padded shapes (see GRAD_BLOCKS)."""
+    return fused_field_wgrad_plain(fused_field_bwd_operands_plain(
+        xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb, g_amb, amb_dim))
+
+
+def operand_points(n: int) -> int:
+    """Points an operand buffer holds for n points: n rounded up to the
+    chain's tile."""
+    return -(-n // OPERAND_TILE) * OPERAND_TILE
+
+
+def pack_operands(ops: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The operand buffer the chain writes and the weight-gradient kernel
+    reads: for each operand of WGRAD_OPERANDS in order, its [n, rows]
+    values zero-padded to `operand_points(n)` points and stored K-major
+    (K = points) in csrc/sm90.cuh's layout (`pack_kmajor` of the
+    transpose). Flat bf16."""
+    n = ops["x0"].shape[0]
+    npad = operand_points(n)
+    parts = []
+    for name, rows in WGRAD_OPERANDS:
+        x = ops[name].to(torch.bfloat16)
+        if tuple(x.shape) != (n, rows):
+            raise ValueError(f"pack_operands: {name} must be ({n}, {rows}), got {tuple(x.shape)}")
+        parts.append(pack_kmajor(F.pad(x, (0, 0, 0, npad - n)).t()))
+    return torch.cat(parts)
+
+
+def unpack_operands(buf: torch.Tensor, n: int) -> Dict[str, torch.Tensor]:
+    """`pack_operands`' inverse: {name: [n, rows] bf16}."""
+    npad = operand_points(n)
+    out, off = {}, 0
+    for name, rows in WGRAD_OPERANDS:
+        x = buf[off: off + npad * rows].view(npad // 16, rows // 8, 2, 8, 8)
+        out[name] = x.permute(0, 2, 4, 1, 3).reshape(npad, rows)[:n]
+        off += npad * rows
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -451,14 +576,24 @@ def _library(name: str) -> ctypes.CDLL:
             raise RuntimeError("csrc/fused_field.cu's weight stream differs from FWD_LAYERS")
         if fwd_config(lib)[:2] != (FWD_TILE, FWD_STEP):
             raise RuntimeError("csrc/fused_field.cu's tiles differ from FWD_TILE, FWD_STEP")
-    else:
-        lib.gfpp_fused_field_backward.argtypes = (
-            [ptr, ptr, c_int] + [ptr] * 3 + [ptr] * 12 + [ptr, c_int, ptr, ptr])
+    elif name == "fused_field_bwd":
+        lib.gfpp_fused_field_backward.argtypes = [ptr, ptr, c_int] + [ptr] * 3 + [ptr] * 12 + [ptr, c_int, c_int, ptr]
         lib.gfpp_fused_field_backward.restype = c_int
-        lib.gfpp_fused_field_bwd_packed_size.restype = c_int
-        if lib.gfpp_fused_field_bwd_packed_size() != PACKED_SIZE:
-            raise RuntimeError("csrc/fused_field_bwd.cu's packed gradient layout differs "
-                               "from GRAD_BLOCKS")
+        lib.gfpp_fused_field_bwd_operand_rows.restype = c_int
+        if lib.gfpp_fused_field_bwd_operand_rows() != OPERAND_ROWS:
+            raise RuntimeError("csrc/fused_field_bwd.cu's operands differ from WGRAD_OPERANDS")
+    else:
+        lib.gfpp_fused_field_wgrad.argtypes = [ptr, c_int, ptr, c_int, ptr]
+        lib.gfpp_fused_field_wgrad.restype = c_int
+        lib.gfpp_fused_field_wgrad_reduce.argtypes = [ptr, c_int, ptr, ptr]
+        lib.gfpp_fused_field_wgrad_reduce.restype = c_int
+        lib.gfpp_fused_field_wgrad_layout.argtypes = [ctypes.POINTER(c_int), c_int]
+        lib.gfpp_fused_field_wgrad_layout.restype = c_int
+        table = wgrad_table()
+        out = (c_int * (len(table) + 1))()
+        if lib.gfpp_fused_field_wgrad_layout(out, len(out)) != len(table) or list(out)[:len(table)] != table:
+            raise RuntimeError("csrc/fused_field_wgrad.cu's operands, products or packed gradient "
+                               "differ from WGRAD_OPERANDS, WGRAD_ITEMS, GRAD_BLOCKS, WGRAD_CHUNK")
     lib.gfpp_cuda_error_string.argtypes = [c_int]
     lib.gfpp_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -546,39 +681,120 @@ def unpack_grads(packed: torch.Tensor):
     return tuple(out)
 
 
-def fused_field_backward(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
-                         g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM):
-    """The fused backward: CUDA kernel for CUDA tensors,
-    `fused_field_backward_plain` for CPU tensors. Same contract.
+def wgrad_table() -> list:
+    """WGRAD_OPERANDS' rows, GRAD_BLOCKS' live regions, WGRAD_CHUNK and
+    WGRAD_ITEMS as one list of ints: the form in which
+    csrc/fused_field_wgrad.cu exports its own tables (compared when the
+    library loads). Operands and blocks by index, ONES as -1."""
+    op = {name: i for i, (name, _) in enumerate(WGRAD_OPERANDS)}
+    op[ONES] = -1
+    blk = {name: i for i, (name, _, _) in enumerate(GRAD_BLOCKS)}
+    t = [len(WGRAD_OPERANDS), *(r for _, r in WGRAD_OPERANDS),
+         len(GRAD_BLOCKS), *(v for _, _, live in GRAD_BLOCKS for v in live), WGRAD_CHUNK, len(WGRAD_ITEMS)]
+    for ops, prods in WGRAD_ITEMS:
+        t += [len(ops), *(op[o] for o in ops), len(prods)]
+        for m, mb, nop, nrow, nw, b, r0, c0, live, trans in prods:
+            t += [op[m], mb, op[nop], nrow, nw, blk[b], r0, c0, live, int(trans)]
+    return t
 
-    The kernel gives the same gradients run to run on one card (a fixed
-    grid of one block per SM, partials summed in block order).
-    `fused_field_backward.launches` counts kernel launches."""
-    if xyz.device.type == "cpu":
-        return fused_field_backward_plain(xyz, dirs, amb_bias, col_bias, w,
-                                          g_sigma, g_rgb, g_amb, amb_dim)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"fused_field: unsupported device {xyz.device}")
+
+def _check_bwd_inputs(xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb, g_amb, amb_dim) -> int:
     N = _check_cuda_inputs(xyz, dirs, amb_bias, col_bias, w, amb_dim)
     dev = xyz.device
     _check("g_sigma", g_sigma, (N,), torch.float32, dev)
     _check("g_rgb", g_rgb, (N, 3), torch.float32, dev)
     _check("g_amb", g_amb, (N, AMB_DIM), torch.float32, dev)
+    return N
+
+
+def fused_field_bwd_chain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
+                          g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM) -> torch.Tensor:
+    """The backward's tile chain, csrc/fused_field_bwd.cu, on CUDA tensors
+    (its plain version is `pack_operands(fused_field_bwd_operands_plain(...))`).
+    Same arguments as `fused_field_backward`; returns the operand buffer
+    (`pack_operands`' layout, flat bf16, `operand_points(N) *
+    OPERAND_ROWS` values). `fused_field_bwd_chain.launches` counts kernel
+    launches."""
+    if xyz.device.type != "cuda":
+        raise ValueError(f"fused_field: unsupported device {xyz.device}")
+    N = _check_bwd_inputs(xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb, g_amb, amb_dim)
+    dev = xyz.device
+    npad = operand_points(N)
+    if npad * OPERAND_ROWS >= 2 ** 40:
+        raise ValueError(f"fused_field: {N} points exceed the operand buffer's indexing")
+    ops = torch.empty((npad * OPERAND_ROWS,), dtype=torch.bfloat16, device=dev)
     if N == 0:
-        return unpack_grads(torch.zeros((PACKED_SIZE,), dtype=torch.float32, device=dev))
+        return ops
     lib = _library("fused_field_bwd")
-    nblocks = min(-(-N // 64), torch.cuda.get_device_properties(dev).multi_processor_count)
-    partial = torch.empty((nblocks, PACKED_SIZE), dtype=torch.float32, device=dev)
-    packed = torch.empty((PACKED_SIZE,), dtype=torch.float32, device=dev)
+    nblocks = min(npad // OPERAND_TILE, torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
         rc = lib.gfpp_fused_field_backward(
             xyz.data_ptr(), dirs.data_ptr(), N, g_sigma.data_ptr(), g_rgb.data_ptr(),
             g_amb.data_ptr(), *_weight_ptrs(w), amb_bias.data_ptr(), col_bias.data_ptr(),
-            partial.data_ptr(), nblocks, packed.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(lib, rc, "fused_field_backward")
-    fused_field_backward.launches += 1
+            ops.data_ptr(), npad, nblocks, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "fused_field_bwd_chain")
+    fused_field_bwd_chain.launches += 1
+    return ops
+
+
+fused_field_bwd_chain.launches = 0
+
+
+def fused_field_wgrad(ops: torch.Tensor, n: int):
+    """The weight gradients from the chain's operand buffer of n points on
+    the card: csrc/fused_field_wgrad.cu, then its chunk-order reduction
+    (the plain version is `fused_field_wgrad_plain(unpack_operands(ops, n))`).
+    Returns the 14 f32 gradient blocks (GRAD_BLOCKS' padded shapes).
+
+    Each work item sums WGRAD_CHUNK points and writes its partial once;
+    the partials are summed in chunk order, so the gradients are the same
+    run to run. `fused_field_wgrad.launches` counts kernel launches."""
+    if ops.device.type != "cuda":
+        raise ValueError(f"fused_field: unsupported device {ops.device}")
+    npad = operand_points(n)
+    _check("ops", ops, (npad * OPERAND_ROWS,), torch.bfloat16, ops.device)
+    dev = ops.device
+    packed = torch.empty((PACKED_SIZE,), dtype=torch.float32, device=dev)
+    if n == 0:
+        return unpack_grads(packed.zero_())
+    lib = _library("fused_field_wgrad")
+    nchunks = -(-npad // WGRAD_CHUNK)
+    partial = torch.empty((nchunks, PACKED_SIZE), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.gfpp_fused_field_wgrad(ops.data_ptr(), npad, partial.data_ptr(), nchunks, stream)
+        _raise_on(lib, rc, "fused_field_wgrad")
+        rc = lib.gfpp_fused_field_wgrad_reduce(partial.data_ptr(), nchunks, packed.data_ptr(), stream)
+        _raise_on(lib, rc, "fused_field_wgrad reduction")
+    fused_field_wgrad.launches += 1
     return unpack_grads(packed)
+
+
+fused_field_wgrad.launches = 0
+
+
+def fused_field_backward(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
+                         g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM):
+    """The fused backward: for CUDA tensors the tile chain
+    (`fused_field_bwd_chain`) and the weight-gradient kernel
+    (`fused_field_wgrad`) on the current stream; for CPU tensors
+    `fused_field_backward_plain`. Same contract.
+
+    Gives the same gradients run to run on one card (fixed grids, partials
+    summed in a fixed order). `fused_field_backward.launches` counts calls
+    that launched the kernels."""
+    if xyz.device.type == "cpu":
+        return fused_field_backward_plain(xyz, dirs, amb_bias, col_bias, w,
+                                          g_sigma, g_rgb, g_amb, amb_dim)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"fused_field: unsupported device {xyz.device}")
+    N = _check_bwd_inputs(xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb, g_amb, amb_dim)
+    if N == 0:
+        return unpack_grads(torch.zeros((PACKED_SIZE,), dtype=torch.float32, device=xyz.device))
+    ops = fused_field_bwd_chain(xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb, g_amb, amb_dim)
+    grads = fused_field_wgrad(ops, N)
+    fused_field_backward.launches += 1
+    return grads
 
 
 fused_field_backward.launches = 0

@@ -247,3 +247,105 @@ def test_fused_train_step_on_card_matches_cpu(cuda_setup):
     for k in ("mse_loss", "weights_entropy_loss", "ambient_loss", "total_loss"):
         np.testing.assert_allclose(m_g[k], m_c[k], rtol=1e-3, err_msg=k)
     assert (g_c @ g_g).item() / (g_c.norm() * g_g.norm()).item() >= 0.99
+
+
+# ---- the backward's two kernels: the tile chain and the weight gradients --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, ff.WGRAD_CHUNK - 1, ff.WGRAD_CHUNK + 1, 25 * ff.WGRAD_CHUNK + 77,
+                               140 * ff.WGRAD_CHUNK + 77])
+def test_wgrad_kernel_matches_plain(cuda_setup, n):
+    """The weight-gradient kernel vs fused_field_wgrad_plain on the same
+    seeded operands (uniform in [-0.25, 1)): float32 sums of the same bf16
+    products, in other orders and, in the kernel, through the tensor cores'
+    float32 accumulation. Within chip_smoke.WGRAD_MAX_REL (5e-5) of each
+    block's largest entry (printed; on an H100 1.28e-5 to 1.43e-5 at every
+    n > 1: a rounding of the tensor cores' sums, not one that grows with
+    the number of points), at one point, on both sides of a chunk
+    boundary, and with more chunks than an H100 has SMs (132), so that
+    every item's grid runs more than one wave. Every launch counted; two
+    launches bit-identical."""
+    import chip_smoke
+
+    dev = cuda_setup[0]
+    rs = np.random.RandomState(n % 1000)
+    ops = {name: torch.from_numpy(rs.uniform(-0.25, 1.0, (n, rows)).astype(np.float32)).to(dev).bfloat16()
+           for name, rows in ff.WGRAD_OPERANDS}
+    buf = ff.pack_operands(ops)
+    before = ff.fused_field_wgrad.launches
+    with torch.no_grad():
+        k = ff.fused_field_wgrad(buf, n)
+        k2 = ff.fused_field_wgrad(buf, n)
+        p = ff.fused_field_wgrad_plain(ops)
+    torch.cuda.synchronize()
+    assert ff.fused_field_wgrad.launches == before + 2
+    worst = 0.0
+    for (name, shape, _), a, a2, b in zip(ff.GRAD_BLOCKS, k, k2, p):
+        assert a.shape == shape and torch.equal(a, a2), name
+        worst = max(worst, (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+        torch.testing.assert_close(a, b, rtol=0, atol=chip_smoke.WGRAD_MAX_REL * b.abs().max().item(), msg=name)
+    print(f"[wgrad] n = {n}: max |kernel - plain| / max |plain| over the blocks {worst:.3e}")
+
+
+GRADIENT_OPERANDS = {"gc1a", "gc1b", "gaproj", "gproj", "gs1", "ga1", "ga2", "gs2", "gsig", "grgb", "gamb"}
+RELU_OPERANDS = ("a1", "a2", "s1", "s2", "c1")  # the hidden layers whose ReLU masks gate the gradients
+# measured on an H100 at n = 300 and 65,537: the masks agree on 264 of 264
+# and 57,208 of 57,214 clean points, where every operand is within 3.9e-3
+# (one bf16 step of an entry near its largest) of its largest entry
+CHAIN_MASKS_AGREE = 0.99  # least share of clean points whose five ReLU masks agree
+CHAIN_MAX_REL = 1e-2  # on those points, any operand vs plain, of its largest entry
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 300, 65537])
+def test_chain_operands_match_plain(cuda_setup, n):
+    """The chain's operands vs fused_field_bwd_operands_plain. Both are
+    bf16 roundings of float32 values that the card sums in other orders
+    (tensor-core tiles, the Fourier phase's FMA chain vs a float32 matmul),
+    so a rounding can flip, and a flipped ReLU mask moves a point's
+    gradients by whole entries. On the points whose forward is clean
+    (chip_smoke.FWD_CLEAN) each operand differs in at most 3 % of its
+    entries. On the clean points whose ReLU masks (a1, a2, s1, s2, c1) are
+    the same in both, at least CHAIN_MASKS_AGREE of them, every operand,
+    gradients included, is within CHAIN_MAX_REL of its largest entry: a
+    few bf16 steps, so an operand written to the wrong place or corrupted
+    on those points fails. bf16(xyz) is equal everywhere, and the buffer
+    holds zeros past n."""
+    import chip_smoke
+
+    dev, w, ab, cb = cuda_setup
+    xyz, d = _points(n, dev, seed=7)
+    gs, gr, ga = _out_grads(n, dev)
+    before = ff.fused_field_bwd_chain.launches
+    with torch.no_grad():
+        buf = ff.fused_field_bwd_chain(xyz, d, ab, cb, w, gs, gr, ga)
+        torch.cuda.synchronize()
+        assert ff.fused_field_bwd_chain.launches == before + 1
+        k = ff.unpack_operands(buf, ff.operand_points(n))
+        p = ff.fused_field_bwd_operands_plain(xyz, d, ab, cb, w, gs, gr, ga)
+        fk, fp = ff.fused_field(xyz, d, ab, cb, w), ff.fused_field_plain(xyz, d, ab, cb, w)
+    moved = torch.stack([(fk[0].log() - fp[0].log()).abs(), (fk[1] - fp[1]).abs().amax(-1),
+                         (fk[2] - fp[2]).abs().amax(-1)], -1).amax(-1)
+    clean = moved <= chip_smoke.FWD_CLEAN
+    agree = clean.clone()
+    for name in RELU_OPERANDS:
+        agree &= ((k[name][:n] > 0) == (p[name] > 0)).all(-1)
+    n_clean, n_agree = int(clean.sum()), int(agree.sum())
+    worst, share = {}, {}
+    for name, _ in ff.WGRAD_OPERANDS:
+        a, b = k[name][:n].float(), p[name].float()
+        assert not k[name][n:].float().any(), name
+        assert torch.isfinite(a).all(), name
+        diff = (a != b)[clean]
+        share[name] = diff.float().mean().item() if n_clean else 0.0
+        assert share[name] <= 0.03 or diff.sum().item() <= 2, (name, share[name])
+        if n_agree:
+            worst[name] = (a - b).abs()[agree].max().item() / max(b.abs().max().item(), 1e-30)
+    print(f"[chain] n = {n}: {n_clean} clean points, {n_agree} of them with the same ReLU masks; "
+          f"max |chain - plain| / max |plain| there: "
+          + ", ".join(f"{k_}={v:.2e}" for k_, v in worst.items())
+          + "; share of clean entries that differ: " + ", ".join(f"{k_}={v:.4f}" for k_, v in share.items()))
+    assert n_agree >= CHAIN_MASKS_AGREE * n_clean, (n_agree, n_clean)
+    for name, rel in worst.items():
+        assert rel <= CHAIN_MAX_REL, (name, rel)
+    assert torch.equal(k["xyzb"][:n].float(), p["xyzb"])
