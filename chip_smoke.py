@@ -26,6 +26,13 @@ Phases (any failure exits non-zero, and no result line is printed):
               random weights from a seed) on a synthetic 512^2 identity with the
               bench's head-sized occupancy: GT-driven requests through
               prepare_gt_batch -> forward_secc2video, checked and timed
+  serve_full  GeneFaceInfer at the May lm3d_radnerf_torso_sr configuration (the
+              lm3d_radnerf_sr head at 256^2, the torso field, bf16 2x SR to
+              512^2; random weights from seeds, SR noise strengths non-zero) on
+              a synthetic 512^2 identity loaded with_sr, with the bench's head
+              occupancy and torso grid: GT-driven requests, checked against the
+              plain field, against the float32 SR with the crops off, and bf16
+              against float32 SR; timed per frame and per stage
   train       HeadNeRFTask + Trainer.fit at the same config with
               use_fused_field=True on a synthetic 512^2 identity: 20 steps of
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
@@ -66,6 +73,11 @@ KERNEL_MEAN = {"log_sigma": 5e-4, "rgb": 1e-4, "amb": 1e-5}
 FIELD_MAX = {"log_sigma": 0.3, "rgb": 0.08, "amb": 0.05}
 FIELD_MIN_CORR = 0.98
 PLAIN_FRAME_MIN_PSNR = 40.0  # dB, kernel frame vs plain-field frame (uint8)
+# the full frame: the crops are lossless (tests/test_full_renderer.py's bound
+# for SR crop vs full), and bf16 SR agrees with float32 SR as JAX's does
+# (tests/test_superresolution.py)
+CROP_MAX_ABS = 2e-5
+SR_BF16_MIN_PSNR = 35.0  # dB, relative to the float32 frame's range
 
 N_RAYS, TRAIN_SAMPLES = 65536, 16  # egs/egs_bases/radnerf/base.yaml
 N_TRAIN_POINTS = N_RAYS * TRAIN_SAMPLES
@@ -103,6 +115,10 @@ FWD_MACS = sum(k * n for k, n in FWD_PRODUCTS)  # 150,400
 # product but SH's rows of col_w1, and of amb_B (64 -> 3)
 BWD_MACS = FWD_MACS + (FWD_MACS + 3 * 128 + 3 * 64) + (FWD_MACS - 16 * 128 + 64 * AMB_OUT)  # 449,920
 FWD_BYTES, BWD_BYTES = 52, 52  # xyz, dirs in + sigma, rgb, amb out; xyz, dirs, three output grads in
+# B2's tile chain alone: the forward recomputed and the input gradients, and
+# the bf16 weight-gradient operands it must write (2,168 a point, as stored)
+CHAIN_MACS = FWD_MACS + (FWD_MACS - 16 * 128 + 64 * AMB_OUT)  # 298,944
+CHAIN_BYTES = BWD_BYTES + 2 * 2168
 # the weight-gradient kernel: the weight gradients of the eight products and
 # of pos_B and amb_B, against its operands read once at their live widths
 # (2,141 bf16 a point; the buffer stores 2,168 with padding)
@@ -142,6 +158,32 @@ def head_config():
     from genefaceplusplus_tpu_torch.models.radnerf import MAY_LM3D_RADNERF, RADNeRFConfig
 
     return RADNeRFConfig.from_hparams(MAY_LM3D_RADNERF)
+
+
+def sr_head_config():
+    from genefaceplusplus_tpu_torch.models.radnerf import MAY_LM3D_RADNERF_SR, RADNeRFConfig
+
+    return RADNeRFConfig.from_hparams(MAY_LM3D_RADNERF_SR)
+
+
+def torso_config():
+    from genefaceplusplus_tpu_torch.models.radnerf import MAY_LM3D_RADNERF_TORSO_SR
+    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoConfig
+
+    return TorsoConfig.from_hparams(MAY_LM3D_RADNERF_TORSO_SR)
+
+
+def bench_torso_grid(grid: int) -> np.ndarray:
+    """The bench's torso footprint (bench.py): the lower 55 % of the rows and
+    the centre 70 % of the columns, as a trained identity's 2D grid holds."""
+    occ2d = np.zeros((grid, grid), np.float32)
+    occ2d[int(0.45 * grid):, int(0.15 * grid):int(0.85 * grid)] = 0.5
+    return occ2d
+
+
+def psnr(a, ref, peak: float) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(ref, np.float64)) ** 2))
+    return math.inf if mse == 0 else 10.0 * math.log10(peak ** 2 / mse)
 
 
 def bench_occupancy(grid: int = GRID) -> np.ndarray:
@@ -328,11 +370,202 @@ def phase_serve(dev):
                                 opts, (H, W), eye_area_percent=eye, head_crop=infer.head_crop,
                                 field_weights=infer.field_weights, fused_fn=ff.fused_field_plain)
         plain = (torch.clamp(out.rgb_map, 0.0, 1.0) * 255.0).to(torch.uint8).reshape(H, W, 3).cpu().numpy()
-    mse = np.mean((plain.astype(np.float64) - frames_all[0][0].astype(np.float64)) ** 2)
-    psnr = math.inf if mse == 0 else 10.0 * math.log10(255.0 ** 2 / mse)
-    print(f"[serve] kernel frame vs plain-field frame: PSNR {psnr:.2f} dB (>= {PLAIN_FRAME_MIN_PSNR}), "
+    p_plain = psnr(plain, frames_all[0][0], 255.0)
+    print(f"[serve] kernel frame vs plain-field frame: PSNR {p_plain:.2f} dB (>= {PLAIN_FRAME_MIN_PSNR}), "
           f"mean |d| {np.abs(plain.astype(np.int16) - frames_all[0][0]).mean():.5f}")
-    check(psnr >= PLAIN_FRAME_MIN_PSNR, "kernel frame vs plain-field frame")
+    check(p_plain >= PLAIN_FRAME_MIN_PSNR, "kernel frame vs plain-field frame")
+    return launches
+
+
+def stage_split(infer, dev, batch, frames: int) -> dict:
+    """CUDA-event times of each stage of `frames` served frames (median, min,
+    max ms): the head (condition + march + field + composite) until the torso
+    field starts, the torso (field, 2D-occupancy mask, composite) until the
+    SR starts, the SR (with its paste into SR(bg)), and the uint8 quantise
+    and copy to the host. Events come from hooks on the torso and SR modules."""
+    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+
+    H, W = infer.dataset.H, infer.dataset.W
+    marks = {}
+
+    def mark(name):
+        def hook(*_):
+            marks[name] = torch.cuda.Event(enable_timing=True)
+            marks[name].record()
+        return hook
+
+    hooks = [infer.torso_model.register_forward_pre_hook(mark("torso")),
+             infer.sr_model.register_forward_pre_hook(mark("sr"))]
+    times = {k: [] for k in ("head", "torso", "sr", "quantise_copy", "frame")}
+    try:
+        with torch.no_grad():
+            ro, rd = pixel_rays(torch.as_tensor(batch["poses"], device=dev), infer.dataset.intrinsics, H, W)
+            conds = torch.as_tensor(batch["cond"], device=dev)
+            wins = get_audio_features_batch(conds, torch.arange(batch["T"], device=dev), infer.head_cfg.smo_win_size)
+            eyes = torch.as_tensor(batch["eye_area_percent"], device=dev)
+            lm68 = torch.as_tensor(batch["lm68"], device=dev)
+            for i in range(frames):
+                torch.cuda.synchronize()
+                start, done, copied = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+                start.record()
+                out = infer.render_frame(ro[i], rd[i], wins[i], eyes[i], lm68[i][None])
+                done.record()
+                (torch.clamp(out.sr_rgb_map, 0.0, 1.0) * 255.0).to(torch.uint8).cpu()
+                copied.record()
+                torch.cuda.synchronize()
+                times["head"].append(start.elapsed_time(marks["torso"]))
+                times["torso"].append(marks["torso"].elapsed_time(marks["sr"]))
+                times["sr"].append(marks["sr"].elapsed_time(done))
+                times["quantise_copy"].append(done.elapsed_time(copied))
+                times["frame"].append(start.elapsed_time(copied))
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: (statistics.median(v), min(v), max(v)) for k, v in times.items()}
+
+
+def profile_request(infer, batch) -> tuple:
+    """(device activities a frame, kernels a frame, device-busy ms a frame,
+    the ten kernels with the most device time [(name, launches a frame, ms a
+    frame)]) over one request under torch.profiler, busy being the union of
+    the device activities' spans; Nones when the profiler shows no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        frames = list(infer.forward_secc2video(batch, {"frames_per_dispatch": 8}))
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev_events:
+        return None, None, None, []
+    kernels = [e for e in dev_events if not e.name.lower().startswith(("memcpy", "memset"))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy_us += cur_e - cur_s
+    n = len(frames)
+    by_name = {}
+    for e in kernels:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    top = [(name[:70], c / n, t / 1e3 / n) for name, (c, t) in top]
+    return len(dev_events) / n, len(kernels) / n, busy_us / 1e3 / n, top
+
+
+def phase_serve_full(dev):
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
+    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoField
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution, SynthesisLayer
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+    from genefaceplusplus_tpu_torch.utils.smoothing import mirror_index
+
+    cfg, tcfg = sr_head_config(), torso_config()
+    params = RADNeRF(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    torso_params = TorsoField(tcfg, generator=torch.Generator().manual_seed(1)).state_dict()
+    sr = Superresolution(3, 256, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():  # noise_strength initialises to 0: exercise the const noise
+        for i, layer in enumerate(m for m in sr.modules() if isinstance(m, SynthesisLayer)):
+            layer.noise_strength.fill_(0.1 + 0.05 * i)
+    ds = RADNeRFDataset(synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0), smo_win_size=cfg.smo_win_size,
+                        with_sr=True)
+    kw = dict(torso_cfg=tcfg, torso_params=torso_params, sr_params=sr.state_dict(),
+              torso_occupancy_2d=bench_torso_grid(tcfg.grid_size))
+    infer = GeneFaceInfer(cfg, params, ds, bench_occupancy(cfg.grid_size), device=dev, **kw)
+    H, W = ds.H, ds.W
+    opts = infer.render_options({})
+    rays = H * W if infer.head_crop is None else infer.head_crop[0] * infer.head_crop[1]
+    print(f"[serve_full] raw {H}x{W} -> SR {2 * H}x{2 * W} ({infer.sr_model.block0.dtype}), grid {cfg.grid_size}, "
+          f"{rays * opts.num_samples} field points per frame ({rays} rays x {opts.num_samples} samples)")
+    print(f"[serve_full] crops engaged: head_crop {infer.head_crop is not None} ({infer.head_crop}), "
+          f"torso_crop {infer.torso_crop is not None} ({infer.torso_crop}), sr_crop "
+          f"{infer.sr_crop is not None} ({infer.sr_crop})")
+
+    requests = [[mirror_index(r * FRAMES_PER_REQUEST + i, len(ds)) for i in range(FRAMES_PER_REQUEST)]
+                for r in range(N_REQUESTS)]
+    frames_all, ms_per_frame = [], []
+    torch.cuda.synchronize()
+    ff.fused_field.launches = 0  # count only the main path's launches
+    for ids in requests:
+        batch = infer.prepare_gt_batch(ids)
+        t0 = time.perf_counter()
+        frames = list(infer.forward_secc2video(batch, {"frames_per_dispatch": 8}))
+        ms_per_frame.append((time.perf_counter() - t0) * 1e3 / len(frames))
+        frames_all.append(frames)
+    launches = ff.fused_field.launches
+    n_frames = sum(len(f) for f in frames_all)
+
+    for ids, frames in zip(requests, frames_all):
+        check(len(frames) == len(ids), "frame count")
+        for f in frames:
+            check(f.shape == (2 * H, 2 * W, 3) and f.dtype == np.uint8, f"frame {f.shape} {f.dtype}")
+        check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "frames do not vary")
+    check(launches >= n_frames, f"fused_field launched {launches} times for {n_frames} frames")
+    timed = ms_per_frame[1:]  # the first request includes one-time set-up
+    print(f"[serve_full] {len(requests)} requests x {FRAMES_PER_REQUEST} frames of {2 * H}x{2 * W}: {launches} "
+          f"fused_field launches for {n_frames} frames")
+    print(f"[serve_full] per-frame time (request wall / frames, requests 2..{len(requests)}): median "
+          f"{statistics.median(timed):.3f} ms, min {min(timed):.3f}, max {max(timed):.3f}; first request "
+          f"{ms_per_frame[0]:.3f} ms/frame")
+
+    # the first request's first frame again: through the plain field; with
+    # float32 SR, crops on and off; bf16 against float32 SR
+    batch = infer.prepare_gt_batch(requests[0])
+    infer32 = GeneFaceInfer(cfg, params, ds, bench_occupancy(cfg.grid_size), device=dev, sr_dtype=torch.float32,
+                            **kw)
+    with torch.no_grad():
+        ro, rd = pixel_rays(torch.as_tensor(batch["poses"][:1], device=dev), ds.intrinsics, H, W)
+        conds = torch.as_tensor(batch["cond"], device=dev)
+        win = get_audio_features_batch(conds, torch.arange(batch["T"], device=dev), cfg.smo_win_size)[0]
+        eye = torch.as_tensor(batch["eye_area_percent"][:1], device=dev)
+        lm68 = torch.as_tensor(batch["lm68"][:1], device=dev)
+        args = (ro[0], rd[0], win, eye, lm68)
+        plain = infer.render_frame(*args, fused_fn=ff.fused_field_plain).sr_rgb_map
+        plain = (torch.clamp(plain, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+        bf16 = infer.render_frame(*args).sr_rgb_map.cpu().numpy()
+        f32_on = infer32.render_frame(*args).sr_rgb_map.cpu().numpy()
+        f32_off = infer32.render_frame(*args, inp={"torso_crop": "off", "sr_crop": "off"}).sr_rgb_map.cpu().numpy()
+    p_plain = psnr(plain, frames_all[0][0], 255.0)
+    print(f"[serve_full] kernel frame vs plain-field frame: PSNR {p_plain:.2f} dB (>= {PLAIN_FRAME_MIN_PSNR}), "
+          f"mean |d| {np.abs(plain.astype(np.int16) - frames_all[0][0]).mean():.5f}")
+    check(p_plain >= PLAIN_FRAME_MIN_PSNR, "kernel frame vs plain-field frame")
+    crop_err = float(np.abs(f32_on - f32_off).max())
+    print(f"[serve_full] float32 SR, crops on (torso {infer32.torso_crop}, sr {infer32.sr_crop}) vs off: max |d| "
+          f"{crop_err:.3e} (<= {CROP_MAX_ABS})")
+    check(crop_err <= CROP_MAX_ABS, "crops on vs off")
+    p_bf16 = psnr(bf16, f32_on, float(np.ptp(f32_on)))
+    print(f"[serve_full] bf16 SR vs float32 SR: PSNR {p_bf16:.2f} dB (> {SR_BF16_MIN_PSNR}), max |d| "
+          f"{np.abs(bf16 - f32_on).max():.4f}")
+    check(p_bf16 > SR_BF16_MIN_PSNR, "bf16 SR vs float32 SR")
+    del infer32
+
+    split = stage_split(infer, dev, infer.prepare_gt_batch(requests[1]), FRAMES_PER_REQUEST)
+    print(f"[serve_full] {card_line()}; stage split by CUDA events over {FRAMES_PER_REQUEST} frames (median, "
+          "min, max ms): " + "; ".join(f"{k} {v[0]:.3f} ({v[1]:.3f}, {v[2]:.3f})" for k, v in split.items()))
+    per_frame, kernels, busy, top = profile_request(infer, infer.prepare_gt_batch(requests[2]))
+    if per_frame is None:
+        print("[serve_full] profiler: no device activity recorded; launches a frame and the idle share "
+              "not measured")
+    else:
+        served = statistics.median(timed)
+        print(f"[serve_full] profiler over one request of {FRAMES_PER_REQUEST} frames: {per_frame:.1f} device "
+              f"activities a frame ({kernels:.1f} kernels), device busy {busy:.3f} ms a frame; against the "
+              f"{served:.3f} ms served frame without the profiler the device is idle "
+              f"{100.0 * (1.0 - busy / served):.1f} %")
+        for name, count, ms in top:
+            print(f"[serve_full] profiler top kernel: {ms:.4f} ms a frame in {count:.1f} launches: {name}")
     return launches
 
 
@@ -483,6 +716,10 @@ def phase_kernel_bwd(dev):
     w_bound_ms, w_bound_by = kernel_bound(n, WGRAD_MACS, WGRAD_BYTES, 4 * ff.PACKED_SIZE)
     library_ms = statistics.median(t_lib)
     print(f"[kernel_bwd] backward bound {bound_ms:.4f} ms ({bound_by}): {100.0 * bound_ms / ms:.1f} % of the bound")
+    c_ms = statistics.median(times["chain"][0])
+    c_bound_ms, c_bound_by = kernel_bound(n, CHAIN_MACS, CHAIN_BYTES, 4 * ff.PACKED_SIZE)
+    print(f"[kernel_bwd] chain bound {c_bound_ms:.4f} ms ({c_bound_by}; operations "
+          f"{kernel_bound(n, CHAIN_MACS, 0)[0]:.4f} ms): {100.0 * c_bound_ms / c_ms:.1f} % of the bound")
     print(f"[kernel_bwd] weight-gradient kernel bound {w_bound_ms:.4f} ms ({w_bound_by}): "
           f"{100.0 * w_bound_ms / w_ms:.1f} % of the bound; bf16 torch.matmul on the same operands "
           f"{library_ms:.4f} ms (min {min(t_lib):.4f}, max {max(t_lib):.4f}, n={len(t_lib)})")
@@ -596,15 +833,17 @@ def main() -> int:
     k = phase_kernel(dev)
     kb, kw = phase_kernel_bwd(dev)
     serve_launches = phase_serve(dev)
+    full_launches = phase_serve_full(dev)
     train_fwd, train_chain, train_wgrad = phase_train(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(f"[launches] fused_field: {serve_launches} serving + {train_fwd} training; "
+    print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
+          f"{train_fwd} training; "
           f"fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:156",
-        "launches": serve_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "launches": serve_launches + full_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {
         # B2: launches of its source's kernel (the chain); times of the whole backward

@@ -6,11 +6,12 @@ counterpart does. It imports torch, numpy and scipy only: never jax, flax,
 yaml or cv2, and nothing from `genefaceplusplus_tpu` at run time. The parity
 tests (`tests/test_torch_*.py`) are the only code that imports both packages.
 
-Ported so far, for the non-SR config (`egs/datasets/May/lm3d_radnerf.yaml`):
-the GT-driven head-NeRF serving path (condition encoders, the Fourier field,
-interval ray marching with the probe prepass, compositing, the head-only
-frame renderer and the render half of `GeneFaceInfer`) and head-NeRF
-training (`training/tasks/head_task.py:HeadNeRFTask` and
+Ported so far: the GT-driven serving path (condition encoders, the Fourier
+field, interval ray marching with the probe prepass, compositing, the frame
+renderer and the render half of `GeneFaceInfer`) for the non-SR head config
+(`egs/datasets/May/lm3d_radnerf.yaml`) and for the full frame of
+`egs/datasets/May/lm3d_radnerf_torso_sr.yaml` (head at 256^2, torso field,
+2x StyleGAN2 super-resolution), and head-NeRF training (`training/tasks/head_task.py:HeadNeRFTask` and
 `training/trainer.py:Trainer`). The field on both paths is the hand-written
 CUDA forward kernel `csrc/fused_field.cu`; training's backward is
 `csrc/fused_field_bwd.cu` (`ops/fused_field.py`). ROADMAP.md lists what is

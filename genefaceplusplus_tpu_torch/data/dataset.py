@@ -1,14 +1,14 @@
-"""RAD-NeRF dataset at full resolution (port of
-`genefaceplusplus_tpu/data/dataset.py`, which imports jax through
-`utils/rotation.py` and cv2 for images).
+"""RAD-NeRF dataset (port of `genefaceplusplus_tpu/data/dataset.py`, which
+imports jax through `utils/rotation.py` and cv2 for images).
 
 Kept: the binarizer record format, ngp poses (the eval split's smoothed
 camera path included), the normalised landmark conditions, eye-area
 percents, the background, images from the record's in-memory `*_img`
 arrays, the torso-composited background, the convex-hull face mask (numpy,
-no cv2) and `synthetic()`. Only `with_sr=False`: the half-resolution SR
-path, and images read from files, need cv2's resize and decoder and arrive
-with SR (ROADMAP).
+no cv2), `synthetic()`, and `with_sr=True`: the SR models' half-resolution
+render size, with scaled intrinsics and the background and images resized
+bilinearly (`resize_bilinear`, where cv2.INTER_LINEAR samples). Images read
+from files need a decoder and are not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from genefaceplusplus_tpu_torch.utils.rotation import nerf_matrix_to_ngp
 from genefaceplusplus_tpu_torch.utils.smoothing import smooth_camera_sequence
@@ -72,6 +74,14 @@ def get_boundary_mask(lm2d: np.ndarray, H: int, W: int) -> np.ndarray:
     return mask
 
 
+def resize_bilinear(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """[h, w, c] float image -> [H, W, c]: bilinear with half-pixel centres
+    and no antialiasing, sampling where cv2.resize's INTER_LINEAR does."""
+    x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32)).permute(2, 0, 1)[None]
+    y = F.interpolate(x, size=(H, W), mode="bilinear", align_corners=False, antialias=False)
+    return y[0].permute(1, 2, 0).numpy()
+
+
 class RADNeRFDataset:
     """A split of a binarized identity (`ds` dict or .npy path)."""
 
@@ -79,17 +89,19 @@ class RADNeRFDataset:
                  camera_offset=(0.0, 0.0, 0.0), smooth_eval_camera: bool = True,
                  camera_smooth_kernel: int = 7, cond_win_size: int = 1,
                  smo_win_size: int = 3, with_sr: bool = False):
-        if with_sr:
-            raise NotImplementedError("with_sr=True (half-resolution SR rendering) is not "
-                                      "ported: it arrives with the SR stage (ROADMAP)")
         if isinstance(ds, str):
             ds = np.load(ds, allow_pickle=True).tolist()
         self.ds = ds
         self.split = split
         self.H = int(ds["H"])
         self.W = int(ds["W"])
+        if with_sr:  # SR models render at half resolution (dataset_utils.py:187-190)
+            self.H //= 2
+            self.W //= 2
         self.focal = float(ds["focal"])
-        self.intrinsics = (self.focal, self.focal, float(ds["cx"]), float(ds["cy"]))
+        scale = self.H / int(ds["H"])
+        self.intrinsics = (self.focal * scale, self.focal * scale,
+                           float(ds["cx"]) * scale, float(ds["cy"]) * scale)
         self.samples: List[Dict] = ds[f"{split}_samples"]
         self.cond_win_size = cond_win_size
         self.smo_win_size = smo_win_size
@@ -118,8 +130,8 @@ class RADNeRFDataset:
         self.bg_img = np.asarray(ds["bg_img"], np.float32)
         if self.bg_img.max() > 1.5:
             self.bg_img = self.bg_img / 255.0
-        if self.bg_img.shape[:2] != (self.H, self.W):
-            raise ValueError(f"bg_img is {self.bg_img.shape[:2]}, expected {(self.H, self.W)}")
+        if self.bg_img.shape[0] != self.H:
+            self.bg_img = resize_bilinear(self.bg_img, self.H, self.W)
 
     def __len__(self):
         return len(self.samples)
@@ -157,9 +169,8 @@ class RADNeRFDataset:
             img = np.asarray(arr, np.float32)
             if img.max() > 1.5:
                 img = img / 255.0
-            if img.shape[:2] != (self.H, self.W):
-                raise ValueError(f"{kind}_img of frame {i} is {img.shape[:2]}, expected "
-                                 f"{(self.H, self.W)} (resizing needs cv2)")
+            if img.shape[0] != self.H:
+                img = resize_bilinear(img, self.H, self.W)
             u8 = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
             self._img_cache[key] = u8
         img = u8.astype(np.float32) / 255.0

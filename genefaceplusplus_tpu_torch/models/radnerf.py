@@ -149,6 +149,24 @@ MAY_LM3D_RADNERF = {
     "field_act_dtype": "float32",
 }
 
+# egs/datasets/May/lm3d_radnerf_sr.yaml resolved the same way: the SR head
+# stage (256^2 raw render, 2x SR to 512^2), its SR keys included.
+MAY_LM3D_RADNERF_SR = dict(MAY_LM3D_RADNERF, smo_win_size=3, with_sr=True, sr_dtype="bfloat16")
+
+# egs/datasets/May/lm3d_radnerf_torso_sr.yaml resolved the same way,
+# restricted to the keys `TorsoConfig.from_hparams` reads. Its head is the
+# lm3d_radnerf_sr stage named by `head_model_dir`.
+MAY_LM3D_RADNERF_TORSO_SR = {
+    "torso_shrink": 0.8,
+    "grid_size": 128,
+    "density_thresh_torso": 0.01,
+    "individual_embedding_num": 13000,
+    "torso_individual_embedding_dim": 8,
+    "torso_head_aware": True,
+    "grid_type": "fourier",
+    "with_sr": True,
+}
+
 
 class RADNeRF(nn.Module):
     """Head field. Methods mirror the flax module:

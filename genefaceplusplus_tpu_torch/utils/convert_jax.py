@@ -1,12 +1,16 @@
-"""Weight bridge: the JAX package's flax param tree (as numpy arrays) ->
-the port's `state_dict`.
+"""Weight bridge: the JAX package's flax variables (as numpy arrays) -> the
+port's `state_dict`.
 
 flax `Dense` kernels `[in, out]` become `Linear` weights `[out, in]`; flax
 `Conv` kernels `[k, in, out]` become `Conv1d` weights `[out, in, k]`;
-`Embed.embedding` becomes `Embedding.weight`. Module paths map `Conv_i` ->
-`convs.i`, `Dense_i` -> `dense.i`, `blink_encoder_i` -> `blink_encoder.i`.
-Every leaf must land on a port parameter of the same shape, and every port
-parameter must receive one: anything else raises. A JAX `TrainState`'s
+`Embed.embedding` becomes `Embedding.weight`. The super-resolution's own
+leaves named `weight` keep their layout when 2-D (`FullyConnectedLayer`,
+already `[out, in]`) and go from HWIO `[kh, kw, in, out]` to OIHW when 4-D;
+its scalar `noise_strength` and its `buffers` collection (`noise_const`)
+land as they are. Module paths map `Conv_i` -> `convs.i`, `Dense_i` ->
+`dense.i`, `blink_encoder_i` -> `blink_encoder.i`. Every leaf must land on
+a port tensor (parameter or buffer) of the same shape, and every port
+tensor must receive one: anything else raises. A JAX `TrainState`'s
 `params` (and a gradient tree of the same structure) convert the same way,
 so a port optimizer can start from them (`TrainState.model.load_state_dict`).
 """
@@ -39,24 +43,38 @@ def _module_name(part: str) -> str:
 def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     *mods, name = path
     key = ".".join(_module_name(p) for p in mods)
+
+    def at(leaf: str) -> str:
+        return f"{key}.{leaf}" if key else leaf
+
     if name == "kernel":
         if arr.ndim == 2:
-            return f"{key}.weight", arr.T
+            return at("weight"), arr.T
         if arr.ndim == 3:
-            return f"{key}.weight", arr.transpose(2, 1, 0)
+            return at("weight"), arr.transpose(2, 1, 0)
         raise ValueError(f"{'/'.join(path)}: unexpected kernel rank {arr.ndim}")
+    if name == "weight" and arr.ndim == 4:
+        return at("weight"), arr.transpose(3, 2, 0, 1)
     if name == "embedding":
-        return f"{key}.weight", arr
-    return (f"{key}.{name}" if key else name), arr
+        return at("weight"), arr
+    return at(name), arr
 
 
 def convert_flax_params(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """Convert a flax variables dict ({'params': ...}) for `model`, checking
-    that the conversion places every leaf and fills every parameter."""
-    tree = params["params"] if "params" in params else params
+    """Convert flax variables ({'params': ...[, 'buffers': ...]}, or a bare
+    param tree) for `model`, checking that the conversion places every leaf
+    and fills every parameter and buffer."""
+    if "params" in params:
+        other = sorted(set(params) - {"params", "buffers"})
+        if other:
+            raise KeyError(f"flax collections the port has no tensors for: {other}")
+        leaves = [leaf for col in ("params", "buffers") if col in params
+                  for leaf in _flatten(params[col])]
+    else:
+        leaves = list(_flatten(params))
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(tree):
+    for path, leaf in leaves:
         key, arr = _leaf(path, np.asarray(leaf))
         if key not in target:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {key!r}: no such port parameter")
@@ -68,5 +86,5 @@ def convert_flax_params(params: Mapping, model: torch.nn.Module) -> Dict[str, to
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
     missing = sorted(set(target) - set(out))
     if missing:
-        raise KeyError(f"port parameters without a flax leaf: {missing}")
+        raise KeyError(f"port tensors without a flax leaf: {missing}")
     return out

@@ -1,6 +1,8 @@
 """The CUDA fused-field kernels (forward and backward) on the card: they
 launch, count, mask the ragged tile and agree with their plain versions,
-and a fused train step on the card agrees with the CPU. Imports no jax, so
+and a fused train step on the card agrees with the CPU; the full frame
+(head + torso + float32 SR) on the card agrees with the CPU, and the
+float32 SR does so with cuDNN's TF32 flag on. Imports no jax, so
 it runs on a machine with the card and no JAX:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
@@ -349,3 +351,121 @@ def test_chain_operands_match_plain(cuda_setup, n):
     for name, rel in worst.items():
         assert rel <= CHAIN_MAX_REL, (name, rel)
     assert torch.equal(k["xyzb"][:n].float(), p["xyzb"])
+
+
+# ---- the full frame: head + torso + 2x SR ---------------------------------
+
+def _full_frame_infer(dev, sr_dtype):
+    """GeneFaceInfer at the torso_sr widths (lm3d_radnerf_sr head, torso,
+    SR) on a synthetic 128^2 identity loaded with_sr (raw 64^2), the
+    bench's head occupancy and torso grid, SR noise strengths non-zero."""
+    import chip_smoke
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
+    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoField
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution, SynthesisLayer
+
+    cfg, tcfg = chip_smoke.sr_head_config(), chip_smoke.torso_config()
+    sr = Superresolution(3, 256, generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        for i, layer in enumerate(m for m in sr.modules() if isinstance(m, SynthesisLayer)):
+            layer.noise_strength.fill_(0.1 + 0.05 * i)
+    ds = RADNeRFDataset(synthetic(num_frames=6, H=128, W=128), smo_win_size=cfg.smo_win_size, with_sr=True)
+    return GeneFaceInfer(
+        cfg, RADNeRF(cfg, generator=torch.Generator().manual_seed(5)).state_dict(), ds,
+        chip_smoke.bench_occupancy(cfg.grid_size), device=dev, torso_cfg=tcfg,
+        torso_params=TorsoField(tcfg, generator=torch.Generator().manual_seed(6)).state_dict(),
+        torso_occupancy_2d=chip_smoke.bench_torso_grid(tcfg.grid_size), sr_params=sr.state_dict(),
+        sr_dtype=sr_dtype)
+
+
+# the full frame, card vs CPU, float32 throughout: the head's float32 MLP
+# products sum in another order on the card, and compositing, the
+# head-aware torso and the SR carry that on. Measured at
+# 64^2 raw (one H100): max |d| 5.06e-4 (rgb_map), 7.2e-4 (torso_alpha),
+# 3.8e-4 (sr_rgb_map); mean 1.1e-5 or less. Each stage alone, on the same
+# inputs, holds 1e-4 (the two tests after this one).
+FULL_FRAME_MAX, FULL_FRAME_MEAN = 2e-3, 1e-4
+
+
+@pytest.mark.cuda
+def test_full_frame_on_card_matches_cpu(cuda_setup):
+    """One frame through render_full_frame with the float32 model field,
+    the torso and float32 SR, crops as loaded, on the card and on the CPU:
+    the raw composite, torso alpha and the SR frame within FULL_FRAME_MAX,
+    their means within FULL_FRAME_MEAN."""
+    from genefaceplusplus_tpu_torch.models.full_renderer import render_full_frame
+    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+
+    dev = cuda_setup[0]
+    outs = {}
+    for d in ("cpu", dev):
+        infer = _full_frame_infer(d, torch.float32)
+        ds = infer.dataset
+        batch = infer.prepare_gt_batch([2])
+        with torch.no_grad():
+            ro, rd = pixel_rays(torch.as_tensor(batch["poses"], device=d), ds.intrinsics, ds.H, ds.W)
+            win = get_audio_features_batch(torch.as_tensor(batch["cond"], device=d),
+                                           torch.arange(1, device=d), infer.head_cfg.smo_win_size)[0]
+            out = render_full_frame(
+                infer.head_model, ro[0], rd[0], win, infer.occupancy, infer.bg_color,
+                infer.render_options({}), (ds.H, ds.W),
+                eye_area_percent=torch.as_tensor(batch["eye_area_percent"], device=d),
+                torso_model=infer.torso_model, bg_coords=infer.bg_coords,
+                lm68=torch.as_tensor(batch["lm68"], device=d), occupancy_2d=infer.torso_occupancy_2d,
+                sr_model=infer.sr_model, torso_crop=infer.torso_crop, sr_crop=infer.sr_crop,
+                sr_bg=infer.sr_bg)
+        outs[str(d)] = {k: getattr(out, k).cpu() for k in ("rgb_map", "torso_alpha", "sr_rgb_map")}
+    assert outs["cpu"]["sr_rgb_map"].shape == (128, 128, 3)
+    for k, ref in outs["cpu"].items():
+        e = (outs[str(dev)][k] - ref).abs()
+        print(f"[full_frame] card vs cpu {k}: max |d| {e.max().item():.3e}, mean {e.mean().item():.3e}")
+        assert e.max().item() <= FULL_FRAME_MAX and e.mean().item() <= FULL_FRAME_MEAN, k
+
+
+@pytest.mark.cuda
+def test_torso_on_card_matches_cpu(cuda_setup):
+    """The torso field at the torso_sr widths on the same inputs (pixel
+    coords, jaw landmarks, head rgb and weights sum) on the card and the
+    CPU: within 1e-4."""
+    import chip_smoke
+    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoField
+
+    dev = cuda_setup[0]
+    model = TorsoField(chip_smoke.torso_config(), generator=torch.Generator().manual_seed(6)).eval()
+    g = torch.Generator().manual_seed(10)
+    n = 65536
+    args = (torch.rand((n, 2), generator=g) * 2 - 1, torch.rand((1, 68, 2), generator=g),
+            model.get_individual_code(0).detach(), torch.rand((n, 3), generator=g),
+            torch.rand((n, 1), generator=g))
+    with torch.no_grad():
+        ref = model(*args)
+        got = model.to(dev)(*(a.to(dev) for a in args))
+    for name in ("alpha", "color", "deform"):
+        err = (getattr(got, name).cpu() - getattr(ref, name)).abs().max().item()
+        print(f"[torso] card vs cpu {name}: max |d| {err:.3e}")
+        assert err <= 1e-4, (name, err)
+
+
+@pytest.mark.cuda
+def test_float32_sr_ignores_the_cudnn_tf32_flag(cuda_setup):
+    """float32 SR on the card with torch.backends.cudnn.allow_tf32 left at
+    its default (True) vs the CPU, within 1e-4 (TF32 convolutions would
+    miss by ~1e-3); the flag is as it was afterwards."""
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution, SynthesisLayer
+
+    dev = cuda_setup[0]
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    sr = Superresolution(3, 256, generator=torch.Generator().manual_seed(8)).eval()
+    with torch.no_grad():
+        for i, layer in enumerate(m for m in sr.modules() if isinstance(m, SynthesisLayer)):
+            layer.noise_strength.fill_(0.2 + 0.05 * i)
+    rgb = torch.rand((1, 128, 128, 3), generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        ref = sr(rgb)
+        got = sr.to(dev)(rgb.to(dev)).cpu()
+    assert torch.backends.cudnn.allow_tf32
+    err = (got - ref).abs().max().item()
+    print(f"[sr] float32 SR card vs cpu with cudnn.allow_tf32=True: max |d| {err:.3e}")
+    assert err <= 1e-4, err

@@ -123,12 +123,16 @@ def test_port_imports_no_jax_yaml_or_cv2():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in ('jax', 'flax', 'yaml', 'cv2', 'genefaceplusplus_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
+        "new = ['ops.freq_encoder', 'ops.bias_act', 'ops.upfirdn2d', 'models.superresolution',\n"
+        "       'models.radnerf_torso', 'models.full_renderer', 'data.dataset', 'inference.pipeline',\n"
+        "       'utils.convert_jax']\n"
+        "assert all('genefaceplusplus_tpu_torch.' + m in sys.modules for m in new)\n"
         "print('modules', sum(k.startswith('genefaceplusplus_tpu_torch') for k in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 25
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -270,8 +270,15 @@ def test_dataset_training_parts_match_jax():
             assert ds_t.load_image(i, "head") is None
     assert not np.allclose(t_data.RADNeRFDataset(ds_dict, split="val").poses,
                            t_data.RADNeRFDataset(ds_dict, split="val", smooth_eval_camera=False).poses)
-    with pytest.raises(NotImplementedError):
-        t_data.RADNeRFDataset(ds_dict, with_sr=True)
+    # with_sr: the half-resolution render size, scaled intrinsics, and the
+    # background and images resized where cv2.INTER_LINEAR samples
+    ds_t = t_data.RADNeRFDataset(ds_dict, with_sr=True)
+    ds_j = j_data.RADNeRFDataset(ds_dict, with_sr=True)
+    assert (ds_t.H, ds_t.W, ds_t.intrinsics) == (ds_j.H, ds_j.W, ds_j.intrinsics) == (12, 12, ds_j.intrinsics)
+    _close(ds_t.bg_img, ds_j.bg_img, atol=1e-6)
+    for i in range(3):  # uint8-quantised after the resize: a rounding may flip one level
+        _close(ds_t.load_image(i, "gt"), ds_j.load_image(i, "gt"), atol=1.0 / 255 + 1e-6)
+        _close(ds_t.frame_bg_torso(i), ds_j.frame_bg_torso(i), atol=1.0 / 255 + 1e-6)
 
 
 def _hull_edge_distance(pts, ys, xs):
