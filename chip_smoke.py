@@ -33,6 +33,15 @@ Phases (any failure exits non-zero, and no result line is printed):
               occupancy and torso grid: GT-driven requests, checked against the
               plain field, against the float32 SR with the crops off, and bf16
               against float32 SR; timed per frame and per stage
+  serve_audio serve_full's configuration plus the full-width May audio-to-motion
+              model (PitchContourVAEModel, seeded weights, non-zero flow
+              `post` convs and BatchNorm statistics): 4 requests of 4 s of
+              features (seeded HuBERT, f0 from extract_f0 on a gliding tone)
+              through prepare_batch_from_inp -> forward_audio2secc ->
+              forward_secc2video, 100 frames each; checked (frames, condition,
+              B1 launches, the a2m on the card vs the CPU, one frame vs the
+              plain field) and timed (a2m, audio2secc, LLE, time to first
+              frame, per frame)
   train       HeadNeRFTask + Trainer.fit at the same config with
               use_fused_field=True on a synthetic 512^2 identity: 20 steps of
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
@@ -78,6 +87,19 @@ PLAIN_FRAME_MIN_PSNR = 40.0  # dB, kernel frame vs plain-field frame (uint8)
 # (tests/test_superresolution.py)
 CROP_MAX_ABS = 2e-5
 SR_BF16_MIN_PSNR = 35.0  # dB, relative to the float32 frame's range
+
+# audio-driven serving: 4 requests of 4 s (200 HuBERT frames at 50 Hz ->
+# 100 motion frames -> 100 full frames each). The a2m on the card against
+# the same module on the CPU, same weights and draw: float32 convolutions
+# with TF32 off on both, measured on an H100 at 2.35e-6 of outputs up to
+# 1.89 (this script; tests/test_torch_cuda.py with the TF32 flag on:
+# 2.27e-6); held to the port's float32 tolerance
+N_AUDIO_REQUESTS, AUDIO_SECONDS, HUBERT_FRAMES = 4, 4.0, 200
+A2M_CARD_MAX = 1e-4
+# the condition pipeline on the card against the CPU, from the same a2m
+# output: the bounds of tests/test_torch_audio_drive.py (cond after the
+# stored-std normalisation; lm68 relative to max(1, |value|))
+COND_CARD_MAX, LM68_CARD_REL = 1e-4, 1e-3
 
 N_RAYS, TRAIN_SAMPLES = 65536, 16  # egs/egs_bases/radnerf/base.yaml
 N_TRAIN_POINTS = N_RAYS * TRAIN_SAMPLES
@@ -191,6 +213,12 @@ def bench_occupancy(grid: int = GRID) -> np.ndarray:
     about half the frame."""
     xx, yy, zz = np.meshgrid(*([np.linspace(-1, 1, grid)] * 3), indexing="ij")
     return (xx ** 2 + (2.2 * yy) ** 2 + (1.4 * zz) ** 2) < 0.16
+
+
+def cuda_event():
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
 
 
 def cuda_ms(fn, reps: int) -> list:
@@ -569,6 +597,218 @@ def phase_serve_full(dev):
     return launches
 
 
+def a2m_hparams() -> dict:
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import MAY_AUDIO2MOTION_VAE
+
+    return dict(MAY_AUDIO2MOTION_VAE)
+
+
+def seeded_a2m_params(hp: dict, seed: int) -> dict:
+    """The a2m's state_dict from `seed`: flax-style init, then every `post`
+    conv of the prior flow (zero at init: the identity flow) and every
+    BatchNorm's running statistics (0 and 1 at init) drawn non-trivial."""
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
+
+    model = a2m_model_from_hparams(hp, generator=torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.endswith(".post"):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) * 0.05)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.05)
+            elif isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    return model.state_dict()
+
+
+def voiced_wav(seconds: float, f_start: float, f_end: float, seed: int) -> np.ndarray:
+    """A harmonic tone at 16 kHz whose pitch glides from f_start to f_end Hz,
+    with a little seeded noise."""
+    t = np.arange(int(seconds * 16000)) / 16000.0
+    phase = 2.0 * np.pi * np.cumsum(f_start + (f_end - f_start) * t / seconds) / 16000.0
+    wav = 0.3 * sum(np.sin(k * phase) / k for k in (1, 2, 3))
+    return (wav + 0.003 * np.random.RandomState(seed).randn(len(t))).astype(np.float32)
+
+
+def phase_serve_audio(dev):
+    import tempfile
+
+    from genefaceplusplus_tpu_torch.data.audio import extract_f0
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+    from genefaceplusplus_tpu_torch.inference import pipeline
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer, default_inp
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_batch, a2m_model_from_hparams
+    from genefaceplusplus_tpu_torch.models.postnet import lle
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
+    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoField
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution, SynthesisLayer
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+
+    cfg, tcfg, hp = sr_head_config(), torso_config(), a2m_hparams()
+    params = RADNeRF(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
+    torso_params = TorsoField(tcfg, generator=torch.Generator().manual_seed(1)).state_dict()
+    sr = Superresolution(3, 256, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        for i, layer in enumerate(m for m in sr.modules() if isinstance(m, SynthesisLayer)):
+            layer.noise_strength.fill_(0.1 + 0.05 * i)
+    a2m_params = seeded_a2m_params(hp, 3)
+    ds = RADNeRFDataset(synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0), smo_win_size=cfg.smo_win_size,
+                        with_sr=True)
+    infer = GeneFaceInfer(cfg, params, ds, bench_occupancy(cfg.grid_size), device=dev, torso_cfg=tcfg,
+                          torso_params=torso_params, sr_params=sr.state_dict(),
+                          torso_occupancy_2d=bench_torso_grid(tcfg.grid_size), a2m_hparams=hp,
+                          a2m_params=a2m_params)
+    H, W = ds.H, ds.W
+    n_a2m = sum(t.numel() for k, t in a2m_params.items() if not k.endswith("num_batches_tracked"))
+    print(f"[serve_audio] a2m {type(infer.a2m_model).__name__}, {n_a2m} variables; {N_AUDIO_REQUESTS} requests "
+          f"of {AUDIO_SECONDS} s ({HUBERT_FRAMES} HuBERT frames x 1024 at 50 Hz, f0 from extract_f0 on a "
+          f"gliding harmonic tone); frames {2 * H}x{2 * W} as serve_full")
+
+    # host-wall time of each LLE call and of its two steps (neighbours; the
+    # batched solve), synchronised (measuring shims)
+    lle_ms, knn_ms, solve_ms = [], [], []
+    plain_fns = {(pipeline, "compute_lle_projection"): (pipeline.compute_lle_projection, lle_ms),
+                 (lle, "find_k_nearest_neighbors"): (lle.find_k_nearest_neighbors, knn_ms),
+                 (lle, "solve_lle_projection_batch"): (lle.solve_lle_projection_batch, solve_ms)}
+
+    def timed(fn, into):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    a2m_events = []
+    hooks = [infer.a2m_model.register_forward_pre_hook(lambda *_: a2m_events.append([cuda_event()])),
+             infer.a2m_model.register_forward_hook(lambda *_: a2m_events[-1].append(cuda_event()))]
+    work = tempfile.mkdtemp(prefix="chip_smoke_audio_")
+    batches, frames_all, cond_ms, ttff_ms, frame_ms = [], [], [], [], []
+    try:
+        paths = []
+        for r in range(N_AUDIO_REQUESTS):
+            rs = np.random.RandomState(100 + r)
+            wav = voiced_wav(AUDIO_SECONDS, 110.0 + 20 * r, 180.0 + 25 * r, seed=r)
+            feats = {"hubert": rs.randn(HUBERT_FRAMES, 1024).astype(np.float32),
+                     "f0": extract_f0(wav, mel_len=HUBERT_FRAMES)}
+            paths.append(os.path.join(work, f"request{r}.npy"))
+            np.save(paths[-1], feats, allow_pickle=True)
+        for (mod, name), (fn, into) in plain_fns.items():
+            setattr(mod, name, timed(fn, into))
+        torch.cuda.synchronize()
+        ff.fused_field.launches = 0  # count only the main path's launches
+        for path in paths:
+            inp = default_inp(drv_aud_features=path, frames_per_dispatch=8)
+            t0 = time.perf_counter()
+            batch = infer.forward_audio2secc(infer.prepare_batch_from_inp(inp), inp)
+            t_cond = time.perf_counter()
+            video = infer.forward_secc2video(batch, inp)
+            frames = [next(video)]
+            t_first = time.perf_counter()
+            frames += list(video)
+            t_end = time.perf_counter()
+            cond_ms.append((t_cond - t0) * 1e3)
+            ttff_ms.append((t_first - t0) * 1e3)
+            frame_ms.append((t_end - t_cond) * 1e3 / len(frames))
+            batches.append(batch)
+            frames_all.append(frames)
+        launches = ff.fused_field.launches
+    finally:
+        for (mod, name), (fn, _) in plain_fns.items():
+            setattr(mod, name, fn)
+        for h in hooks:
+            h.remove()
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    a2m_ms = [s.elapsed_time(e) for s, e in a2m_events]
+    n_frames = sum(len(f) for f in frames_all)
+
+    for batch, frames in zip(batches, frames_all):
+        T = batch["T"]
+        check(T == HUBERT_FRAMES // 2 and len(frames) == T, f"{len(frames)} frames for a motion of {T}")
+        check(np.isfinite(batch["cond"]).all() and batch["cond"].shape == (T, 1, 204), "condition")
+        check(np.isfinite(batch["lm68"]).all() and batch["lm68"].shape == (T, 68, 2), "torso landmarks")
+        for f in frames:
+            check(f.shape == (2 * H, 2 * W, 3) and f.dtype == np.uint8, f"frame {f.shape} {f.dtype}")
+        check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "frames do not vary")
+    check(np.ptp(batches[0]["cond"], axis=0).max() > 0, "the condition does not vary over the request")
+    check(launches >= n_frames, f"fused_field launched {launches} times for {n_frames} frames")
+    print(f"[serve_audio] {N_AUDIO_REQUESTS} requests, {n_frames} frames of {2 * H}x{2 * W}: {launches} "
+          f"fused_field launches; conditions finite; blinks in request 1 at eye areas "
+          f"{batches[0]['eye_area_percent'].min():.4f}-{batches[0]['eye_area_percent'].max():.4f}")
+
+    # the first request's a2m on the card against the same module on the CPU,
+    # with the same weights and the same draw
+    b0 = batches[0]
+    cpu_model = a2m_model_from_hparams(hp)
+    cpu_model.load_state_dict(a2m_params)
+    with torch.no_grad():
+        ref, _ = cpu_model.eval()(a2m_batch(b0["hubert"], b0["f0"], 0.4, "cpu"), train=False, temperature=0.2,
+                                  noise=torch.from_numpy(b0["a2m_noise"]))
+    ref = ref[0].numpy()
+    a2m_err = float(np.abs(b0["a2m_out"] - ref).max())
+    print(f"[serve_audio] a2m on the card vs the CPU (request 1, same weights and draw): max |d| {a2m_err:.3e} "
+          f"(<= {A2M_CARD_MAX}) on outputs up to {np.abs(ref).max():.4f}")
+    check(a2m_err <= A2M_CARD_MAX, "a2m on the card vs the CPU")
+
+    # the rest of request 1's condition pipeline (3DMM algebra, LLE, torso
+    # landmarks) again on the CPU, from the card's own a2m output
+    class ReplayA2M(torch.nn.Module):
+        def forward(self, *_, **__):
+            return torch.from_numpy(b0["a2m_out"])[None], None
+
+    cpu_infer = GeneFaceInfer(cfg, params, ds, bench_occupancy(cfg.grid_size), device="cpu", a2m_hparams=hp,
+                              a2m_params=a2m_params)
+    cpu_infer.a2m_model = ReplayA2M()
+    keys = ("hubert", "f0", "wav16k", "T", "pose_idx", "poses", "eulers", "transs")
+    cpu_b0 = cpu_infer.forward_audio2secc({k: b0[k] for k in keys}, default_inp(frames_per_dispatch=8),
+                                          noise=torch.from_numpy(b0["a2m_noise"]))
+    cond_err = float(np.abs(b0["cond"] - cpu_b0["cond"]).max())
+    lm_err = np.abs(b0["lm68"].astype(np.float64) - cpu_b0["lm68"])
+    lm_rel = float((lm_err / np.maximum(1.0, np.abs(cpu_b0["lm68"]))).max())
+    print(f"[serve_audio] condition pipeline on the card vs the CPU (request 1, from the card's a2m output): "
+          f"cond max |d| {cond_err:.3e} (<= {COND_CARD_MAX}); lm68 max |d| / max(1, |v|) {lm_rel:.3e} "
+          f"(<= {LM68_CARD_REL}); eye areas equal: {np.array_equal(b0['eye_area_percent'], cpu_b0['eye_area_percent'])}")
+    check(cond_err <= COND_CARD_MAX, "condition on the card vs the CPU")
+    check(lm_rel <= LM68_CARD_REL, "torso landmarks on the card vs the CPU")
+    check(np.array_equal(b0["eye_area_percent"], cpu_b0["eye_area_percent"]), "eye areas on the card vs the CPU")
+
+    # the first audio-driven frame again, through the plain field
+    with torch.no_grad():
+        ro, rd = pixel_rays(torch.as_tensor(b0["poses"][:1], dtype=torch.float32, device=dev), ds.intrinsics, H, W)
+        conds = torch.as_tensor(b0["cond"], device=dev)
+        win = get_audio_features_batch(conds, torch.arange(b0["T"], device=dev), cfg.smo_win_size)[0]
+        eye = torch.as_tensor(b0["eye_area_percent"][:1], device=dev)
+        lm68 = torch.as_tensor(b0["lm68"][:1], device=dev)
+        plain = infer.render_frame(ro[0], rd[0], win, eye, lm68, fused_fn=ff.fused_field_plain).sr_rgb_map
+        plain = (torch.clamp(plain, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+    p_plain = psnr(plain, frames_all[0][0], 255.0)
+    print(f"[serve_audio] audio-driven frame, kernel vs plain field: PSNR {p_plain:.2f} dB (>= "
+          f"{PLAIN_FRAME_MIN_PSNR}), mean |d| {np.abs(plain.astype(np.int16) - frames_all[0][0]).mean():.5f}")
+    check(p_plain >= PLAIN_FRAME_MIN_PSNR, "audio-driven kernel frame vs plain-field frame")
+
+    def spread(v):
+        return f"median {statistics.median(v):.3f} ms, min {min(v):.3f}, max {max(v):.3f}"
+
+    card = card_line()
+    print(f"[serve_audio] {card}; per request (1 first, 2..{N_AUDIO_REQUESTS} after): a2m by CUDA "
+          f"events {', '.join(f'{x:.3f}' for x in a2m_ms)} ms; audio2secc host wall (features in -> "
+          f"condition out, a2m included) {', '.join(f'{x:.3f}' for x in cond_ms)} ms; LLE host wall "
+          f"(synchronised) {', '.join(f'{x:.3f}' for x in lle_ms)} ms, of which the neighbours "
+          f"{', '.join(f'{x:.3f}' for x in knn_ms)} ms and the batched solve "
+          f"{', '.join(f'{x:.3f}' for x in solve_ms)} ms")
+    print(f"[serve_audio] {card}; time to first frame (features in -> first uint8 frame out of "
+          f"forward_secc2video, one chunk of 8 frames): {', '.join(f'{x:.3f}' for x in ttff_ms)} ms")
+    print(f"[serve_audio] {card}; per-frame time (forward_secc2video wall / frames, requests "
+          f"2..{N_AUDIO_REQUESTS}): {spread(frame_ms[1:])}; first request {frame_ms[0]:.3f} ms/frame")
+    return launches
+
+
 def grad_stats(a, b):
     """(cosine, norm ratio, max |a - b| / max |b|) of two gradient blocks."""
     a, b = a.double().flatten(), b.double().flatten()
@@ -834,16 +1074,17 @@ def main() -> int:
     kb, kw = phase_kernel_bwd(dev)
     serve_launches = phase_serve(dev)
     full_launches = phase_serve_full(dev)
+    audio_launches = phase_serve_audio(dev)
     train_fwd, train_chain, train_wgrad = phase_train(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
-          f"{train_fwd} training; "
+          f"{audio_launches} audio-driven serving + {train_fwd} training; "
           f"fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:156",
-        "launches": serve_launches + full_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "launches": serve_launches + full_launches + audio_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {
         # B2: launches of its source's kernel (the chain); times of the whole backward

@@ -1,14 +1,25 @@
-"""Serving: the render half of `GeneFaceInfer` (port of
-`genefaceplusplus_tpu/inference/pipeline.py`, GT-driven).
+"""Serving: `GeneFaceInfer` (port of
+`genefaceplusplus_tpu/inference/pipeline.py`).
 
-A request is a driven condition track, the batch `forward_audio2secc`
-would produce: poses [T,4,4], the normalised landmark condition [T,1,204],
-eye areas [T,1] and 2D landmarks lm68 [T,68,2]. `prepare_gt_batch` fills
-it from the dataset's own landmarks. `forward_secc2video` renders it with
-the production options (probe entry, 10 samples per ray, T_thresh 1e-2)
-through the fused field, [the torso field composited behind the head, the
-2x SR,] `frames_per_dispatch` frames per chunk, quantises each chunk to
-uint8 on the device and copies one chunk at a time to the host.
+Audio-driven: `prepare_batch_from_inp` reads a request's features (HuBERT
+[2T, 1024] and f0 [2T] at 50 Hz, precomputed) and sets its driving-pose
+schedule; `forward_audio2secc` samples the motion from the flow-VAE
+audio-to-motion model, reconstructs the 68 landmarks through the 3DMM
+basis, blends them onto the identity's landmarks (LLE), normalises,
+clamps, injects blinks and gives the torso's 2D landmarks. The a2m, the
+3DMM algebra and the LLE run as tensors on the infer device; the
+statistics, clamps and blinks are numpy on the host, as in JAX.
+
+GT-driven: `prepare_gt_batch` fills the same batch from the dataset's own
+landmarks.
+
+Either batch (poses [T,4,4], the normalised landmark condition [T,1,204],
+eye areas [T,1], 2D landmarks lm68 [T,68,2]) renders through
+`forward_secc2video` with the production options (probe entry, 10 samples
+per ray, T_thresh 1e-2): the fused field, [the torso field composited
+behind the head, the 2x SR,] `frames_per_dispatch` frames per chunk,
+quantised to uint8 on the device and copied one chunk at a time to the
+host.
 """
 
 from __future__ import annotations
@@ -18,9 +29,15 @@ from typing import Any, Dict, Iterator, Mapping, Optional
 import numpy as np
 import torch
 
+from genefaceplusplus_tpu_torch.data import audio as audio_lib
 from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset
+from genefaceplusplus_tpu_torch.data.face3d import Face3DHelper
+from genefaceplusplus_tpu_torch.data.landmarks import (
+    INDEX_LM68_FROM_LM478, inject_blink_to_lm68, recompose_lm68_regions)
+from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_batch, a2m_model_from_hparams
 from genefaceplusplus_tpu_torch.models.full_renderer import (
     auto_head_bbox, auto_head_crop, auto_sr_crop, auto_torso_crop, render_full_frame)
+from genefaceplusplus_tpu_torch.models.postnet.lle import compute_lle_projection
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
 from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoConfig, TorsoField
 from genefaceplusplus_tpu_torch.models.renderer import RenderOptions
@@ -28,7 +45,30 @@ from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
 from genefaceplusplus_tpu_torch.ops import fused_field as ff
 from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
 from genefaceplusplus_tpu_torch.utils.device import resolve_device
+from genefaceplusplus_tpu_torch.utils.lm_projection import calibrate_cano_to_world, project_cano_lm3d
 from genefaceplusplus_tpu_torch.utils.rays import get_bg_coords, pixel_rays
+from genefaceplusplus_tpu_torch.utils.smoothing import mirror_index, smooth_features_xd
+
+_UNSET = object()
+
+
+def default_inp(**kw) -> Dict[str, Any]:
+    """The inference CLI's flag defaults (genefacepp_infer.py:552-592)."""
+    inp = {
+        "drv_aud": "",
+        "drv_pose": "nearest",  # static | <int idx> | <start-end> | nearest/mirror
+        "blink_mode": "period",  # none | period
+        "temperature": 0.2,
+        "lle_percent": 0.2,
+        "mouth_amp": 0.4,
+        "out_name": "out.mp4",
+        "fp16": True,
+        "low_memory_usage": True,
+        "T_thresh": 1e-2,
+        "debug": False,
+    }
+    inp.update(kw)
+    return inp
 
 
 def resolve_crop(inp: Mapping[str, Any], key: str, auto_value):
@@ -51,7 +91,8 @@ def resolve_crop(inp: Mapping[str, Any], key: str, auto_value):
 
 
 class GeneFaceInfer:
-    """Renderer for one identity: the head [+ torso] [+ SR].
+    """One identity's audio-to-motion model and renderer: the head [+ torso]
+    [+ SR].
 
     cfg: the head config; params: a `RADNeRF` state_dict (random init, or
     converted from a JAX checkpoint by `utils.convert_jax`); dataset: the
@@ -62,16 +103,41 @@ class GeneFaceInfer:
     culled by `torso_occupancy_2d` [G2, G2] where given; SR runs when
     `sr_params` (a `Superresolution` state_dict, its `noise_const` buffers
     included) is given, in `sr_dtype` (bfloat16, the production `sr_dtype`,
-    or float32). Everything lives on `device`: the CUDA card unless another
-    device is named (raises when there is no card)."""
+    or float32). The audio path needs `a2m_params` (a `PitchContourVAEModel`
+    or `VAEModel` state_dict, built from `a2m_hparams`: the audio2motion
+    config's keys, JAX's defaults where absent); the 3DMM basis comes from
+    `bfm_dir` (the stand-in basis where `BFM_model_front.mat` is absent), and
+    the a2m's draws from a generator seeded with 42, JAX's key. The postnet
+    refiner is not ported: `postnet_params` raises. Everything lives on
+    `device`: the CUDA card unless another device is named (raises when
+    there is no card)."""
 
     def __init__(self, cfg: RADNeRFConfig, params: Mapping[str, torch.Tensor],
                  dataset: RADNeRFDataset, occupancy, device=None, *,
                  torso_cfg: Optional[TorsoConfig] = None,
                  torso_params: Optional[Mapping[str, torch.Tensor]] = None,
                  torso_occupancy_2d=None, sr_params: Optional[Mapping[str, torch.Tensor]] = None,
-                 sr_dtype: torch.dtype = torch.bfloat16):
+                 sr_dtype: torch.dtype = torch.bfloat16,
+                 a2m_hparams: Optional[Mapping[str, Any]] = None,
+                 a2m_params: Optional[Mapping[str, torch.Tensor]] = None,
+                 postnet_params: Optional[Mapping[str, torch.Tensor]] = None,
+                 bfm_dir: str = "deep_3drecon/BFM"):
+        if postnet_params is not None:
+            raise NotImplementedError("the postnet landmark refiner (models/postnet/models.py) is not "
+                                      "ported yet")
         self.device = resolve_device(device)
+        self.a2m_cfg = dict(a2m_hparams or {})
+        self.a2m_model = None
+        if a2m_params is not None:
+            self.a2m_model = a2m_model_from_hparams(self.a2m_cfg)
+            self.a2m_model.load_state_dict(a2m_params)
+            self.a2m_model.to(self.device).eval()
+        self.generator = torch.Generator(device=self.device).manual_seed(42)
+        self.face3d_helper = Face3DHelper.load(bfm_dir, keypoint_mode="mediapipe", device=self.device)
+        eaps = dataset.eye_area_percents
+        self.opened_eye_area_percent = float(np.quantile(eaps, 0.97))
+        self.closed_eye_area_percent = float(np.quantile(eaps, 0.03))
+        self._cano_proj: Any = _UNSET  # calibrated on first use
         self.head_cfg = cfg
         self.head_model = RADNeRF(cfg)
         self.head_model.load_state_dict(params)
@@ -134,6 +200,186 @@ class GeneFaceInfer:
             return None, None
         bg = self.bg_color.reshape(1, ds.H, ds.W, 3)
         return sr_crop, torch.clamp(self.sr_model(bg), 0.0, 1.0)[0]
+
+    def prepare_batch_from_inp(self, inp: Mapping[str, Any]) -> Dict[str, Any]:
+        """A request's features and driving-pose schedule. The features come
+        from `inp['drv_aud_features']`, an .npy of {'hubert' [2T, C], 'f0'
+        [2T][, 'wav16k']}; a bare wav (`inp['drv_aud']`) raises, since the
+        port computes no HuBERT features."""
+        batch: Dict[str, Any] = {}
+        if inp.get("drv_aud_features"):
+            feats = np.load(inp["drv_aud_features"], allow_pickle=True).tolist()
+            hubert, f0 = np.asarray(feats["hubert"], np.float32), np.asarray(feats["f0"], np.float32)
+            wav16k = feats.get("wav16k")
+        else:
+            audio_lib.load_wav_16k(inp["drv_aud"])  # a missing or unreadable file raises first
+            raise RuntimeError("HuBERT features are not computed by the port; pass "
+                               "inp['drv_aud_features'] = npy with {'hubert','f0'} instead.")
+        # trim to a multiple of 8 frames at 50 Hz, as the reference does
+        t_x = hubert.shape[0] // 8 * 8
+        hubert = hubert[:t_x]
+        f0 = f0[:t_x] if len(f0) >= t_x else np.pad(f0, (0, t_x - len(f0)), mode="edge")
+        if wav16k is None:
+            wav16k = np.zeros(t_x * audio_lib.HOP_SIZE, np.float32)
+        batch["hubert"] = hubert
+        batch["f0"] = f0
+        batch["wav16k"] = wav16k
+        T_motion = t_x // 2
+        batch["T"] = T_motion
+
+        ds = self.dataset
+        drv_pose = str(inp.get("drv_pose", "nearest"))
+        n_ds = len(ds)
+        if drv_pose == "static":
+            pose_idx = [0] * T_motion
+        elif drv_pose.isdigit():
+            pose_idx = [min(int(drv_pose), n_ds - 1)] * T_motion
+        elif "-" in drv_pose and all(p.isdigit() for p in drv_pose.split("-")):
+            lo, hi = (int(p) for p in drv_pose.split("-"))
+            span = list(range(lo, min(hi, n_ds)))
+            pose_idx = [span[mirror_index(i, len(span))] for i in range(T_motion)]
+        else:  # nearest / mirror: ping-pong over the whole dataset
+            pose_idx = [mirror_index(i, n_ds) for i in range(T_motion)]
+        batch["pose_idx"] = np.asarray(pose_idx)
+        batch["poses"] = np.stack([ds.frame_pose(i) for i in pose_idx])
+        batch["eulers"] = np.asarray(ds.ds["euler"])[pose_idx]
+        batch["transs"] = np.asarray(ds.ds["trans"])[pose_idx]
+        return batch
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+
+    @torch.no_grad()
+    def forward_audio2secc(self, batch: Dict[str, Any], inp: Mapping[str, Any],
+                           noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """Motion, landmark condition and torso landmarks for a prepared
+        batch: adds 'cond' [T, 1, 204], 'eye_area_percent' [T, 1], 'lm68'
+        [T, 68, 2], 'id_coeff', 'exp', and the a2m's output 'a2m_out' and
+        unit-normal draw 'a2m_noise' (None at temperature 0). `noise`
+        [1, T_sqz, 16] replaces the draw from this instance's generator."""
+        if self.a2m_model is None:
+            raise ValueError("no audio-to-motion weights: construct GeneFaceInfer with a2m_params")
+        T = batch["T"]
+        temp = float(inp.get("temperature", 0.2))
+        if noise is None and temp != 0.0:
+            noise = torch.randn((1, self.a2m_model.vae.latent_length(T), self.a2m_model.vae.latent_size),
+                                generator=self.generator, device=self.device)
+        a2m_in = a2m_batch(batch["hubert"], batch["f0"], float(inp.get("mouth_amp", 0.4)), self.device)
+        pred_t, _ = self.a2m_model(a2m_in, train=False, temperature=temp, noise=noise)
+        pred_t = pred_t[0]  # [T, 64] exp, 144 id + exp, or 204 idexp_lm3d
+        pred = pred_t.cpu().numpy()
+        batch["a2m_out"] = pred
+        if isinstance(noise, torch.Tensor):
+            noise = noise.cpu().numpy()
+        batch["a2m_noise"] = None if noise is None else np.asarray(noise, np.float32)
+        ds = self.dataset
+        if pred.shape[-1] == 204:
+            # direct landmark-space motion: pred is idexp_lm3d in the
+            # binarizer's x10 convention; no id/exp coefficients exist
+            idexp = pred.reshape(T, 68, 3)
+            id_coeff = np.zeros((T, 80), np.float32)
+            exp = np.zeros((T, 64), np.float32)
+        else:
+            if pred.shape[-1] == 144:
+                id_coeff, exp = pred[:, :80], pred[:, 80:]
+            else:
+                ds_id = np.asarray(ds.ds["id"], np.float32)
+                id_coeff = np.tile(ds_id.mean(0, keepdims=True), (T, 1))
+                exp = pred
+            idexp = self.face3d_helper.reconstruct_idexp_lm3d(
+                self._tensor(id_coeff), self._tensor(exp)).cpu().numpy()
+            if idexp.shape[1] >= 468:
+                idexp = idexp[:, INDEX_LM68_FROM_LM478]
+
+        # the dataset's own stored mean and std (the renderer's training
+        # normalisation) and 3 % / 97 % quantile clamps
+        ds_lm = np.asarray(ds.ds["idexp_lm3d"], np.float32).reshape(-1, 68, 3)
+        mean = np.asarray(ds.idexp_lm3d_mean, np.float32).reshape(1, 68, 3)
+        std = np.asarray(ds.idexp_lm3d_std, np.float32).reshape(1, 68, 3)
+        norm_ds = (ds_lm - mean) / std
+        lower = np.quantile(norm_ds, 0.03, axis=0)
+        upper = np.quantile(norm_ds, 0.97, axis=0)
+
+        flat = idexp.reshape(T, 68 * 3)
+        lle_percent = float(inp.get("lle_percent", 0.2))
+        if lle_percent > 0:  # LLE blend onto the identity's landmarks, K capped by its frames
+            fuse, _, _ = compute_lle_projection(self._tensor(flat), self._tensor(ds_lm.reshape(-1, 68 * 3)),
+                                                K=min(10, ds_lm.shape[0]))
+            flat = lle_percent * fuse.cpu().numpy() + (1 - lle_percent) * flat
+        idexp = flat.reshape(T, 68, 3)
+        normalized = np.clip((idexp - mean) / std, lower, upper)
+
+        # canonical lm3d; optional periodic blink by direct editing
+        key_mean = self.face3d_helper.key_mean_shape.cpu().numpy()
+        if key_mean.shape[0] >= 468:
+            key_mean = key_mean[INDEX_LM68_FROM_LM478]
+        cano_lm3d = (mean + std * normalized) / 10.0 + key_mean[None]
+        eye_area_percent = np.full((T, 1), self.opened_eye_area_percent, np.float32)
+        if inp.get("blink_mode") == "period":
+            cano_lm3d, eye_area_percent = inject_blink_to_lm68(
+                cano_lm3d, self.opened_eye_area_percent, self.closed_eye_area_percent)
+        normalized = ((cano_lm3d - key_mean[None]) * 10.0 - mean) / std
+        normalized = np.clip(normalized, lower, upper)
+        normalized = recompose_lm68_regions(normalized)
+        if not np.isfinite(normalized).all():
+            # a non-finite condition renders structured garbage: fail loudly
+            bad = np.where(~np.isfinite(normalized).reshape(T, -1).all(axis=1))[0]
+            raise FloatingPointError(f"non-finite driven condition at frames {bad.tolist()} — "
+                                     "upstream a2m/LLE produced NaN/Inf")
+        batch["eye_area_percent"] = eye_area_percent
+        batch["cond"] = normalized.reshape(T, 1, 68 * 3).astype(np.float32)
+        batch["id_coeff"] = np.asarray(id_coeff, np.float32)
+        batch["exp"] = np.asarray(exp, np.float32)
+
+        # smoothed head pose -> 2D landmarks for the torso condition
+        smo_euler = self._tensor(smooth_features_xd(batch["eulers"]))
+        smo_trans = self._tensor(smooth_features_xd(batch["transs"]))
+        if pred.shape[-1] == 204:
+            # direct drive: project the final driven landmarks through the
+            # identity's calibrated camera map where it explains the
+            # dataset's stored 2D landmarks, else the BFM convention
+            cano_final = (mean + std * normalized) / 10.0 + key_mean[None]
+            proj = self._cano_projection()
+            if proj is not None:
+                lm2d = project_cano_lm3d(proj, cano_final.astype(np.float32),
+                                         np.asarray(batch["poses"], np.float32), ds.intrinsics, ds.H, ds.W)
+            else:
+                lm2d = self.face3d_helper.project_lm3d_nerf(
+                    self._tensor(cano_final), smo_euler, smo_trans).cpu().numpy()
+        else:
+            lm2d = self.face3d_helper.reconstruct_lm2d_nerf(
+                self._tensor(id_coeff), self._tensor(exp), smo_euler, smo_trans).cpu().numpy()
+        if lm2d.shape[1] >= 468:
+            lm2d = lm2d[:, INDEX_LM68_FROM_LM478]
+        batch["lm68"] = lm2d.astype(np.float32)
+        return batch
+
+    def _cano_projection(self):
+        """The identity's canonical -> world map for the direct-drive torso
+        landmarks (`utils/lm_projection.py`), calibrated once; None when the
+        dataset lacks stored 2D landmarks or the fit does not explain them."""
+        if self._cano_proj is not _UNSET:
+            return self._cano_proj
+        out = None
+        ds = self.dataset
+        if len(ds) >= 2:
+            lms = [s.get("lms") for s in ds.samples]
+            if all(lm is not None for lm in lms):
+                key_mean = self.face3d_helper.key_mean_shape.cpu().numpy()
+                if key_mean.shape[0] >= 468:
+                    key_mean = key_mean[INDEX_LM68_FROM_LM478]
+                idexp = np.asarray(ds.ds["idexp_lm3d"], np.float32).reshape(-1, 68, 3)
+                fids = np.clip(np.asarray(ds.frame_ids), 0, len(idexp) - 1)
+                cano = idexp[fids] / 10.0 + key_mean[None]
+                M, resid = calibrate_cano_to_world(cano, ds.poses, ds.intrinsics, np.stack(lms), ds.H, ds.W)
+                if resid <= 0.02 * ds.W:
+                    out = M
+                    print(f"| lm2d projection: calibrated (residual {resid:.2f}px @ {ds.W})")
+                else:
+                    print(f"| WARNING: lm2d calibration residual {resid:.1f}px > {0.02 * ds.W:.1f} — "
+                          "falling back to the BFM projection convention")
+        self._cano_proj = out
+        return out
 
     def prepare_gt_batch(self, frame_ids) -> Dict[str, Any]:
         """GT-driven request: the dataset frames' own poses, normalised

@@ -13,12 +13,13 @@ convolutions are unaffected.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from genefaceplusplus_tpu_torch.utils.device import cudnn_tf32_off
 
 
 def setup_filter(f: Sequence[float], normalize: bool = True, gain: float = 1.0) -> np.ndarray:
@@ -42,22 +43,12 @@ def _parse_padding(padding: Union[int, Sequence[int]]):
     return px0, px1, py0, py1
 
 
-@contextlib.contextmanager
-def _cudnn_tf32_off():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, groups: int = 1) -> torch.Tensor:
     """VALID cross-correlation of x [N, C, H, W] with w [O, C/groups, kh, kw]
     in x's dtype; in full float32 for a float32 CUDA tensor."""
     w = w.to(x.dtype)
     if x.is_cuda and x.dtype == torch.float32:
-        with _cudnn_tf32_off():
+        with cudnn_tf32_off():
             return F.conv2d(x, w, stride=stride, groups=groups)
     return F.conv2d(x, w, stride=stride, groups=groups)
 

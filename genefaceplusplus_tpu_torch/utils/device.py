@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -14,3 +16,15 @@ def resolve_device(device=None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+@contextlib.contextmanager
+def cudnn_tf32_off():
+    """cuDNN's float32 convolutions in full float32 for the block, whatever
+    `torch.backends.cudnn.allow_tf32` says (its default runs them in TF32)."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

@@ -2,8 +2,8 @@
 launch, count, mask the ragged tile and agree with their plain versions,
 and a fused train step on the card agrees with the CPU; the full frame
 (head + torso + float32 SR) on the card agrees with the CPU, and the
-float32 SR does so with cuDNN's TF32 flag on. Imports no jax, so
-it runs on a machine with the card and no JAX:
+float32 SR and the audio-to-motion model do so with cuDNN's TF32 flag
+on. Imports no jax, so it runs on a machine with the card and no JAX:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -469,3 +469,33 @@ def test_float32_sr_ignores_the_cudnn_tf32_flag(cuda_setup):
     err = (got - ref).abs().max().item()
     print(f"[sr] float32 SR card vs cpu with cudnn.allow_tf32=True: max |d| {err:.3e}")
     assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_a2m_on_card_matches_cpu_with_tf32_on(cuda_setup):
+    """The full-width May a2m (PitchContourVAEModel; chip_smoke.py's seeded
+    weights, with non-zero flow `post` convs and BatchNorm statistics) on
+    4 s of seeded features, card vs CPU with the same draw and
+    torch.backends.cudnn.allow_tf32 left on: within chip_smoke.A2M_CARD_MAX
+    (its float32 convolutions clear the flag for the call)."""
+    import chip_smoke
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_batch, a2m_model_from_hparams
+
+    dev = cuda_setup[0]
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    hp = chip_smoke.a2m_hparams()
+    model = a2m_model_from_hparams(hp)
+    model.load_state_dict(chip_smoke.seeded_a2m_params(hp, 3))
+    model.eval()
+    rs = np.random.RandomState(5)
+    hubert = rs.randn(200, 1024).astype(np.float32)
+    f0 = (np.abs(rs.randn(200)) * 60 + 100).astype(np.float32)
+    noise = torch.randn((1, model.vae.latent_length(100), 16), generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        ref, _ = model(a2m_batch(hubert, f0, 0.4, "cpu"), train=False, temperature=0.2, noise=noise)
+        got, _ = model.to(dev)(a2m_batch(hubert, f0, 0.4, dev), train=False, temperature=0.2, noise=noise)
+    assert torch.backends.cudnn.allow_tf32
+    err = (got.cpu() - ref).abs().max().item()
+    print(f"[a2m] card vs cpu with cudnn.allow_tf32=True: max |d| {err:.3e} on outputs up to "
+          f"{ref.abs().max().item():.4f}")
+    assert err <= chip_smoke.A2M_CARD_MAX, err

@@ -125,14 +125,17 @@ def test_port_imports_no_jax_yaml_or_cv2():
         "assert not bad, bad\n"
         "new = ['ops.freq_encoder', 'ops.bias_act', 'ops.upfirdn2d', 'models.superresolution',\n"
         "       'models.radnerf_torso', 'models.full_renderer', 'data.dataset', 'inference.pipeline',\n"
-        "       'utils.convert_jax']\n"
+        "       'utils.convert_jax', 'utils.pitch', 'utils.lm_projection', 'utils.rotation',\n"
+        "       'models.audio2motion.wavenet', 'models.audio2motion.flow', 'models.audio2motion.fvae',\n"
+        "       'models.audio2motion.vae_model', 'models.postnet.lle', 'data.face3d', 'data.landmarks',\n"
+        "       'data.audio']\n"
         "assert all('genefaceplusplus_tpu_torch.' + m in sys.modules for m in new)\n"
         "print('modules', sum(k.startswith('genefaceplusplus_tpu_torch') for k in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 25
+    assert int(out.stdout.split()[-1]) >= 36
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -152,20 +155,46 @@ def test_chip_smoke_config_is_may_lm3d_radnerf():
     assert cs.head_config() == TConfig.from_hparams(MAY_LM3D_RADNERF)
 
 
-@pytest.mark.parametrize("entry", ["GeneFaceInfer", "HeadNeRFTask"])
+def test_chip_smoke_a2m_config_is_may_audio2motion_vae():
+    """chip_smoke's a2m is the model GeneFaceInfer builds from
+    egs/datasets/May/audio2motion_vae.yaml: 11,840,768 variables."""
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    yaml_hp = set_hparams(config=os.path.join(REPO, "egs/datasets/May/audio2motion_vae.yaml"))
+    ref = {k: tuple(v.shape) for k, v in a2m_model_from_hparams(yaml_hp).state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in a2m_model_from_hparams(cs.a2m_hparams()).state_dict().items()}
+    assert got == ref
+    assert sum(math.prod(s) for k, s in got.items() if not k.endswith("num_batches_tracked")) == 11_840_768
+
+
+@pytest.mark.parametrize("entry", ["GeneFaceInfer", "GeneFaceInfer_audio", "HeadNeRFTask"])
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch, entry):
     """Without `device` the entry points target the CUDA card; with no card
-    they raise instead of running on the CPU."""
+    they raise instead of running on the CPU. The audio-driven GeneFaceInfer
+    (with a2m weights) runs on the CPU when asked."""
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
     from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = TConfig.from_hparams(HEAD)
     ds = TDataset(t_synthetic(num_frames=12, H=H, W=W), smo_win_size=5)
+    a2m_hp = {"audio_in_dim": 64, "a2m_hidden_channels": 16, "a2m_enc_layers": 1, "a2m_dec_layers": 1,
+              "a2m_flow_hidden": 8, "a2m_flow_blocks": 1}
+    a2m = {"a2m_hparams": a2m_hp, "a2m_params": a2m_model_from_hparams(a2m_hp).state_dict()}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if entry == "GeneFaceInfer":
             TInfer(cfg, RADNeRF(cfg).state_dict(), ds, _bench_occupancy(16))
+        elif entry == "GeneFaceInfer_audio":
+            TInfer(cfg, RADNeRF(cfg).state_dict(), ds, _bench_occupancy(16), **a2m)
         else:
             HeadNeRFTask(ds, cfg)
+    if entry == "GeneFaceInfer_audio":
+        infer = TInfer(cfg, RADNeRF(cfg).state_dict(), ds, _bench_occupancy(16), device="cpu", **a2m)
+        assert infer.a2m_model.cond_proj.weight.device == torch.device("cpu")
+        assert infer.face3d_helper.key_exp_base.device == torch.device("cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):
