@@ -42,6 +42,17 @@ Phases (any failure exits non-zero, and no result line is printed):
               B1 launches, the a2m on the card vs the CPU, one frame vs the
               plain field) and timed (a2m, audio2secc, LLE, time to first
               frame, per frame)
+  serve_cli   serve_audio's seeded weights written as three JAX-layout work
+              dirs (a2m, head + SR, torso; flax msgpack checkpoints and the
+              egs/datasets/May configs through the port's YAML writer) beside a
+              synthetic 512^2 dataset; GeneFaceInfer.from_work_dirs checked
+              bit for bit against the written tensors and a directly built
+              GeneFaceInfer (grids, crops); the inference CLI on 4 s of
+              features, its AVI read back (100 frames equal to the direct
+              GeneFaceInfer's for the same draw, the PCM, one B1 launch a
+              frame); stream_infer over 8 s in 2 s chunks (no drift, an exact
+              resume tail); timed (load, CLI wall, time to first frame, ms a
+              frame)
   train       HeadNeRFTask + Trainer.fit at the same config with
               use_fused_field=True on a synthetic 512^2 identity: 20 steps of
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
@@ -95,6 +106,9 @@ SR_BF16_MIN_PSNR = 35.0  # dB, relative to the float32 frame's range
 # 1.89 (this script; tests/test_torch_cuda.py with the TF32 flag on:
 # 2.27e-6); held to the port's float32 tolerance
 N_AUDIO_REQUESTS, AUDIO_SECONDS, HUBERT_FRAMES = 4, 4.0, 200
+# serve_cli: the stream's length and chunk (2 s of audio = 48 motion frames
+# after the multiple-of-8 trim)
+STREAM_SECONDS, STREAM_CHUNK_SECONDS = 8.0, 2.0
 A2M_CARD_MAX = 1e-4
 # the condition pipeline on the card against the CPU, from the same a2m
 # output: the bounds of tests/test_torch_audio_drive.py (cond after the
@@ -622,6 +636,24 @@ def seeded_a2m_params(hp: dict, seed: int) -> dict:
     return model.state_dict()
 
 
+def seeded_audio_models(cfg, tcfg, hp) -> dict:
+    """serve_audio's seeded models: the head (seed 0), the torso (1), the SR
+    (2, noise strengths 0.10-0.25) and the a2m (`seeded_a2m_params(hp, 3)`)."""
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
+    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoField
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution, SynthesisLayer
+
+    sr = Superresolution(3, 256, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        for i, layer in enumerate(m for m in sr.modules() if isinstance(m, SynthesisLayer)):
+            layer.noise_strength.fill_(0.1 + 0.05 * i)
+    a2m = a2m_model_from_hparams(hp, generator=torch.Generator().manual_seed(3))
+    a2m.load_state_dict(seeded_a2m_params(hp, 3))
+    return {"head": RADNeRF(cfg, generator=torch.Generator().manual_seed(0)),
+            "torso": TorsoField(tcfg, generator=torch.Generator().manual_seed(1)), "sr": sr, "a2m": a2m}
+
+
 def voiced_wav(seconds: float, f_start: float, f_end: float, seed: int) -> np.ndarray:
     """A harmonic tone at 16 kHz whose pitch glides from f_start to f_end Hz,
     with a little seeded noise."""
@@ -640,21 +672,14 @@ def phase_serve_audio(dev):
     from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer, default_inp
     from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_batch, a2m_model_from_hparams
     from genefaceplusplus_tpu_torch.models.postnet import lle
-    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
-    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoField
-    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution, SynthesisLayer
     from genefaceplusplus_tpu_torch.ops import fused_field as ff
     from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
     from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
     cfg, tcfg, hp = sr_head_config(), torso_config(), a2m_hparams()
-    params = RADNeRF(cfg, generator=torch.Generator().manual_seed(0)).state_dict()
-    torso_params = TorsoField(tcfg, generator=torch.Generator().manual_seed(1)).state_dict()
-    sr = Superresolution(3, 256, generator=torch.Generator().manual_seed(2))
-    with torch.no_grad():
-        for i, layer in enumerate(m for m in sr.modules() if isinstance(m, SynthesisLayer)):
-            layer.noise_strength.fill_(0.1 + 0.05 * i)
-    a2m_params = seeded_a2m_params(hp, 3)
+    models = seeded_audio_models(cfg, tcfg, hp)
+    params, torso_params, sr = models["head"].state_dict(), models["torso"].state_dict(), models["sr"]
+    a2m_params = models["a2m"].state_dict()
     ds = RADNeRFDataset(synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0), smo_win_size=cfg.smo_win_size,
                         with_sr=True)
     infer = GeneFaceInfer(cfg, params, ds, bench_occupancy(cfg.grid_size), device=dev, torso_cfg=tcfg,
@@ -807,6 +832,223 @@ def phase_serve_audio(dev):
     print(f"[serve_audio] {card}; per-frame time (forward_secc2video wall / frames, requests "
           f"2..{N_AUDIO_REQUESTS}): {spread(frame_ms[1:])}; first request {frame_ms[0]:.3f} ms/frame")
     return launches
+
+
+def read_avi(path: str):
+    """(frames [T, H, W, 3] RGB uint8, int16 PCM) of an uncompressed AVI, read
+    from its RIFF chunks: 24-bit bottom-up BGR frames ('00db'), PCM audio
+    ('01wb')."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:4] == b"RIFF" and data[8:12] == b"AVI " and struct.unpack("<I", data[4:8])[0] == len(data) - 8,
+          f"{path}: not a RIFF AVI of its own length")
+    frames, pcm, bmp = [], [], []
+
+    def walk(lo, hi):
+        i = lo
+        while i < hi:
+            ck, n = data[i:i + 4], struct.unpack("<I", data[i + 4:i + 8])[0]
+            body = data[i + 8:i + 8 + n]
+            if ck == b"LIST":
+                walk(i + 12, i + 8 + n)
+            elif ck == b"strf" and n == 40:
+                bmp.append(struct.unpack("<IiiHH", body[:16]))
+            elif ck == b"00db":
+                _, w, h, _, bits = bmp[0]
+                check(bits == 24 and h > 0, f"frame format: {bits} bits, height {h}")
+                stride = (w * 3 + 3) // 4 * 4
+                frames.append(np.frombuffer(body, np.uint8).reshape(h, stride)[::-1, :w * 3]
+                              .reshape(h, w, 3)[:, :, ::-1])
+            elif ck == b"01wb":
+                pcm.append(np.frombuffer(body, "<i2"))
+            i += 8 + n + (n & 1)
+
+    walk(12, len(data))
+    return np.stack(frames), (np.concatenate(pcm) if pcm else np.zeros(0, np.int16))
+
+
+def phase_serve_cli(dev):
+    import contextlib
+    import tempfile
+
+    from genefaceplusplus_tpu_torch.config import load_config
+    from genefaceplusplus_tpu_torch.data.audio import extract_f0, pcm16
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+    from genefaceplusplus_tpu_torch.inference import cli
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer, default_inp
+    from genefaceplusplus_tpu_torch.inference.serving import stream_infer
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.utils.ckpt import save_flax_checkpoint
+    from genefaceplusplus_tpu_torch.utils.convert_jax import export_flax_params
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg, tcfg, hp = sr_head_config(), torso_config(), a2m_hparams()
+    models = seeded_audio_models(cfg, tcfg, hp)
+    written = {k: m.state_dict() for k, m in models.items()}
+    occ, grid = bench_occupancy(cfg.grid_size), bench_torso_grid(tcfg.grid_size)
+
+    @contextlib.contextmanager
+    def in_repo():  # base_config paths are relative to the repository root
+        cwd = os.getcwd()
+        os.chdir(repo)
+        try:
+            yield
+        finally:
+            os.chdir(cwd)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        binary, vid = os.path.join(work, "binary"), "May"
+        os.makedirs(os.path.join(binary, vid))
+        np.save(os.path.join(binary, vid, "trainval_dataset.npy"), synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0),
+                allow_pickle=True)
+        a2m_dir, head_dir, torso_dir = (os.path.join(work, d) for d in ("a2m", "head_sr", "torso"))
+        with in_repo():
+            a2m_yaml = load_config("egs/datasets/May/audio2motion_vae.yaml")
+            head_yaml = load_config("egs/datasets/May/lm3d_radnerf_sr.yaml")
+            torso_yaml = load_config("egs/datasets/May/lm3d_radnerf_torso_sr.yaml")
+        t0 = time.perf_counter()
+        save_flax_checkpoint(a2m_dir, 40000, {"state_dict": {"variables": export_flax_params(models["a2m"]),
+                                                             "opt_state": {}}}, config=a2m_yaml)
+        save_flax_checkpoint(head_dir, 250000, {
+            "state_dict": {"params": {"head": export_flax_params(models["head"]), "sr": export_flax_params(models["sr"])},
+                           "opt_state": {}},
+            "extra_state": {"occupancy": occ}}, config=dict(head_yaml, binary_data_dir=binary, video_id=vid))
+        save_flax_checkpoint(torso_dir, 200000, {
+            "state_dict": {"torso_params": export_flax_params(models["torso"]), "opt_state": {}},
+            "extra_state": {"torso_grid": grid}},
+            config=dict(torso_yaml, head_model_dir=head_dir, binary_data_dir=binary, video_id=vid))
+        write_ms = (time.perf_counter() - t0) * 1e3
+        sizes = {d: sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) for d in (a2m_dir, head_dir, torso_dir)}
+        print(f"[serve_cli] wrote three JAX-layout work dirs ({', '.join(f'{os.path.basename(d)} {n / 2 ** 20:.1f} MiB' for d, n in sizes.items())}) "
+              f"in {write_ms:.1f} ms; configs egs/datasets/May/{{audio2motion_vae,lm3d_radnerf_sr,"
+              f"lm3d_radnerf_torso_sr}}.yaml resolved by the port's loader")
+
+        # loading: every tensor as written; grids and crops as a directly built GeneFaceInfer's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infer = GeneFaceInfer.from_work_dirs(audio2secc_dir=a2m_dir, torso_model_dir=torso_dir, device=dev)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        for name, model in (("head", infer.head_model), ("torso", infer.torso_model), ("sr", infer.sr_model),
+                            ("a2m", infer.a2m_model)):
+            got = model.state_dict()
+            check(set(got) == set(written[name]), f"{name}: loaded keys differ from the written ones")
+            bad = [k for k in got if not torch.equal(got[k].cpu(), written[name][k])]
+            check(not bad, f"{name}: {len(bad)} tensors differ from the written ones, e.g. {bad[:3]}")
+        check(infer.head_cfg == cfg and infer.torso_cfg == tcfg, "head or torso config of the work dirs")
+        check(all(infer.a2m_cfg.get(k) == v for k, v in hp.items()), "a2m config of the work dir")
+        ds = RADNeRFDataset(synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0), smo_win_size=cfg.smo_win_size,
+                            with_sr=True)
+        direct = GeneFaceInfer(cfg, written["head"], ds, occ, device=dev, torso_cfg=tcfg,
+                               torso_params=written["torso"], sr_params=written["sr"], torso_occupancy_2d=grid,
+                               a2m_hparams=hp, a2m_params=written["a2m"])
+        check(torch.equal(infer.occupancy, direct.occupancy), "occupancy grid")
+        check(torch.equal(infer.torso_occupancy_2d, direct.torso_occupancy_2d), "torso grid")
+        check((infer.head_crop, infer.torso_crop, infer.sr_crop) == (direct.head_crop, direct.torso_crop,
+                                                                    direct.sr_crop), "crops")
+        check((infer.sr_bg is None) == (direct.sr_bg is None)
+              and (infer.sr_bg is None or torch.equal(infer.sr_bg, direct.sr_bg)), "SR background")
+        print(f"[serve_cli] from_work_dirs(a2m, torso): {load_ms:.3f} ms; head, torso, SR and a2m tensors equal to "
+              f"the written ones bit for bit; occupancy, torso grid and crops (head {infer.head_crop}, torso "
+              f"{infer.torso_crop}, sr {infer.sr_crop}) equal to the direct GeneFaceInfer's")
+
+        # the CLI: 4 s of features with their audio -> an AVI
+        rs = np.random.RandomState(200)
+        wav = voiced_wav(AUDIO_SECONDS, 130.0, 190.0, seed=7)
+        feats = {"hubert": rs.randn(HUBERT_FRAMES, 1024).astype(np.float32),
+                 "f0": extract_f0(wav, mel_len=HUBERT_FRAMES), "wav16k": wav}
+        fpath = os.path.join(work, "request.npy")
+        np.save(fpath, feats, allow_pickle=True)
+        torch.cuda.synchronize()
+        ff.fused_field.launches = 0  # count only the main path's launches
+        t0 = time.perf_counter()
+        out = cli.main(["--a2m_ckpt", a2m_dir, "--torso_ckpt", torso_dir, "--drv_aud_features", fpath,
+                        "--out_name", os.path.join(work, "out.mp4")])
+        cli_ms = (time.perf_counter() - t0) * 1e3
+        cli_launches = ff.fused_field.launches
+        T = HUBERT_FRAMES // 2
+        check(out == os.path.join(work, "out.avi"), f"the CLI wrote {out}")
+        frames, pcm = read_avi(out)
+        check(frames.shape == (T, 2 * ds.H, 2 * ds.W, 3), f"AVI frames {frames.shape}")
+        check(np.array_equal(pcm, pcm16(wav)), "AVI audio vs pcm16(wav16k)")
+        check(cli_launches == T, f"fused_field launched {cli_launches} times for {T} CLI frames")
+        direct.generator.manual_seed(42)  # the CLI's GeneFaceInfer draws from a fresh generator seeded 42
+        inp = default_inp(drv_aud_features=fpath)
+        t0 = time.perf_counter()
+        ref = np.stack(list(direct.forward_secc2video(direct.forward_audio2secc(direct.prepare_batch_from_inp(inp),
+                                                                                inp), inp)))
+        direct_ms = (time.perf_counter() - t0) * 1e3
+        differ = [i for i in range(T) if not np.array_equal(frames[i], ref[i])]
+        if differ:
+            d = np.abs(frames[differ[0]].astype(np.int16) - ref[differ[0]])
+            print(f"[serve_cli] AVI frames differing from the direct GeneFaceInfer's: {differ[:10]} "
+                  f"(frame {differ[0]}: max |d| {d.max()}, {int((d > 0).sum())} values)")
+        check(not differ, "the CLI's frames vs the direct GeneFaceInfer's for the same input and draw")
+        check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "CLI frames do not vary")
+        print(f"[serve_cli] {card_line()}; CLI (features -> {os.path.basename(out)}, "
+              f"{os.path.getsize(out) / 2 ** 20:.1f} MiB): {T} frames of {2 * ds.H}x{2 * ds.W} equal to the direct "
+              f"GeneFaceInfer's bit for bit, PCM equal to pcm16(wav16k) ({len(pcm)} samples), {cli_launches} "
+              f"fused_field launches; wall {cli_ms:.1f} ms (work-dir load, audio2secc, render, AVI); the same request "
+              f"through the direct GeneFaceInfer (audio2secc, render, no file) {direct_ms:.1f} ms, "
+              f"{direct_ms / T:.3f} ms a frame")
+
+        # the stream: 8 s in 2 s chunks, then a resume at the first chunk boundary
+        swav = voiced_wav(STREAM_SECONDS, 110.0, 220.0, seed=9)
+        sinp = {"hubert_full": rs.randn(int(STREAM_SECONDS * 50), 1024).astype(np.float32)}
+        chunk_frames, launched_at = [], []
+        launch = infer.launch_secc2video
+
+        def counted(batch, *a, **kw):
+            chunk_frames.append(int(batch["T"]))
+            out = launch(batch, *a, **kw)
+            launched_at.append(time.perf_counter())
+            return out
+
+        infer.launch_secc2video = counted
+        infer.generator.manual_seed(42)
+        torch.cuda.synchronize()
+        ff.fused_field.launches = 0
+        stamps, full = [], []
+        t0 = time.perf_counter()
+        for f in stream_infer(infer, swav, sinp, chunk_seconds=STREAM_CHUNK_SECONDS):
+            stamps.append(time.perf_counter())
+            full.append(f)
+        n = len(full)
+        k = chunk_frames[0]
+        infer.generator.manual_seed(42)  # replay the draw of the first chunk
+        torch.randn((1, infer.a2m_model.vae.latent_length(k), infer.a2m_model.vae.latent_size),
+                    generator=infer.generator, device=dev)
+        resumed = list(stream_infer(infer, swav, dict(sinp, resume_from_frame=k), chunk_seconds=STREAM_CHUNK_SECONDS))
+        stream_launches = ff.fused_field.launches
+        infer.launch_secc2video = launch
+        tail = len(swav) - n * 2 * 320
+        check(0 <= tail < 16000 // 5, f"{n} frames for {len(swav)} samples: {tail} samples unconsumed (drift)")
+        check(len(resumed) == n - k and all(np.array_equal(a, b) for a, b in zip(resumed, full[k:])),
+              f"the stream resumed at frame {k} vs the uninterrupted stream's tail")
+        check(stream_launches == n + len(resumed), f"fused_field launched {stream_launches} times for "
+                                                   f"{n + len(resumed)} streamed frames")
+        ttff = (stamps[0] - t0) * 1e3
+        ends = list(np.cumsum(chunk_frames))
+        check(n in ends, f"{n} frames are not whole chunks {chunk_frames}")
+        m = ends.index(n) + 1  # the uninterrupted stream's chunks
+        # a chunk's cycle: from the last chunk's launch to its own (its a2m,
+        # its render launched, the last chunk's frames drained), a frame
+        per_chunk = [(launched_at[i] - launched_at[i - 1]) * 1e3 / chunk_frames[i]
+                     for i in range(1, m) if chunk_frames[i] == k]
+        print(f"[serve_cli] stream_infer over {STREAM_SECONDS} s in {STREAM_CHUNK_SECONDS} s chunks: {n} frames "
+              f"(chunks {chunk_frames[:m]}), {tail} samples unconsumed (< 0.2 s: no drift); resumed at "
+              f"frame {k}: {len(resumed)} frames equal to the uninterrupted tail bit for bit; {stream_launches} "
+              f"fused_field launches for {n + len(resumed)} frames")
+        print(f"[serve_cli] {card_line()}; stream: time to first frame {ttff:.3f} ms (the first chunk of {k} "
+              f"frames rendered, the second launched); ms a frame by chunk cycle, full chunks 2..: "
+              f"{', '.join(f'{x:.3f}' for x in per_chunk)} (median {statistics.median(per_chunk):.3f}); wall "
+              f"{(stamps[-1] - t0) * 1e3:.1f} ms for {n} frames ({(stamps[-1] - t0) * 1e3 / n:.3f} ms a frame)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return cli_launches + stream_launches
 
 
 def grad_stats(a, b):
@@ -1075,16 +1317,17 @@ def main() -> int:
     serve_launches = phase_serve(dev)
     full_launches = phase_serve_full(dev)
     audio_launches = phase_serve_audio(dev)
+    cli_launches = phase_serve_cli(dev)
     train_fwd, train_chain, train_wgrad = phase_train(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
-          f"{audio_launches} audio-driven serving + {train_fwd} training; "
+          f"{audio_launches} audio-driven serving + {cli_launches} CLI and streaming + {train_fwd} training; "
           f"fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:156",
-        "launches": serve_launches + full_launches + audio_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "launches": serve_launches + full_launches + audio_launches + cli_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {
         # B2: launches of its source's kernel (the chain); times of the whole backward

@@ -3,8 +3,9 @@
 The package mirrors the JAX package's layout (`ops/`, `models/`, `utils/`,
 `data/`, `inference/`, `training/`) so each module sits where its JAX
 counterpart does. It imports torch, numpy and scipy only: never jax, flax,
-yaml or cv2, and nothing from `genefaceplusplus_tpu` at run time. The parity
-tests (`tests/test_torch_*.py`) are the only code that imports both packages.
+yaml, msgpack, cv2 or imageio, and nothing from `genefaceplusplus_tpu` at
+run time. The parity tests (`tests/test_torch_*.py`) are the only code that
+imports both packages.
 
 Ported so far: the GT-driven serving path (condition encoders, the Fourier
 field, interval ray marching with the probe prepass, compositing, the frame
@@ -12,7 +13,11 @@ renderer and the render half of `GeneFaceInfer`) for the non-SR head config
 (`egs/datasets/May/lm3d_radnerf.yaml`) and for the full frame of
 `egs/datasets/May/lm3d_radnerf_torso_sr.yaml` (head at 256^2, torso field,
 2x StyleGAN2 super-resolution), and head-NeRF training (`training/tasks/head_task.py:HeadNeRFTask` and
-`training/trainer.py:Trainer`). The field on both paths is the hand-written
+`training/trainer.py:Trainer`), audio-driven frames, and the inference
+surface on the JAX package's work dirs: `GeneFaceInfer.from_work_dirs`,
+`infer_once`, `inference/cli.py` and `inference/serving.py:stream_infer`
+(flax msgpack and YAML read by `utils/msgpack.py` and `config/`, video
+written as an uncompressed AVI by `data/video.py`). The field on both paths is the hand-written
 CUDA forward kernel `csrc/fused_field.cu`; training's backward is
 `csrc/fused_field_bwd.cu` (`ops/fused_field.py`). ROADMAP.md lists what is
 still to port.

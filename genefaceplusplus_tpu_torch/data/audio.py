@@ -3,6 +3,8 @@ copy of `genefaceplusplus_tpu/data/audio.py`).
 
 - mel: 16 kHz, STFT fft 512 / hop 320 / win 512 hann, center=False, 80
   Slaney mels (fmin 80, fmax 7600), log10(max(1e-6, .));
+- wav files: `load_wav_16k` reads any rate and width (scipy), and
+  `save_wav_16k` writes 16 kHz 16-bit PCM (`pcm16`);
 - F0: a Boersma-style windowed-autocorrelation tracker (the sound's ACF
   normalised by the window's, parabolic peak interpolation, voicing
   threshold 0.6, 80-750 Hz), one value per mel hop; unvoiced frames 0.
@@ -14,6 +16,7 @@ repository): audio-driven serving takes them precomputed
 
 from __future__ import annotations
 
+import wave
 from typing import Optional, Tuple
 
 import numpy as np
@@ -49,6 +52,22 @@ def load_wav_16k(path: str) -> np.ndarray:
         g = gcd(int(sr), SAMPLE_RATE)
         data = resample_poly(data, SAMPLE_RATE // g, int(sr) // g).astype(np.float32)
     return data
+
+
+def pcm16(wav) -> np.ndarray:
+    """16-bit PCM of a waveform in [-1, 1]: clipped, scaled by 32767 and
+    truncated toward zero, as the JAX package's `save_wav_16k` writes it."""
+    return (np.clip(np.asarray(wav), -1.0, 1.0) * 32767).astype(np.int16)
+
+
+def save_wav_16k(wav, path: str) -> None:
+    """Write `wav` as a 16 kHz mono 16-bit PCM wav file (standard library
+    `wave`)."""
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(SAMPLE_RATE)
+        f.writeframes(pcm16(wav).astype("<i2").tobytes())
 
 
 def _hz_to_mel_slaney(f):

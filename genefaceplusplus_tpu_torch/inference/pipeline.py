@@ -19,18 +19,28 @@ eye areas [T,1], 2D landmarks lm68 [T,68,2]) renders through
 per ray, T_thresh 1e-2): the fused field, [the torso field composited
 behind the head, the 2x SR,] `frames_per_dispatch` frames per chunk,
 quantised to uint8 on the device and copied one chunk at a time to the
-host.
+host. `launch_secc2video` renders without copying (the frames stay on the
+device) and `drain_frames` copies them: the stream (`serving.py`) renders
+one chunk of audio while the last one's frames are drained.
+
+`GeneFaceInfer.from_work_dirs` builds all of it from the JAX package's work
+dirs (each a `config.yaml` and flax msgpack checkpoints), and `infer_once`
+runs a request from features to a video file (an uncompressed AVI with the
+audio, `data/video.py`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Optional
+import os
+from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from genefaceplusplus_tpu_torch.config import set_hparams
 from genefaceplusplus_tpu_torch.data import audio as audio_lib
 from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset
+from genefaceplusplus_tpu_torch.data.video import AVI_MAX_BYTES, StreamingVideoWriter, avi_bytes, avi_path
 from genefaceplusplus_tpu_torch.data.face3d import Face3DHelper
 from genefaceplusplus_tpu_torch.data.landmarks import (
     INDEX_LM68_FROM_LM478, inject_blink_to_lm68, recompose_lm68_regions)
@@ -44,12 +54,16 @@ from genefaceplusplus_tpu_torch.models.renderer import RenderOptions
 from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
 from genefaceplusplus_tpu_torch.ops import fused_field as ff
 from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint, restore_into
+from genefaceplusplus_tpu_torch.utils.convert_jax import flax_leaves, unwrap_train_state
 from genefaceplusplus_tpu_torch.utils.device import resolve_device
 from genefaceplusplus_tpu_torch.utils.lm_projection import calibrate_cano_to_world, project_cano_lm3d
 from genefaceplusplus_tpu_torch.utils.rays import get_bg_coords, pixel_rays
 from genefaceplusplus_tpu_torch.utils.smoothing import mirror_index, smooth_features_xd
 
 _UNSET = object()
+# (frames [n, H', W', 3] uint8 on the device, head-crop fits [n] bool or None, n)
+Launched = Tuple[torch.Tensor, Optional[torch.Tensor], int]
 
 
 def default_inp(**kw) -> Dict[str, Any]:
@@ -110,7 +124,7 @@ class GeneFaceInfer:
     the a2m's draws from a generator seeded with 42, JAX's key. The postnet
     refiner is not ported: `postnet_params` raises. Everything lives on
     `device`: the CUDA card unless another device is named (raises when
-    there is no card)."""
+    there is no card). `from_work_dirs` builds one from JAX work dirs."""
 
     def __init__(self, cfg: RADNeRFConfig, params: Mapping[str, torch.Tensor],
                  dataset: RADNeRFDataset, occupancy, device=None, *,
@@ -121,7 +135,7 @@ class GeneFaceInfer:
                  a2m_hparams: Optional[Mapping[str, Any]] = None,
                  a2m_params: Optional[Mapping[str, torch.Tensor]] = None,
                  postnet_params: Optional[Mapping[str, torch.Tensor]] = None,
-                 bfm_dir: str = "deep_3drecon/BFM"):
+                 bfm_dir: str = "deep_3drecon/BFM", head_crop_pad_px: int = 12):
         if postnet_params is not None:
             raise NotImplementedError("the postnet landmark refiner (models/postnet/models.py) is not "
                                       "ported yet")
@@ -161,6 +175,7 @@ class GeneFaceInfer:
         self.occupancy = torch.as_tensor(occupancy, dtype=torch.bool).to(self.device)
         self.bg_color = torch.as_tensor(dataset.bg_img.reshape(-1, 3), dtype=torch.float32).to(self.device)
         self.bg_coords = get_bg_coords(dataset.H, dataset.W, device=self.device)[0]
+        self.head_crop_pad_px = int(head_crop_pad_px)
         self.head_crop = self._auto_head_crop()
         # the torso's footprint is static in screen space: one rect at load,
         # at the render-time mask threshold (the mean density is 0 here)
@@ -169,6 +184,71 @@ class GeneFaceInfer:
             self.torso_crop = auto_torso_crop(self.torso_occupancy_2d, dataset.H, dataset.W,
                                               thr=torso_cfg.density_thresh_torso)
         self.sr_crop, self.sr_bg = self._auto_sr_crop()
+
+    @classmethod
+    def from_work_dirs(cls, audio2secc_dir: Optional[str] = None, head_model_dir: Optional[str] = None,
+                       torso_model_dir: Optional[str] = None, postnet_dir: Optional[str] = None,
+                       dataset: Optional[RADNeRFDataset] = None, bfm_dir: str = "deep_3drecon/BFM",
+                       device=None) -> "GeneFaceInfer":
+        """The identity of JAX work dirs, as JAX's `GeneFaceInfer.__init__`
+        reads them (`genefaceplusplus_tpu/inference/pipeline.py:97-252`).
+
+        Each dir holds `config.yaml` (with its `base_config` chain) and
+        `model_ckpt_steps_N.ckpt` files, of which the newest is read. The
+        head dir defaults to the torso config's `head_model_dir`. The head
+        config's `with_sr` adds the SR (in its `sr_dtype`) from the head
+        dir's checkpoint; the a2m comes from `audio2secc_dir` only (without
+        it the instance is GT-driven); the dataset, unless given, from the
+        head config's `binary_data_dir/video_id/trainval_dataset.npy`. The
+        occupancy grid and the torso's 2D grid come from the checkpoints'
+        `extra_state` (the head's grid all ones where absent). A checkpoint
+        that restores no tensor raises; a dir without a checkpoint keeps the
+        port's initial weights (seed 0) and says so."""
+        if postnet_dir:
+            raise NotImplementedError("the postnet landmark refiner (models/postnet/models.py) is not "
+                                      "ported yet (ROADMAP queue A3)")
+        if not head_model_dir and torso_model_dir:
+            head_model_dir = set_hparams(work_dir=torso_model_dir).get("head_model_dir", "") or None
+        head_dir = head_model_dir or torso_model_dir
+        if not head_dir:
+            raise ValueError("from_work_dirs needs a head or a torso work dir")
+        newest = {d: get_last_checkpoint(d) for d in {head_dir, torso_model_dir, audio2secc_dir} if d}
+        head_raw = set_hparams(work_dir=head_dir)
+        cfg = RADNeRFConfig.from_hparams(head_raw)
+        params = _restore(RADNeRF(cfg, generator=_seed()), newest[head_dir], head_dir, "head")
+        kw: Dict[str, Any] = {}
+        if torso_model_dir:
+            tcfg = TorsoConfig.from_hparams(set_hparams(work_dir=torso_model_dir))
+            kw.update(torso_cfg=tcfg, torso_params=_restore(TorsoField(tcfg, generator=_seed()),
+                                                            newest[torso_model_dir], torso_model_dir, "torso"))
+            extra = (newest[torso_model_dir][0] or {}).get("extra_state", {})
+            if "torso_grid" in extra:
+                kw["torso_occupancy_2d"] = np.array(extra["torso_grid"], np.float32)
+        if head_raw.get("with_sr", False):
+            kw["sr_dtype"] = torch.bfloat16 if head_raw.get("sr_dtype", "bfloat16") == "bfloat16" else torch.float32
+            kw["sr_params"] = _restore(Superresolution(3, 256, generator=_seed()), newest[head_dir], head_dir, "sr")
+        if audio2secc_dir:
+            a2m_hp = set_hparams(work_dir=audio2secc_dir).to_dict()
+            kw.update(a2m_hparams=a2m_hp, a2m_params=_restore(
+                a2m_model_from_hparams(a2m_hp, generator=_seed()), newest[audio2secc_dir], audio2secc_dir, None))
+        if dataset is None:
+            ds_path = os.path.join(head_raw.get("binary_data_dir", ""), head_raw.get("video_id", ""),
+                                   "trainval_dataset.npy")
+            if not (head_raw.get("binary_data_dir") and os.path.exists(ds_path)):
+                raise ValueError(f"no dataset: {ds_path} (the head config's binary_data_dir/video_id) does "
+                                 "not exist; pass dataset=")
+            dataset = RADNeRFDataset(ds_path, split="train", smo_win_size=cfg.smo_win_size,
+                                     with_sr=head_raw.get("with_sr", True))
+        extra = (newest[head_dir][0] or {}).get("extra_state", {})
+        if "occupancy" in extra and np.asarray(extra["occupancy"]).ndim == 3:
+            occupancy = np.asarray(extra["occupancy"]).astype(bool)
+        else:
+            print(f"| {head_dir}: no occupancy grid in the checkpoint; using an all-ones grid")
+            occupancy = np.ones((cfg.grid_size,) * 3, bool)
+        infer = cls(cfg, params, dataset, occupancy, device, bfm_dir=bfm_dir,
+                    head_crop_pad_px=int(head_raw.get("head_crop_pad_px", 12)), **kw)
+        infer.head_cfg_raw = head_raw
+        return infer
 
     def _auto_head_crop(self):
         """Crop (ch, cw) covering the occupied AABB's projection across every
@@ -179,7 +259,7 @@ class GeneFaceInfer:
         self._head_bbox = auto_head_bbox(self.occupancy, poses, ds.intrinsics, ds.H, ds.W,
                                          bound=self.head_cfg.bound)
         return auto_head_crop(self.occupancy, poses, ds.intrinsics, ds.H, ds.W,
-                              bound=self.head_cfg.bound, bbox=self._head_bbox)
+                              bound=self.head_cfg.bound, pad_px=self.head_crop_pad_px, bbox=self._head_bbox)
 
     @torch.no_grad()
     def _auto_sr_crop(self):
@@ -427,15 +507,18 @@ class GeneFaceInfer:
             sr_crop=sr_crop, sr_bg=self.sr_bg if sr_crop is not None else None)
 
     @torch.no_grad()
-    def forward_secc2video(self, batch: Mapping[str, Any],
-                           inp: Optional[Mapping[str, Any]] = None) -> Iterator[np.ndarray]:
-        """Yield the batch's frames as uint8 arrays, [2H, 2W, 3] with SR and
-        [H, W, 3] without, rendered through the fused field."""
+    def launch_secc2video(self, batch: Mapping[str, Any], inp: Optional[Mapping[str, Any]] = None,
+                          start: int = 0, stop: Optional[int] = None) -> List[Launched]:
+        """Render frames [start, stop) of the batch (all by default),
+        `frames_per_dispatch` a chunk, into uint8 tensors on the device,
+        [2H, 2W, 3] with SR and [H, W, 3] without, and return them without
+        copying (`drain_frames` copies them)."""
         inp = dict(inp or {})
         ds, dev = self.dataset, self.device
         H, W = ds.H, ds.W
         up = 2 if self.sr_model is not None else 1
         T = int(batch["T"])
+        stop = T if stop is None else min(stop, T)
         chunk = max(1, min(int(inp.get("frames_per_dispatch", 8)), T))
 
         conds = torch.as_tensor(np.asarray(batch["cond"]), dtype=torch.float32, device=dev)
@@ -445,21 +528,92 @@ class GeneFaceInfer:
                                     dtype=torch.float32, device=dev).reshape(T, 1)
         poses_all = torch.as_tensor(np.asarray(batch["poses"]), dtype=torch.float32, device=dev)
         lm68s = torch.as_tensor(np.asarray(batch["lm68"]), dtype=torch.float32, device=dev)
-        crop_misses = 0
-        for start in range(0, T, chunk):
-            n = min(chunk, T - start)
-            rays_o, rays_d = pixel_rays(poses_all[start:start + n], ds.intrinsics, H, W)
+        launched = []
+        for first in range(start, stop, chunk):
+            n = min(chunk, stop - first)
+            rays_o, rays_d = pixel_rays(poses_all[first:first + n], ds.intrinsics, H, W)
             imgs = torch.empty((n, up * H, up * W, 3), dtype=torch.uint8, device=dev)
+            fits = None
             for j in range(n):
-                t = start + j
+                t = first + j
                 out = self.render_frame(rays_o[j], rays_d[j], cond_windows[t], eye_areas[t],
                                         lm68s[t][None], inp)
                 img = out.sr_rgb_map if out.sr_rgb_map is not None else out.rgb_map.reshape(H, W, 3)
                 imgs[j] = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
                 if out.head_crop_fits is not None:
-                    crop_misses += int(not bool(out.head_crop_fits))
-            yield from imgs.cpu().numpy()
-        if crop_misses:
-            print(f"| WARNING: head exceeded the auto head-crop window on {crop_misses}/{T} frames "
+                    if fits is None:
+                        fits = torch.ones(n, dtype=torch.bool, device=dev)
+                    fits[j] = out.head_crop_fits
+            launched.append((imgs, fits, n))
+        return launched
+
+    @staticmethod
+    def drain_frames(launched: Iterable[Launched]) -> Iterator[np.ndarray]:
+        """Copy launched frames to the host, one chunk at a time, and yield
+        them as uint8 arrays; warn where the head left the head crop."""
+        frames = misses = 0
+        for imgs, fits, n in launched:
+            host = imgs.cpu().numpy()
+            frames += n
+            if fits is not None:
+                misses += int((~fits).sum())
+            yield from host
+        if misses:
+            print(f"| WARNING: head exceeded the auto head-crop window on {misses}/{frames} frames "
                   "(driving poses outside the dataset envelope); rerun with "
                   "head_crop='off' for these poses")
+
+    def forward_secc2video(self, batch: Mapping[str, Any],
+                           inp: Optional[Mapping[str, Any]] = None) -> Iterator[np.ndarray]:
+        """Yield the batch's frames as uint8 arrays, [2H, 2W, 3] with SR and
+        [H, W, 3] without, rendered through the fused field one chunk at a
+        time."""
+        T = int(batch["T"])
+        chunk = max(1, min(int(dict(inp or {}).get("frames_per_dispatch", 8)), T))
+        yield from self.drain_frames(c for start in range(0, T, chunk)
+                                     for c in self.launch_secc2video(batch, inp, start, start + chunk))
+
+    def infer_once(self, inp: Mapping[str, Any]) -> str:
+        """One request, features to a video file: `prepare_batch_from_inp`,
+        `forward_audio2secc`, the frames of `forward_secc2video` written with
+        the request's 16 kHz audio (`batch['wav16k']`) as an uncompressed AVI
+        (`<stem>.avi` for an `.mp4` `out_name`). Returns the path written.
+        A clip past AVI 1.0's 1 GiB raises before its first frame."""
+        inp = default_inp(**inp)
+        batch = self.prepare_batch_from_inp(inp)
+        batch = self.forward_audio2secc(batch, inp)
+        path = avi_path(inp["out_name"])
+        up = 2 if self.sr_model is not None else 1
+        shape = (up * self.dataset.H, up * self.dataset.W)
+        size = avi_bytes(int(batch["T"]), *shape, n_samples=len(batch["wav16k"]))
+        if size > AVI_MAX_BYTES:
+            raise ValueError(f"{batch['T']} frames of {shape} make a {size}-byte AVI, past AVI 1.0's "
+                             f"{AVI_MAX_BYTES} bytes; drive a shorter clip (ROADMAP: OpenDML)")
+        writer = StreamingVideoWriter(path, fps=25, audio=batch["wav16k"])
+        for frame in self.forward_secc2video(batch, inp):
+            writer.append(frame)
+        return writer.close()
+
+
+def _seed() -> torch.Generator:
+    """The initial weights of a work dir without a checkpoint."""
+    return torch.Generator().manual_seed(0)
+
+
+def _restore(model: torch.nn.Module, newest, work_dir: str, sub: Optional[str]) -> Dict[str, torch.Tensor]:
+    """`model`'s state dict with the tensors of `newest` (the work dir's
+    newest (checkpoint, path)), its `sub` tree, matched by name and shape."""
+    template = model.state_dict()
+    ckpt, path = newest
+    if ckpt is None:
+        print(f"| {work_dir}: no checkpoint; the {sub or 'a2m'} keeps the port's initial weights (seed 0)")
+        return template
+    loaded = {k: arr for k, (_, arr) in flax_leaves(unwrap_train_state(ckpt, sub)).items()}
+    state, restored = restore_into(template, loaded)
+    n = sum(not k.endswith("num_batches_tracked") for k in template)
+    if not restored:
+        raise ValueError(f"checkpoint at {path} matched no parameters (sub={sub}); 0/{n} tensors restored")
+    if len(restored) < n:
+        print(f"| ckpt {path} (sub={sub}): {len(restored)}/{n} tensors restored ({n - len(restored)} kept "
+              "at the port's init: unmatched)")
+    return state

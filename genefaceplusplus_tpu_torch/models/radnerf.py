@@ -75,7 +75,7 @@ class RADNeRFConfig:
     @classmethod
     def from_hparams(cls, hp: Mapping) -> "RADNeRFConfig":
         """Same keys and defaults as the JAX config's `from_hparams`; `hp` is
-        a plain dict (the port reads no YAML)."""
+        a mapping (a dict, or a `config.Config` from `set_hparams`)."""
         get = hp.get
         return cls(
             cond_type=get("cond_type", "idexp_lm3d_normalized"),

@@ -20,12 +20,17 @@ buffer) of the same shape, and every port tensor must receive one:
 anything else raises. A JAX `TrainState`'s
 `params` (and a gradient tree of the same structure) convert the same way,
 so a port optimizer can start from them (`TrainState.model.load_state_dict`).
+
+`unwrap_train_state` takes the variables out of a JAX checkpoint (the
+trainer's payload), and `export_flax_params` is the inverse of
+`convert_flax_params`: a port model's tensors as the JAX variables tree,
+told apart by the port module that holds each tensor (no flax needed).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -76,30 +81,51 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     return at(name), arr
 
 
+def _collections(params: Mapping):
+    """The variables' leaves, (path, array), over the collections the port
+    holds; a tree without 'params' is a bare param tree."""
+    collections = ("params", "buffers", "batch_stats")
+    if "params" in params:
+        return [leaf for col in collections if col in params for leaf in _flatten(params[col])]
+    return list(_flatten(params))
+
+
+def _array(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):  # a bfloat16 leaf of a msgpack checkpoint
+        return leaf.float().numpy()
+    return np.asarray(leaf)
+
+
+def flax_leaves(params: Mapping) -> Dict[str, Tuple[Tuple[str, ...], np.ndarray]]:
+    """{port key: (flax path, array in the port's layout)} of every leaf of
+    flax variables ({'params': ...[, 'buffers': ...][, 'batch_stats': ...]},
+    or a bare param tree)."""
+    out: Dict[str, Tuple[Tuple[str, ...], np.ndarray]] = {}
+    for path, leaf in _collections(params):
+        key, arr = _leaf(path, _array(leaf))
+        if key in out:
+            raise KeyError(f"two flax leaves map to {key!r}")
+        out[key] = (path, arr)
+    return out
+
+
 def convert_flax_params(params: Mapping, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Convert flax variables ({'params': ...[, 'buffers': ...][,
     'batch_stats': ...]}, or a bare param tree) for `model`, checking that
     the conversion places every leaf and fills every parameter and buffer
     (BatchNorm's `num_batches_tracked` keeps the model's value)."""
-    collections = ("params", "buffers", "batch_stats")
     if "params" in params:
-        other = sorted(set(params) - set(collections))
+        other = sorted(set(params) - {"params", "buffers", "batch_stats"})
         if other:
             raise KeyError(f"flax collections the port has no tensors for: {other}")
-        leaves = [leaf for col in collections if col in params for leaf in _flatten(params[col])]
-    else:
-        leaves = list(_flatten(params))
     target = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
-    for path, leaf in leaves:
-        key, arr = _leaf(path, np.asarray(leaf))
+    for key, (path, arr) in flax_leaves(params).items():
         if key not in target:
             raise KeyError(f"flax leaf {'/'.join(path)} -> {key!r}: no such port parameter")
         if tuple(target[key].shape) != arr.shape:
             raise ValueError(f"flax leaf {'/'.join(path)} -> {key!r}: shape {arr.shape} "
                              f"!= port {tuple(target[key].shape)}")
-        if key in out:
-            raise KeyError(f"two flax leaves map to {key!r}")
         out[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
     for key, value in target.items():
         if key.endswith(".num_batches_tracked"):
@@ -108,3 +134,85 @@ def convert_flax_params(params: Mapping, model: torch.nn.Module) -> Dict[str, to
     if missing:
         raise KeyError(f"port tensors without a flax leaf: {missing}")
     return out
+
+
+def unwrap_train_state(ckpt: Mapping, sub: Optional[str] = None) -> Any:
+    """The variables tree of a JAX checkpoint, as JAX's
+    `GeneFaceInfer._load_params` finds it: the payload's 'state_dict'; from
+    a TrainState (it has 'opt_state'), its 'params', 'torso_params' or
+    'variables'; then the `sub` tree ('head', 'sr', 'torso') where present,
+    else a 'model' tree where present."""
+    state = ckpt.get("state_dict", ckpt)
+    if isinstance(state, Mapping) and "opt_state" in state:
+        for k in ("params", "torso_params", "variables"):
+            if k in state:
+                state = state[k]
+                break
+    if isinstance(state, Mapping):
+        if sub is not None and sub in state:
+            state = state[sub]
+        elif "model" in state:
+            state = state["model"]
+    return state
+
+
+_PORT_MODULES = {v: k for k, v in _MODULES.items()}
+
+
+def _flax_path(module_path: str) -> list:
+    """The flax module names of a port module path ('convs.0' -> 'Conv_0')."""
+    parts, out, i = module_path.split(".") if module_path else [], [], 0
+    while i < len(parts):
+        if parts[i] in _PORT_MODULES and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{_PORT_MODULES[parts[i]]}_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return out
+
+
+def export_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
+    """The JAX variables tree of `model`'s tensors (the inverse of
+    `convert_flax_params`): {'params': ...[, 'buffers': ...][,
+    'batch_stats': ...]} of float32 numpy arrays. `Linear` weights go back
+    to `Dense` kernels [in, out]; `Conv1d` weights to `Conv` kernels [k, in,
+    out]; `ConvTranspose1d` weights to unflipped `ConvTranspose` kernels;
+    `Embedding` weights to `embedding`; BatchNorm's weight and bias to
+    `scale` and `bias` and its running statistics to `batch_stats`; other
+    modules' `weight` keeps its name (4-D ones go from OIHW to HWIO); other
+    buffers land in `buffers`. BatchNorm's `num_batches_tracked` has no flax
+    leaf."""
+    tree: Dict[str, Any] = {}
+
+    def put(col: str, path, leaf: str, arr: torch.Tensor):
+        node = tree.setdefault(col, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.array(arr.detach().cpu().float().numpy(), dtype=np.float32)
+
+    params = dict(model.named_parameters())
+    for key, t in model.state_dict().items():
+        mod_path, _, name = key.rpartition(".")
+        module = model.get_submodule(mod_path) if mod_path else model
+        path = _flax_path(mod_path)
+        if isinstance(module, torch.nn.modules.batchnorm._BatchNorm):
+            if name == "num_batches_tracked":
+                continue
+            inv = {v: k for k, v in _BATCHNORM.items()}
+            put("params" if key in params else "batch_stats", path, inv[name], t)
+        elif key not in params:
+            put("buffers", path, name, t)
+        elif name == "weight" and isinstance(module, torch.nn.Linear):
+            put("params", path, "kernel", t.t())
+        elif name == "weight" and isinstance(module, torch.nn.ConvTranspose1d):
+            put("params", path, "kernel", t.flip(-1).permute(2, 0, 1))
+        elif name == "weight" and isinstance(module, torch.nn.Conv1d):
+            put("params", path, "kernel", t.permute(2, 1, 0))
+        elif name == "weight" and isinstance(module, torch.nn.Embedding):
+            put("params", path, "embedding", t)
+        elif name == "weight" and t.dim() == 4:
+            put("params", path, "weight", t.permute(2, 3, 1, 0))
+        else:
+            put("params", path, name, t)
+    return tree

@@ -9,7 +9,8 @@ on. Imports no jax, so it runs on a machine with the card and no JAX:
 
 Elsewhere each test skips (no CUDA device). Bounds are chip_smoke.py's:
 the kernel and the plain version are two bf16 chains that differ only in
-float32 summation order."""
+float32 summation order. The work-dir tests write JAX-layout work dirs
+with the port's own writer and load them on the card and on the CPU."""
 
 import numpy as np
 import pytest
@@ -499,3 +500,93 @@ def test_a2m_on_card_matches_cpu_with_tf32_on(cuda_setup):
     print(f"[a2m] card vs cpu with cudnn.allow_tf32=True: max |d| {err:.3e} on outputs up to "
           f"{ref.abs().max().item():.4f}")
     assert err <= chip_smoke.A2M_CARD_MAX, err
+
+
+def _write_work_dirs(root):
+    """JAX-layout work dirs written by the port (the card's machine has no
+    JAX): a small a2m, a head + SR at raw 32^2 over a 64^2 dataset, a torso,
+    and a head-only identity at 32^2."""
+    import os
+
+    from genefaceplusplus_tpu_torch.data.dataset import synthetic
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
+    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoConfig, TorsoField
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
+    from genefaceplusplus_tpu_torch.utils.ckpt import save_flax_checkpoint
+    from genefaceplusplus_tpu_torch.utils.convert_jax import export_flax_params
+
+    binary = os.path.join(root, "binary")
+    for vid, size in (("sr64", 64), ("head32", 32)):
+        os.makedirs(os.path.join(binary, vid))
+        np.save(os.path.join(binary, vid, "trainval_dataset.npy"), synthetic(num_frames=12, H=size, W=size),
+                allow_pickle=True)
+    a2m_hp = {"use_pitch": True, "audio_in_dim": 64, "a2m_hidden_channels": 32, "a2m_enc_layers": 2,
+              "a2m_dec_layers": 2, "a2m_flow_hidden": 16, "a2m_flow_blocks": 2}
+    head = {"grid_size": 16, "smo_win_size": 3, "individual_embedding_num": 16, "add_eye_blink_cond": True,
+            "binary_data_dir": binary}
+    sr_head = dict(head, with_sr=True, sr_dtype="bfloat16", video_id="sr64")
+    torso_hp = {"with_sr": True, "torso_head_aware": True, "individual_embedding_num": 16, "grid_size": 16}
+    occ = np.zeros((16,) * 3, bool)
+    occ[5:11, 6:10, 5:11] = True
+    grid = np.zeros((16, 16), np.float32)
+    grid[11:15, 6:10] = 1.0
+    g = torch.Generator().manual_seed
+    d = {k: os.path.join(root, k) for k in ("a2m", "head_sr", "torso", "head")}
+    save_flax_checkpoint(d["a2m"], 1, {"state_dict": {"variables": export_flax_params(
+        a2m_model_from_hparams(a2m_hp, generator=g(5))), "opt_state": {}}}, config=a2m_hp)
+    sr_cfg = RADNeRFConfig.from_hparams(sr_head)
+    save_flax_checkpoint(d["head_sr"], 1, {
+        "state_dict": {"params": {"head": export_flax_params(RADNeRF(sr_cfg, generator=g(6))),
+                                  "sr": export_flax_params(Superresolution(3, 256, generator=g(7)))}, "opt_state": {}},
+        "extra_state": {"occupancy": occ}}, config=sr_head)
+    tcfg = TorsoConfig.from_hparams(torso_hp)
+    save_flax_checkpoint(d["torso"], 1, {"state_dict": {"torso_params": export_flax_params(TorsoField(tcfg, generator=g(8))),
+                                                        "opt_state": {}}, "extra_state": {"torso_grid": grid}},
+                         config=dict(torso_hp, head_model_dir=d["head_sr"]))
+    h_cfg = dict(head, video_id="head32")
+    save_flax_checkpoint(d["head"], 1, {"state_dict": {"params": export_flax_params(
+        RADNeRF(RADNeRFConfig.from_hparams(h_cfg), generator=g(9))), "opt_state": {}},
+        "extra_state": {"occupancy": occ}}, config=h_cfg)
+    return d
+
+
+@pytest.mark.cuda
+def test_work_dirs_load_on_the_card_as_on_the_cpu(cuda_setup, tmp_path):
+    """from_work_dirs on the card loads the tensors, grids and crops it loads
+    on the CPU, bit for bit."""
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
+
+    d = _write_work_dirs(str(tmp_path))
+    card = GeneFaceInfer.from_work_dirs(audio2secc_dir=d["a2m"], torso_model_dir=d["torso"], device="cuda")
+    cpu = GeneFaceInfer.from_work_dirs(audio2secc_dir=d["a2m"], torso_model_dir=d["torso"], device="cpu")
+    for name in ("head_model", "torso_model", "sr_model", "a2m_model"):
+        a, b = getattr(card, name).state_dict(), getattr(cpu, name).state_dict()
+        assert set(a) == set(b) and all(a[k].is_cuda and torch.equal(a[k].cpu(), b[k]) for k in a), name
+    assert torch.equal(card.occupancy.cpu(), cpu.occupancy)
+    assert torch.equal(card.torso_occupancy_2d.cpu(), cpu.torso_occupancy_2d)
+    assert (card.head_crop, card.torso_crop, card.sr_crop) == (cpu.head_crop, cpu.torso_crop, cpu.sr_crop)
+
+
+@pytest.mark.cuda
+def test_stream_resume_tail_is_exact_on_the_card(cuda_setup, tmp_path):
+    """A stream resumed at a chunk boundary on the card (the generator
+    replayed to the second chunk's draw) gives the uninterrupted stream's
+    tail bit for bit."""
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
+    from genefaceplusplus_tpu_torch.inference.serving import stream_infer
+
+    d = _write_work_dirs(str(tmp_path))
+    infer = GeneFaceInfer.from_work_dirs(audio2secc_dir=d["a2m"], head_model_dir=d["head"], device="cuda")
+    rs = np.random.RandomState(0)
+    t = np.arange(int(2.6 * 16000)) / 16000.0
+    wav = (0.3 * np.sin(2 * np.pi * (120.0 + 40.0 * t) * t)).astype(np.float32)
+    inp = {"hubert_full": rs.randn(150, 64).astype(np.float32)}
+    infer.generator.manual_seed(42)
+    full = list(stream_infer(infer, wav, dict(inp), chunk_seconds=1.0))
+    k = 24
+    infer.generator.manual_seed(42)
+    torch.randn((1, infer.a2m_model.vae.latent_length(k), 16), generator=infer.generator, device="cuda")
+    resumed = list(stream_infer(infer, wav, dict(inp, resume_from_frame=k), chunk_seconds=1.0))
+    assert len(full) > k and len(resumed) == len(full) - k
+    for a, b in zip(resumed, full[k:]):
+        np.testing.assert_array_equal(a, b)

@@ -116,26 +116,61 @@ def test_gt_driven_frames_match_jax(pair):
 
 
 def test_port_imports_no_jax_yaml_or_cv2():
+    """Importing every module of the port, and running the CLI's --help,
+    loads none of jax, flax, yaml, msgpack, cv2, imageio or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import genefaceplusplus_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in ('jax', 'flax', 'yaml', 'cv2', 'genefaceplusplus_tpu') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'yaml', 'msgpack', 'cv2', 'imageio', 'genefaceplusplus_tpu')\n"
+        "       if m in sys.modules]\n"
         "assert not bad, bad\n"
         "new = ['ops.freq_encoder', 'ops.bias_act', 'ops.upfirdn2d', 'models.superresolution',\n"
         "       'models.radnerf_torso', 'models.full_renderer', 'data.dataset', 'inference.pipeline',\n"
         "       'utils.convert_jax', 'utils.pitch', 'utils.lm_projection', 'utils.rotation',\n"
         "       'models.audio2motion.wavenet', 'models.audio2motion.flow', 'models.audio2motion.fvae',\n"
         "       'models.audio2motion.vae_model', 'models.postnet.lle', 'data.face3d', 'data.landmarks',\n"
-        "       'data.audio']\n"
+        "       'data.audio', 'utils.msgpack', 'utils.ckpt', 'config.config', 'config.yaml_io', 'data.video',\n"
+        "       'inference.metrics', 'inference.serving', 'inference.cli']\n"
         "assert all('genefaceplusplus_tpu_torch.' + m in sys.modules for m in new)\n"
         "print('modules', sum(k.startswith('genefaceplusplus_tpu_torch') for k in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 36
+    assert int(out.stdout.split()[-1]) >= 44
+    code = ("import runpy, sys\n"
+            "sys.argv = ['cli', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('genefaceplusplus_tpu_torch.inference.cli', run_name='__main__')\n"
+            "except SystemExit:\n"
+            "    pass\n"
+            "bad = [m for m in ('jax', 'flax', 'yaml', 'msgpack', 'cv2', 'imageio', 'genefaceplusplus_tpu')\n"
+            "       if m in sys.modules]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--drv_aud_features" in out.stdout and "--device" in out.stdout
+
+
+@pytest.mark.parametrize("name,yaml_path", [
+    ("MAY_LM3D_RADNERF", "egs/datasets/May/lm3d_radnerf.yaml"),
+    ("MAY_LM3D_RADNERF_SR", "egs/datasets/May/lm3d_radnerf_sr.yaml"),
+    ("MAY_LM3D_RADNERF_TORSO_SR", "egs/datasets/May/lm3d_radnerf_torso_sr.yaml"),
+    ("MAY_AUDIO2MOTION_VAE", "egs/datasets/May/audio2motion_vae.yaml"),
+])
+def test_hard_coded_may_configs_are_the_yaml(monkeypatch, name, yaml_path):
+    """Each MAY_* dict agrees, key for key, with the port's own set_hparams
+    of its egs/ file."""
+    from genefaceplusplus_tpu_torch.config import set_hparams as t_set_hparams
+    from genefaceplusplus_tpu_torch.models import radnerf
+    from genefaceplusplus_tpu_torch.models.audio2motion import vae_model
+
+    monkeypatch.chdir(REPO)
+    d = getattr(radnerf, name, None) or getattr(vae_model, name)
+    hp = t_set_hparams(config=yaml_path)
+    assert {k: hp[k] for k in d} == d
 
 
 def test_chip_smoke_fails_without_a_card():
