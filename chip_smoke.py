@@ -57,6 +57,18 @@ Phases (any failure exits non-zero, and no result line is printed):
               use_fused_field=True on a synthetic 512^2 identity: 20 steps of
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
               validation, a checkpoint and a resume; checked and timed
+  train_cli   one identity (16 synthetic 512^2 frames with torso images, as
+              trainval_dataset.npy) trained through the training CLI, each
+              stage in a process of its own, 12 steps at the egs/datasets/May
+              configs (their widths, 65,536-ray batches, full 256^2 frames):
+              lm3d_radnerf (lip steps from step 5), lm3d_radnerf_sr (SR and
+              perceptual terms from step 5; SIGTERM after step 4, exit 0 with a
+              checkpoint, resumed to the end with every step logged once) and
+              lm3d_radnerf_torso_sr from the SR dir; losses finite, checkpoints
+              flax msgpack equal to the live state bit for bit, ms/step per
+              stage; then GeneFaceInfer.from_work_dirs on the torso dir serves 8
+              frames on the card (8 B1 launches) and its float32 frame is held
+              to the CPU's
 
 Output: the card's name and power limit first; one JSON line
 {"kernels": [...]} before the last; the last line is
@@ -1297,6 +1309,254 @@ def phase_train(dev):
     return fwd, chain, wgrad
 
 
+# ---- train_cli: one identity trained through the training CLI -------------
+
+# the three stages of one identity, each through `python -m
+# genefaceplusplus_tpu_torch.training.run` in a process of its own (the egs/
+# configs at their widths, their 65,536-ray batches and full 256^2 frames;
+# 16 frames of 512^2 with torso images); lip steps, the SR and perceptual
+# terms start at step TRAIN_CLI_START; the SR stage is preempted by SIGTERM
+# after step TRAIN_CLI_START and resumed
+TRAIN_CLI_FRAMES, TRAIN_CLI_STEPS, TRAIN_CLI_START = 16, 12, 4
+TRAIN_CLI_STAGES = {
+    "head": ("egs/datasets/May/lm3d_radnerf.yaml", f"finetune_lips_start_iter={TRAIN_CLI_START}"),
+    "sr": ("egs/datasets/May/lm3d_radnerf_sr.yaml", f"lpips_start_iters={TRAIN_CLI_START}"),
+    "torso": ("egs/datasets/May/lm3d_radnerf_torso_sr.yaml", "lambda_torso_deform=0.01"),
+}
+TRAIN_CLI_METRICS = {"head": {"lpips_loss", "mse_loss", "weights_entropy_loss"},
+                     "sr": {"sr_mse_loss", "lpips_loss", "sr_lpips_loss", "sr_lip_lpips_loss"},
+                     "torso": {"torso_entropy", "deform_reg", "mse_loss"}}
+SERVE_TRAINED_FRAMES = 8
+# the trained dirs' float32 frames (the raw composite and the SR frame), card
+# vs CPU: tests/test_torch_cuda.py's FULL_FRAME_MAX and FULL_FRAME_MEAN (the
+# head's float32 products sum in another order on the card; measured 5.1e-4
+# max on random weights, 2.6e-4 here). The torso alpha between them is
+# printed, not held: the head-aware torso carries the head's differences
+# into its deformation, which its 256-scale Fourier features magnify
+# (measured 1.45e-3 to 1.69e-3 here with the 12-step weights)
+TRAINED_CARD_MAX, TRAINED_CARD_MEAN = 2e-3, 1e-4
+MSGPACK_MAP_FIRST_BYTES = {0xDE, 0xDF} | set(range(0x80, 0x90))
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(b, dict):
+        return isinstance(a, dict) and set(a) == set(b) and all(_trees_equal(a[k], b[k]) for k in b)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+def train_cli_stage(argv) -> int:
+    """Run by phase_train_cli in a process of its own: the training CLI's
+    `main(argv)` with each train step timed (synchronised), then the newest
+    checkpoint read back and held to the final live state bit for bit;
+    the readings go to chip_smoke_stage.json in the work dir."""
+    from genefaceplusplus_tpu_torch.training import run
+    from genefaceplusplus_tpu_torch.training.trainer import state_to_flax
+    from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    step_ms = []
+    build = run.build_task
+
+    def timed_build(cfg, device=None):
+        task = build(cfg, device)
+        step = task.train_step
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args, **kw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        task.train_step = timed
+        return task
+
+    run.build_task = timed_build
+    state = run.main(argv)
+    work_dir = argv[argv.index("--work_dir") + 1]
+    ckpt, path = get_last_checkpoint(work_dir)
+    out = {"step_ms": step_ms, "global_step": int(state.global_step), "ckpt": os.path.basename(path),
+           "ckpt_equal": _trees_equal(ckpt["state_dict"], state_to_flax(state)),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    with open(os.path.join(work_dir, "chip_smoke_stage.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _stage_metrics(work_dir: str) -> list:
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train_cli(dev):
+    import signal
+    import tempfile
+
+    from genefaceplusplus_tpu_torch.data.dataset import synthetic
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
+    from genefaceplusplus_tpu_torch.models.full_renderer import render_full_frame
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+    from genefaceplusplus_tpu_torch.utils.ckpt import get_all_ckpts
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
+    try:
+        ds_dict = synthetic(num_frames=TRAIN_CLI_FRAMES, H=SIZE, W=SIZE, seed=0)
+        rs = np.random.RandomState(1)
+        for s in ds_dict["train_samples"] + ds_dict["val_samples"]:
+            torso = rs.rand(SIZE, SIZE, 4).astype(np.float32)
+            torso[..., 3] = torso[..., 3] > 0.5
+            s["torso_img"] = torso
+        binary = os.path.join(root, "binary")
+        os.makedirs(os.path.join(binary, "syn"))
+        np.save(os.path.join(binary, "syn", "trainval_dataset.npy"), ds_dict, allow_pickle=True)
+        del ds_dict
+        dirs = {s: os.path.join(root, s) for s in TRAIN_CLI_STAGES}
+        common = (f"binary_data_dir={binary},video_id=syn,max_updates={TRAIN_CLI_STEPS},val_check_interval=6,"
+                  f"update_extra_interval={TRAIN_CLI_START},tb_log_interval=1")
+
+        def argv(stage):
+            cfg, extra = TRAIN_CLI_STAGES[stage]
+            if stage == "torso":
+                extra += f",head_model_dir={dirs['sr']}"
+            return ["--config", os.path.join(repo, cfg), "--exp_name", f"chip_smoke_{stage}",
+                    "--work_dir", dirs[stage], "--hparams", f"{common},{extra}"]
+
+        def stage(name):
+            out = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                                  "sys.exit(chip_smoke.train_cli_stage(sys.argv[1:]))", *argv(name)],
+                                 cwd=repo, capture_output=True, text=True, timeout=900)
+            check(out.returncode == 0, f"train_cli {name}: exit {out.returncode}\n{out.stdout[-3000:]}\n"
+                                       f"{out.stderr[-3000:]}")
+            with open(os.path.join(dirs[name], "chip_smoke_stage.json")) as f:
+                return json.load(f)
+
+        t0 = time.perf_counter()
+        res = {"head": stage("head")}
+        # the SR stage: the CLI module itself, SIGTERM once step TRAIN_CLI_START is logged
+        log_path = os.path.join(root, "sr_sigterm.log")  # a file: nothing reads a pipe while it runs
+        with open(log_path, "w") as log_file:
+            proc = subprocess.Popen([sys.executable, "-m", "genefaceplusplus_tpu_torch.training.run",
+                                     *argv("sr")], cwd=repo, stdout=log_file, stderr=subprocess.STDOUT)
+        try:
+            metrics_path = os.path.join(dirs["sr"], "metrics.jsonl")
+            deadline = time.time() + 900
+            while proc.poll() is None and time.time() < deadline:
+                if os.path.exists(metrics_path) and any(
+                        r.get("step", 0) >= TRAIN_CLI_START and "total_loss" in r for r in _stage_metrics(dirs["sr"])):
+                    break
+                time.sleep(0.05)
+            signalled = proc.poll() is None
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(log_path) as f:
+            log = f.read()
+        check(signalled and proc.returncode == 0 and "checkpoint saved, exiting" in log,
+              f"train_cli sr: SIGTERM run exit {proc.returncode}\n{log[-3000:]}")
+        preempted_at = int(re.findall(r"preempted at step (\d+)", log)[-1])
+        check(TRAIN_CLI_START <= preempted_at < TRAIN_CLI_STEPS, f"preempted at step {preempted_at}")
+        check([os.path.basename(p) for p in get_all_ckpts(dirs["sr"])] == [f"model_ckpt_steps_{preempted_at}.ckpt"],
+              "the preempted run's checkpoint")
+        res["sr"] = stage("sr")
+        res["torso"] = stage("torso")
+        wall = time.perf_counter() - t0
+
+        for name, r in res.items():
+            recs = _stage_metrics(dirs[name])
+            steps = [x for x in recs if "total_loss" in x]
+            check([x["step"] for x in steps] == list(range(1, TRAIN_CLI_STEPS + 1)),
+                  f"train_cli {name}: steps logged {[x['step'] for x in steps]}")
+            check(all(math.isfinite(v) for x in steps for k, v in x.items() if k.endswith("loss")),
+                  f"train_cli {name}: a loss is not finite")
+            keys = set().union(*steps)
+            check(TRAIN_CLI_METRICS[name] <= keys, f"train_cli {name}: metrics {sorted(keys)}")
+            check(any("val_psnr" in x for x in recs), f"train_cli {name}: no validation")
+            check(r["global_step"] == TRAIN_CLI_STEPS and r["ckpt_equal"],
+                  f"train_cli {name}: final step {r['global_step']}, checkpoint equals the live state "
+                  f"{r['ckpt_equal']}")
+            for p in get_all_ckpts(dirs[name]):
+                with open(p, "rb") as f:
+                    check(f.read(1)[0] in MSGPACK_MAP_FIRST_BYTES, f"{p} is not flax msgpack")
+        lip_steps = sum("lpips_loss" in x for x in _stage_metrics(dirs["head"]))
+        print(f"[train_cli] {TRAIN_CLI_FRAMES} frames of {SIZE}x{SIZE} with torso images; three stages through "
+              f"the training CLI, {TRAIN_CLI_STEPS} steps each, {wall:.1f} s of wall: every loss finite, each "
+              f"checkpoint flax msgpack and equal to the live state bit for bit; head: {lip_steps} lip steps "
+              f"from step {TRAIN_CLI_START + 1}; sr: SR and perceptual terms from step {TRAIN_CLI_START + 1}, "
+              f"SIGTERM after step {TRAIN_CLI_START}: checkpoint at step {preempted_at}, exit 0, resumed to "
+              f"step {TRAIN_CLI_STEPS}, every step logged once; torso: from the sr dir")
+        for name, r in res.items():
+            # this process's steps; the first includes one-time set-up; the
+            # head's lip steps (a 64^2 window of rays) apart from its full steps
+            first = TRAIN_CLI_STEPS - len(r["step_ms"]) + 1
+            lip = {x["step"] for x in _stage_metrics(dirs[name]) if "lpips_loss" in x} if name == "head" else set()
+            kinds = {"full": [ms for s, ms in enumerate(r["step_ms"], first) if s > first and s not in lip],
+                     "lip": [ms for s, ms in enumerate(r["step_ms"], first) if s > first and s in lip]}
+            print(f"[train_cli] {card_line()}; {name} ms/step (host wall, synchronised, steps {first + 1}.."
+                  f"{TRAIN_CLI_STEPS}): " + "; ".join(
+                      f"{k} steps median {statistics.median(v):.3f}, min {min(v):.3f}, max {max(v):.3f}, "
+                      f"n={len(v)}" for k, v in kinds.items() if v)
+                  + f"; step {first} (set-up) {r['step_ms'][0]:.3f} ms; peak allocated {r['peak_gib']:.3f} GiB")
+
+        # serving from the trained dirs: the card, B1 counted; then the float32
+        # full frame against the CPU's
+        infer = GeneFaceInfer.from_work_dirs(torso_model_dir=dirs["torso"], device=dev)
+        ids = list(range(SERVE_TRAINED_FRAMES))
+        batch = infer.prepare_gt_batch(ids)
+        torch.cuda.synchronize()
+        ff.fused_field.launches = 0  # count only the main path's launches
+        t0 = time.perf_counter()
+        frames = list(infer.forward_secc2video(batch, {"frames_per_dispatch": SERVE_TRAINED_FRAMES}))
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        launches = ff.fused_field.launches
+        H = infer.dataset.H
+        check(len(frames) == SERVE_TRAINED_FRAMES and all(f.shape == (2 * H, 2 * H, 3) and f.dtype == np.uint8
+                                                          for f in frames), "frames from the trained dirs")
+        check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "frames do not vary")
+        check(launches == SERVE_TRAINED_FRAMES, f"fused_field launched {launches} times for "
+                                                f"{SERVE_TRAINED_FRAMES} frames")
+        cpu = GeneFaceInfer.from_work_dirs(torso_model_dir=dirs["torso"], device="cpu")
+        outs = {}
+        for inf in (cpu, infer):
+            d = inf.device
+            sr32 = Superresolution(3, inf.sr_model.block0.conv0.noise_const.shape[0]).to(d)  # float32
+            sr32.load_state_dict(inf.sr_model.state_dict())
+            with torch.no_grad():
+                ro, rd = pixel_rays(torch.as_tensor(batch["poses"][:1], device=d), inf.dataset.intrinsics, H, H)
+                win = get_audio_features_batch(torch.as_tensor(batch["cond"], device=d),
+                                               torch.arange(1, device=d), inf.head_cfg.smo_win_size)[0]
+                out = render_full_frame(
+                    inf.head_model, ro[0], rd[0], win, inf.occupancy, inf.bg_color, inf.render_options({}),
+                    (H, H), eye_area_percent=torch.as_tensor(batch["eye_area_percent"][:1], device=d),
+                    torso_model=inf.torso_model, bg_coords=inf.bg_coords,
+                    lm68=torch.as_tensor(batch["lm68"][:1], device=d), occupancy_2d=inf.torso_occupancy_2d,
+                    sr_model=sr32, torso_crop=inf.torso_crop)
+            outs[str(d)] = {k: getattr(out, k).cpu() for k in ("rgb_map", "torso_alpha", "sr_rgb_map")}
+        errs = {}
+        for k, ref in outs["cpu"].items():
+            e = (outs[str(infer.device)][k] - ref).abs()
+            errs[k] = (e.max().item(), e.mean().item())
+        print(f"[train_cli] served from the trained dirs (torso -> sr head): {SERVE_TRAINED_FRAMES} frames of "
+              f"{2 * H}x{2 * H} in {serve_ms:.1f} ms ({serve_ms / SERVE_TRAINED_FRAMES:.3f} ms a frame, first "
+              f"request, host wall), {launches} fused_field launches; float32 frame card vs CPU: "
+              + ", ".join(f"{k} max |d| {m:.3e} mean {a:.3e}" for k, (m, a) in errs.items())
+              + f" (frames <= {TRAINED_CARD_MAX}, {TRAINED_CARD_MEAN})")
+        for k in ("rgb_map", "sr_rgb_map"):
+            m, a = errs[k]
+            check(m <= TRAINED_CARD_MAX and a <= TRAINED_CARD_MEAN, f"trained dirs card vs CPU {k}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1319,15 +1579,18 @@ def main() -> int:
     audio_launches = phase_serve_audio(dev)
     cli_launches = phase_serve_cli(dev)
     train_fwd, train_chain, train_wgrad = phase_train(dev)
+    trained_launches = phase_train_cli(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
-          f"{audio_launches} audio-driven serving + {cli_launches} CLI and streaming + {train_fwd} training; "
-          f"fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training")
+          f"{audio_launches} audio-driven serving + {cli_launches} CLI and streaming + {train_fwd} training + "
+          f"{trained_launches} serving from CLI-trained dirs; fused_field_bwd_chain: {train_chain} training; "
+          f"fused_field_wgrad: {train_wgrad} training")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:156",
-        "launches": serve_launches + full_launches + audio_launches + cli_launches + train_fwd, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "launches": serve_launches + full_launches + audio_launches + cli_launches + train_fwd + trained_launches,
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {
         # B2: launches of its source's kernel (the chain); times of the whole backward

@@ -4,7 +4,8 @@ imports jax through `utils/rotation.py` and cv2 for images).
 Kept: the binarizer record format, ngp poses (the eval split's smoothed
 camera path included), the normalised landmark conditions, eye-area
 percents, the background, images from the record's in-memory `*_img`
-arrays, the torso-composited background, the convex-hull face mask (numpy,
+arrays (at the render size, or with `full_res` at the stored size: the SR
+task's 2x targets), the torso-composited background, the convex-hull face mask (numpy,
 no cv2), `synthetic()`, and `with_sr=True`: the SR models' half-resolution
 render size, with scaled intrinsics and the background and images resized
 bilinearly (`resize_bilinear`, where cv2.INTER_LINEAR samples). Images read
@@ -150,12 +151,17 @@ class RADNeRFDataset:
         win[~valid] = 0.0
         return win
 
-    def load_image(self, i: int, kind: str = "gt", with_alpha: bool = False) -> Optional[np.ndarray]:
+    def load_image(self, i: int, kind: str = "gt", with_alpha: bool = False,
+                   full_res: bool = False) -> Optional[np.ndarray]:
         """gt/head/torso image of frame i as float [H, W, 3] in [0, 1] (or
         [H, W, 4] with `with_alpha` when the stored image has alpha), from
         the record's `{kind}_img` array, quantised through uint8 exactly as
-        the JAX dataset's image cache does. None when the record has none."""
-        key = (i, kind)
+        the JAX dataset's image cache does. With `full_res` the image keeps
+        the record's stored size (ds['H'], ds['W']) instead of the render
+        size. None when the record has none."""
+        target_h = int(self.ds["H"]) if full_res else self.H
+        target_w = int(self.ds["W"]) if full_res else self.W
+        key = (i, kind, full_res)
         u8 = self._img_cache.get(key)
         if u8 is None:
             arr = self.samples[i].get(f"{kind}_img")
@@ -169,8 +175,8 @@ class RADNeRFDataset:
             img = np.asarray(arr, np.float32)
             if img.max() > 1.5:
                 img = img / 255.0
-            if img.shape[0] != self.H:
-                img = resize_bilinear(img, self.H, self.W)
+            if img.shape[0] != target_h:
+                img = resize_bilinear(img, target_h, target_w)
             u8 = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
             self._img_cache[key] = u8
         img = u8.astype(np.float32) / 255.0

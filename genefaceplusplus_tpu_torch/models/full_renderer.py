@@ -185,7 +185,8 @@ def render_full_frame(head_model: RADNeRF, rays_o, rays_d, cond_window, occupanc
                       torso_model: Optional[TorsoField] = None, bg_coords=None, lm68=None,
                       occupancy_2d=None, sr_model: Optional[Superresolution] = None,
                       torso_crop: Optional[tuple] = None, sr_crop: Optional[tuple] = None,
-                      sr_bg=None) -> FrameOutput:
+                      sr_bg=None, density_thresh_torso: Optional[float] = None,
+                      stop_head_gradient: bool = False) -> FrameOutput:
     """One frame: the head over [the torso over] `bg_color` [, then SR].
 
     With `field_weights` (from `fused_field.weights_from_params`) the field
@@ -196,50 +197,28 @@ def render_full_frame(head_model: RADNeRF, rays_o, rays_d, cond_window, occupanc
     covers the hit set). The offset is read to the host once per frame to
     slice the rays.
 
+    With `stop_head_gradient` the head renders without autograd (JAX's
+    stop_gradient on its image and weights: the torso task trains the
+    torso behind a frozen head); the torso and SR stay differentiable.
+
     `torso_model` needs `bg_coords` [H*W, 2] and `lm68` [1, 68, 2]; its
-    alpha is masked by `occupancy_2d` [G, G] where given (at the torso
-    config's `density_thresh_torso`), and with
+    alpha is masked by `occupancy_2d` [G, G] where given (at
+    `density_thresh_torso`, by default the torso config's), and with
     `torso_crop` (r0, c0, ch, cw) it runs on that static rect only
     (lossless: the mask is zero outside it). `sr_model` super-resolves the
     composite; with `sr_crop` and `sr_bg` (auto_sr_crop, the SR of the
     background) only the rect that changes is super-resolved."""
-    cfg = head_model.cfg
-    cond_feat = head_model.cal_cond_feat(cond_window, eye_area_percent)
-    ind_code = head_model.get_individual_code(index)
-    if field_weights is None:
-        def field_fn(xyz, dirs):
-            return head_model.field(xyz, dirs, cond_feat, ind_code)
-    else:
-        amb_bias, col_bias = ff.bias_rows(cond_feat, ind_code, field_weights)
-
-        def field_fn(xyz, dirs):
-            return fused_fn(xyz, dirs, amb_bias, col_bias, field_weights,
-                            amb_dim=cfg.ambient_coord_dim)
-
     H, W = image_hw
-    crop_fits = None
-    if head_crop is not None and tuple(head_crop) != (H, W):
-        ch, cw = head_crop
-        occ_box = occupancy_aabb(occupancy, cfg.bound)
-        r0, c0, crop_fits = head_crop_offset(rays_o, rays_d, occ_box, image_hw, head_crop, cfg.min_near)
-        r0, c0 = int(r0), int(c0)  # host sync: the slice needs the offset
-        ro_c = rays_o.reshape(H, W, 3)[r0:r0 + ch, c0:c0 + cw].reshape(-1, 3)
-        rd_c = rays_d.reshape(H, W, 3)[r0:r0 + ch, c0:c0 + cw].reshape(-1, 3)
-        out = render_rays(field_fn, ro_c, rd_c, occupancy, bound=cfg.bound,
-                          min_near=cfg.min_near, bg_color=0.0, opts=opts, image_hw=(ch, cw))
-        head_image = _paste(out.head_image, (H, W), (r0, c0, ch, cw))
-        weights_sum = _paste(out.weights_sum[:, None], (H, W), (r0, c0, ch, cw))[:, 0]
-        depth_map = _paste(out.depth_map[:, None], (H, W), (r0, c0, ch, cw))[:, 0]
-    else:
-        out = render_rays(field_fn, rays_o, rays_d, occupancy, bound=cfg.bound,
-                          min_near=cfg.min_near, bg_color=0.0, opts=opts, image_hw=image_hw)
-        head_image, weights_sum, depth_map = out.head_image, out.weights_sum, out.depth_map
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_head_gradient):
+        head_image, weights_sum, depth_map, crop_fits = _render_head(
+            head_model, rays_o, rays_d, cond_window, occupancy, opts, image_hw, eye_area_percent,
+            index, head_crop, field_weights, fused_fn)
 
     torso_alpha = torso_rgb = None
     if torso_model is not None:
         if bg_coords is None:
             raise ValueError("the torso needs bg_coords")
-        thr = torso_model.cfg.density_thresh_torso
+        thr = torso_model.cfg.density_thresh_torso if density_thresh_torso is None else density_thresh_torso
         aware = torso_model.cfg.torso_head_aware
         t_ind = torso_model.get_individual_code(index)
         if torso_crop is not None and occupancy_2d is not None and tuple(torso_crop[2:]) != (H, W):
@@ -274,6 +253,45 @@ def render_full_frame(head_model: RADNeRF, rays_o, rays_d, cond_window, occupanc
     return FrameOutput(rgb_map=image, sr_rgb_map=sr_image, depth_map=depth_map,
                        weights_sum=weights_sum, torso_alpha=torso_alpha, torso_rgb=torso_rgb,
                        head_crop_fits=crop_fits)
+
+
+def _render_head(head_model: RADNeRF, rays_o, rays_d, cond_window, occupancy, opts: RenderOptions,
+                 image_hw: tuple, eye_area_percent, index, head_crop, field_weights, fused_fn):
+    """(head image, weights sum, depth, crop fits) of `render_full_frame`'s
+    head stage, over a zero background."""
+    cfg = head_model.cfg
+    cond_feat = head_model.cal_cond_feat(cond_window, eye_area_percent)
+    ind_code = head_model.get_individual_code(index)
+    if field_weights is None:
+        def field_fn(xyz, dirs):
+            return head_model.field(xyz, dirs, cond_feat, ind_code)
+    else:
+        amb_bias, col_bias = ff.bias_rows(cond_feat, ind_code, field_weights)
+
+        def field_fn(xyz, dirs):
+            return fused_fn(xyz, dirs, amb_bias, col_bias, field_weights,
+                            amb_dim=cfg.ambient_coord_dim)
+
+    H, W = image_hw
+    crop_fits = None
+    if head_crop is not None and tuple(head_crop) != (H, W):
+        ch, cw = head_crop
+        occ_box = occupancy_aabb(occupancy, cfg.bound)
+        r0, c0, crop_fits = head_crop_offset(rays_o, rays_d, occ_box, image_hw, head_crop, cfg.min_near)
+        r0, c0 = int(r0), int(c0)  # host sync: the slice needs the offset
+        ro_c = rays_o.reshape(H, W, 3)[r0:r0 + ch, c0:c0 + cw].reshape(-1, 3)
+        rd_c = rays_d.reshape(H, W, 3)[r0:r0 + ch, c0:c0 + cw].reshape(-1, 3)
+        out = render_rays(field_fn, ro_c, rd_c, occupancy, bound=cfg.bound,
+                          min_near=cfg.min_near, bg_color=0.0, opts=opts, image_hw=(ch, cw))
+        head_image = _paste(out.head_image, (H, W), (r0, c0, ch, cw))
+        weights_sum = _paste(out.weights_sum[:, None], (H, W), (r0, c0, ch, cw))[:, 0]
+        depth_map = _paste(out.depth_map[:, None], (H, W), (r0, c0, ch, cw))[:, 0]
+    else:
+        out = render_rays(field_fn, rays_o, rays_d, occupancy, bound=cfg.bound,
+                          min_near=cfg.min_near, bg_color=0.0, opts=opts, image_hw=image_hw)
+        head_image, weights_sum, depth_map = out.head_image, out.weights_sum, out.depth_map
+
+    return head_image, weights_sum, depth_map, crop_fits
 
 
 def _paste(a, image_hw: tuple, rect: tuple):

@@ -1,5 +1,5 @@
 """Density-grid maintenance (port of `grid_cell_centers`,
-`update_density_grid` and `mark_untrained_grid` in
+`update_density_grid`, `mark_untrained_grid` and `update_torso_grid` in
 `genefaceplusplus_tpu/training/grid_updater.py`):
 
   * every update_extra_interval steps: sigma at jittered cell centres with
@@ -8,6 +8,8 @@
     min(mean_density, density_thresh) -> occupancy
   * mark_untrained_grid: cells no training camera sees get -1 (never
     occupied)
+  * update_torso_grid: the torso's 2D alpha grid, alpha at jittered cell
+    centres, 5x5 max-pool dilation, EMA max
 
 Grids are spatial [H, H, H] tensors; the sigma sweep runs in chunks to
 bound memory.
@@ -19,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from genefaceplusplus_tpu_torch.ops.morton import dilate6
 
@@ -79,3 +82,25 @@ def mark_untrained_grid(density_grid: torch.Tensor, poses: np.ndarray, intrinsic
         seen.append((mask_z & mask_x & mask_y).any(dim=0))
     seen = torch.cat(seen).reshape(H, H, H)
     return torch.where(seen, density_grid, torch.full_like(density_grid, -1.0))
+
+
+def update_torso_grid(alpha_fn, grid2d: torch.Tensor, generator: Optional[torch.Generator] = None,
+                      decay: float = 0.95, jitter: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Torso 2D alpha-grid refresh. alpha_fn: [N, 2] -> alpha [N]. The cell
+    jitter is uniform in [-1/H, 1/H) from `generator`, or given as `jitter`
+    [H^2, 2]. Returns (new grid [H, H], its mean)."""
+    H = grid2d.shape[0]
+    dev = grid2d.device
+    lin = 2.0 * torch.arange(H, dtype=torch.float32, device=dev) / (H - 1) - 1.0
+    x, y = torch.meshgrid(lin, lin, indexing="ij")
+    pts = torch.stack([x.reshape(-1), y.reshape(-1)], dim=-1)
+    half = 1.0 / H
+    if jitter is None:
+        jitter = (torch.rand(pts.shape, generator=generator, device=dev) * 2.0 - 1.0) * half
+    pts = pts * (1 - half) + jitter
+    with torch.no_grad():
+        alphas = alpha_fn(pts).reshape(H, H).float()
+    dil = F.max_pool2d(alphas[None, None], 5, stride=1, padding=2)[0, 0]  # 5x5 'SAME'
+    new_grid = torch.maximum(grid2d * decay, dil)
+    return new_grid, torch.mean(new_grid)

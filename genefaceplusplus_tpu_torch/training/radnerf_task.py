@@ -11,13 +11,14 @@ folding.
 PyTorch idiom: the `TrainState` holds the module, its optimizer and a
 `torch.Generator` for the ray noise, and `train_step` updates them in
 place (the JAX step returns a new state; this one returns the same
-object).
+object). `training/trainer.py` writes it as JAX's `TrainState` (fields
+params, opt_state, global_step, lambda_ambient, rng).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import ClassVar, Dict, Optional, Tuple
 
 import torch
 
@@ -30,11 +31,12 @@ from genefaceplusplus_tpu_torch.training.schedulers import RADNeRFAdam, grad_nor
 
 @dataclasses.dataclass
 class TrainState:
-    model: RADNeRF
+    model: torch.nn.Module  # RADNeRF; for the SR task a ModuleDict {'head', 'sr'}
     opt: RADNeRFAdam
     global_step: int
     lambda_ambient: torch.Tensor  # f32 scalar (adaptive controller)
     generator: torch.Generator  # ray noise
+    params_key: ClassVar[str] = "params"  # the JAX state's field of the variables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,7 +119,7 @@ def make_train_step(opts: RenderOptions, hp: TaskHParams = TaskHParams(),
                                       remat_field)
         total.backward()
         named = [(n, p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in state.model.named_parameters()]
+                 for n, p in state.opt.named]
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(grad_norms_by_group(named))
         state.opt.step()

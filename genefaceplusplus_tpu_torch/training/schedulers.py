@@ -7,15 +7,28 @@ one parameter group per label: net x1, grid x10 (the Fourier `B`s), att x5.
 Before each step every group's lr is set to schedule(count) * its
 multiplier, where count is the number of steps taken so far, as optax's
 `scale_by_schedule` does under `multi_transform`. A parameter without a
-gradient steps with a zero gradient, as optax's Adam does.
+gradient steps with a zero gradient, as optax's Adam does. Like optax over
+JAX's whole variables tree, it also steps a model's floating-point buffers
+(the SR's `noise_const`, in flax's `buffers` collection), which it makes
+require gradients.
+
+`export_optax` / `load_optax` carry the state in optax's layout, as flax
+serialises `make_radnerf_optimizer`'s `multi_transform` state:
+{'inner_states': {label: {'inner_state': {'0': {'count', 'mu', 'nu'},
+'1': {'count'}}}}} (`scale_by_adam`, then `scale_by_schedule`), where `mu`
+and `nu` are the variables tree with every tensor of another label an
+empty dict (optax's `MaskedNode`), and every count is the number of steps.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
 
+import numpy as np
 import torch
+
+from genefaceplusplus_tpu_torch.utils.convert_jax import export_flax_tree, flax_tree_leaves
 
 GROUP_MULT = {"net": 1.0, "grid": 10.0, "att": 5.0}
 
@@ -55,14 +68,20 @@ def grad_norms_by_group(named_grads: Iterable[Tuple[str, torch.Tensor]],
 
 
 class RADNeRFAdam:
-    """Adam over a module's parameters in the RAD-NeRF groups."""
+    """Adam over a module's parameters and float buffers in the RAD-NeRF
+    groups."""
 
     def __init__(self, model: torch.nn.Module, lr: float = 5e-4, warmup_updates: int = 0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15):
+        self.model = model
+        buffers = [(k, b) for k, b in model.named_buffers() if b.is_floating_point()]
+        for _, b in buffers:
+            b.requires_grad_(True)
+        self.named = list(model.named_parameters()) + buffers
+        self.params = [p for _, p in self.named]
         groups: Dict[str, list] = {k: [] for k in GROUP_MULT}
-        for name, p in model.named_parameters():
+        for name, p in self.named:
             groups[_radnerf_group(name)].append(p)
-        self.params = [p for _, p in model.named_parameters()]
         self.sched = exponential_schedule(lr, warmup_updates)
         self.opt = torch.optim.Adam(
             [{"params": ps, "mult": GROUP_MULT[k], "label": k} for k, ps in groups.items() if ps],
@@ -89,6 +108,48 @@ class RADNeRFAdam:
     def load_state_dict(self, d):
         self.opt.load_state_dict(d["opt"])
         self.count = int(d["count"])
+
+    def export_optax(self) -> Dict[str, Any]:
+        """The state as flax serialises optax's (module docstring)."""
+        moments = {}
+        for name, p in self.named:
+            st = self.opt.state.get(p, {})
+            moments[name] = (st.get("exp_avg", torch.zeros_like(p)), st.get("exp_avg_sq", torch.zeros_like(p)))
+        count = np.asarray(self.count, np.int32)
+        out = {}
+        for label in GROUP_MULT:
+            mu = {n: m[0] if _radnerf_group(n) == label else None for n, m in moments.items()}
+            nu = {n: m[1] if _radnerf_group(n) == label else None for n, m in moments.items()}
+            out[label] = {"inner_state": {
+                "0": {"count": count, "mu": export_flax_tree(self.model, mu),
+                      "nu": export_flax_tree(self.model, nu)},
+                "1": {"count": count}}}
+        return {"inner_states": out}
+
+    def load_optax(self, opt_state: Mapping[str, Any]):
+        """Restore moments and the step count from optax's layout; every
+        tensor must find its moments under its own label."""
+        counts = set()
+        for label in GROUP_MULT:
+            inner = opt_state["inner_states"][label]["inner_state"]
+            counts |= {int(inner["0"]["count"]), int(inner["1"]["count"])}
+            mu = flax_tree_leaves(inner["0"]["mu"], self.model)
+            nu = flax_tree_leaves(inner["0"]["nu"], self.model)
+            for name, p in self.named:
+                if _radnerf_group(name) != label:
+                    continue
+                if name not in mu or name not in nu or tuple(mu[name].shape) != tuple(p.shape):
+                    raise KeyError(f"optimizer state: no {label} moments of shape {tuple(p.shape)} "
+                                   f"for {name!r}")
+                self.opt.state[p] = {
+                    "exp_avg": torch.from_numpy(np.array(mu[name], np.float32)).to(p.device),
+                    "exp_avg_sq": torch.from_numpy(np.array(nu[name], np.float32)).to(p.device),
+                    "step": None}
+        if len(counts) != 1:
+            raise ValueError(f"optimizer state: the groups' step counts differ: {sorted(counts)}")
+        self.count = counts.pop()
+        for st in self.opt.state.values():
+            st["step"] = torch.tensor(float(self.count), dtype=torch.float32)
 
 
 def make_radnerf_optimizer(lr: float = 5e-4, warmup_updates: int = 0, b1: float = 0.9,

@@ -5,25 +5,31 @@ Random-frame random-ray batches (same numpy draws as the JAX task, so
 frame ids and ray indices match it draw for draw), gathered on the device
 from a resident frame store; losses mse + weights entropy + masked ambient
 with the adaptive lambda; density-grid refresh every update_extra_interval
-steps with a random condition; full-image validation with PSNR.
+steps with a random condition; full-image validation with PSNR, the
+renders saved as PNG. From `finetune_lips_start_iter` on (with
+`finetune_lips`), every other step is a lip step: the rays of a static
+window on the frame's lip rect, mse + the perceptual loss on the window,
+with the float32 field; the grid refresh pauses.
 
-Not ported (they raise NotImplementedError when they would run): the lip
-fine-tuning step, which needs the perceptual tower, and train-side
+Not ported (it raises NotImplementedError when it would run): train-side
 live-sample compaction (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from genefaceplusplus_tpu_torch.data import image_io
 from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, get_boundary_mask
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
 from genefaceplusplus_tpu_torch.models.renderer import RenderOptions, render_rays
 from genefaceplusplus_tpu_torch.training import frame_store
+from genefaceplusplus_tpu_torch.training import losses as L
 from genefaceplusplus_tpu_torch.training.grid_updater import mark_untrained_grid, update_density_grid
 from genefaceplusplus_tpu_torch.training.radnerf_task import (
     TaskHParams,
@@ -31,7 +37,10 @@ from genefaceplusplus_tpu_torch.training.radnerf_task import (
     create_train_state,
     make_train_step,
 )
+from genefaceplusplus_tpu_torch.training.perceptual import perceptual_from_task_config
 from genefaceplusplus_tpu_torch.training.schedulers import make_radnerf_optimizer
+from genefaceplusplus_tpu_torch.training.trainer import (
+    generator_state, numpy_rng_state, set_generator_state, set_numpy_rng_state)
 from genefaceplusplus_tpu_torch.utils.device import resolve_device
 from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
@@ -99,6 +108,8 @@ class HeadNeRFTask:
         self._host_step: Optional[int] = None
         self.np_rng = np.random.RandomState(seed)
         self.seed = seed
+        self._finetune_lip_flag = False
+        self.perceptual = None  # built with the first lip step
 
         H = model_cfg.grid_size
         self.density_grid = mark_untrained_grid(
@@ -119,6 +130,9 @@ class HeadNeRFTask:
         noise_gen = torch.Generator(device=self.device).manual_seed(self.seed)
         return create_train_state(model, self.tx, noise_gen, self.hp)
 
+    def _head(self, state: TrainState) -> RADNeRF:
+        return state.model
+
     def _face_mask(self, idx: int) -> np.ndarray:
         if idx not in self._face_masks:
             ds = self.dataset
@@ -134,6 +148,20 @@ class HeadNeRFTask:
                     mask[x0:x1, y0:y1] = True
             self._face_masks[idx] = mask
         return self._face_masks[idx]
+
+    def _lip_window_indices(self, idx: int) -> np.ndarray:
+        """Pixel indices of a static window centred on the frame's lip rect."""
+        ds = self.dataset
+        win = min(self.task_cfg.lip_window, ds.H, ds.W)
+        rect = ds.samples[idx].get("lip_rect", [0, ds.H, 0, ds.W])
+        sc = ds.H / int(ds.ds["H"])
+        cy = int((rect[0] + rect[1]) / 2 * sc)
+        cx = int((rect[2] + rect[3]) / 2 * sc)
+        y0 = int(np.clip(cy - win // 2, 0, ds.H - win))
+        x0 = int(np.clip(cx - win // 2, 0, ds.W - win))
+        rows = np.arange(y0, y0 + win)
+        cols = np.arange(x0, x0 + win)
+        return (rows[:, None] * ds.W + cols[None, :]).reshape(-1)
 
     def _device_frames(self) -> Dict[str, torch.Tensor]:
         """Device-resident per-frame store (gt/bg/mask/pose/cond), uint8
@@ -180,20 +208,24 @@ class HeadNeRFTask:
         return self.task_cfg.finetune_lips and gs > self.task_cfg.finetune_lips_start_iter
 
     def sample_train_batch(self, global_step=None) -> Dict:
-        """A frame index and ray indices, drawn with the JAX task's numpy
+        """A frame index and ray indices (past `finetune_lips_start_iter`,
+        every other batch the lip window's), drawn with the JAX task's numpy
         calls in its order; the rest is gathered on the device."""
         if global_step is not None:
             self._host_step = int(global_step)
         gs = self._host_step or 0
-        if self._lip_active(gs):
-            raise NotImplementedError("lip fine-tuning (finetune_lips past "
-                                      "finetune_lips_start_iter) needs the perceptual tower, "
-                                      "which is not ported (ROADMAP)")
         self._device_frames()
         ds = self.dataset
         idx = int(self.np_rng.randint(len(ds)))
-        inds = self.np_rng.randint(0, ds.H * ds.W, size=self.task_cfg.n_rays)
-        return {"frame_idx": idx, "inds": inds.astype(np.int32)}
+        lip_active = self._lip_active(gs)
+        if lip_active:  # alternate lip-window and full-image iterations
+            self._finetune_lip_flag = not self._finetune_lip_flag
+        is_lip = lip_active and self._finetune_lip_flag
+        if is_lip:
+            inds = self._lip_window_indices(idx)
+        else:
+            inds = self.np_rng.randint(0, ds.H * ds.W, size=self.task_cfg.n_rays)
+        return {"frame_idx": idx, "inds": inds.astype(np.int32), "_is_lip": is_lip}
 
     def train_step(self, state: TrainState, batch, noise: Optional[torch.Tensor] = None):
         if self._host_step is None:
@@ -202,9 +234,41 @@ class HeadNeRFTask:
         idx = torch.tensor(batch["frame_idx"], dtype=torch.int64, device=self.device)
         inds = torch.as_tensor(batch["inds"], device=self.device).long()
         gathered = self._make_ray_gather()(frames, idx, inds)
-        state, metrics = self._train_step(state, gathered, self.occupancy, noise)
+        if batch.get("_is_lip", False):
+            state, metrics = self._lip_step(state, gathered, noise)
+        else:
+            state, metrics = self._train_step(state, gathered, self.occupancy, noise)
         metrics.update(self.grid_telemetry)
         self._host_step += 1
+        return state, metrics
+
+    def _lip_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                  noise: Optional[torch.Tensor] = None):
+        """One lip-window step: mse + lambda_lpips * perceptual on the [win,
+        win] crop, through the float32 field; lambda_ambient is kept.
+        `noise` overrides the draw from `state.generator`."""
+        if self.perceptual is None:
+            self.perceptual = perceptual_from_task_config(self.task_cfg, self.device)
+        model, cfg = state.model, self.cfg
+        win = min(self.task_cfg.lip_window, self.dataset.H, self.dataset.W)
+        if noise is None and self.opts.perturb:
+            noise = torch.rand(batch["rays_o"].shape[:1], generator=state.generator,
+                               device=self.device)
+        state.opt.zero_grad()
+        cond_feat = model.cal_cond_feat(batch["cond"], batch.get("eye_area_percent"))
+        ind = model.get_individual_code(batch["idx"])
+        out = render_rays(lambda x, d: model.field(x, d, cond_feat, ind), batch["rays_o"],
+                          batch["rays_d"], self.occupancy, bound=cfg.bound, min_near=cfg.min_near,
+                          bg_color=batch["bg_color"], opts=self.opts, noise=noise)
+        mse = L.mse_loss(out.rgb_map, batch["gt_rgb"])
+        lp = self.perceptual(out.rgb_map.reshape(1, win, win, 3), batch["gt_rgb"].reshape(1, win, win, 3))
+        total = mse + self.task_cfg.lambda_lpips * lp
+        total.backward()
+        state.opt.step()
+        state.global_step += 1
+        metrics = {"mse_loss": mse, "lpips_loss": lp, "head_psnr": L.mse2psnr(mse), "total_loss": total}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["lambda_ambient"] = state.lambda_ambient
         return state, metrics
 
     def update_extra_state(self, state: TrainState):
@@ -215,7 +279,7 @@ class HeadNeRFTask:
         ds = self.dataset
         idx = int(self.np_rng.randint(len(ds)))
         cond = torch.from_numpy(ds.frame_cond_window(idx)).to(self.device)
-        model, cfg = state.model, self.cfg
+        model, cfg = self._head(state), self.cfg
         with torch.no_grad():
             cond_feat = model.cal_cond_feat(cond)
             self.density_grid, self.occupancy, mean_d = update_density_grid(
@@ -233,11 +297,11 @@ class HeadNeRFTask:
                  ray_chunk: int = 65536) -> Dict[str, float]:
         """Full-image renders of val frames (the f32 model field, no
         perturbation) -> PSNR. Frames render in chunks of `ray_chunk` rays
-        to bound memory; the result does not depend on the chunking.
-        `save_dir` is accepted for the JAX signature; writing the renders
-        needs an image encoder and is not ported."""
+        to bound memory; the result does not depend on the chunking. With
+        `save_dir` each render is written to
+        <save_dir>/validation_results/val_<step>_<i>.png."""
         ds_val = self.val_dataset if self.val_dataset is not None else self.dataset
-        model, cfg = state.model, self.cfg
+        model, cfg = self._head(state), self.cfg
         v_opts = dataclasses.replace(self.opts, perturb=False)
         dev = self.device
         psnrs = []
@@ -261,6 +325,11 @@ class HeadNeRFTask:
                                       bg_color=bg[s:s + ray_chunk], opts=v_opts)
                     parts.append(out.rgb_map)
                 rgb = torch.cat(parts)
+                if save_dir:
+                    vdir = os.path.join(save_dir, "validation_results")
+                    os.makedirs(vdir, exist_ok=True)
+                    image_io.write_png(os.path.join(vdir, f"val_{int(state.global_step)}_{i}.png"),
+                                       image_io.to_u8(rgb.reshape(ds_val.H, ds_val.W, 3).cpu().numpy()))
                 gt = ds_val.load_image(i, "gt")
                 if gt is None:
                     continue
@@ -273,6 +342,21 @@ class HeadNeRFTask:
 
     def load_extra_state(self, d):
         if "density_grid" in d:
-            self.density_grid = torch.as_tensor(d["density_grid"], device=self.device).float()
+            self.density_grid = torch.as_tensor(np.array(d["density_grid"]), device=self.device).float()
         if "occupancy" in d:
-            self.occupancy = torch.as_tensor(d["occupancy"], device=self.device).bool()
+            self.occupancy = torch.as_tensor(np.array(d["occupancy"]), device=self.device).bool()
+
+    def host_state(self) -> Dict:
+        """The task's draws and host-side state, for an exact resume
+        (`Trainer.save`)."""
+        return {"np_rng": numpy_rng_state(self.np_rng), "grid": generator_state(self._grid_gen),
+                "lip_flag": np.asarray(self._finetune_lip_flag),
+                "mean_density": np.asarray(self.mean_density, np.float64),
+                "grid_telemetry": {k: np.asarray(v, np.float64) for k, v in self.grid_telemetry.items()}}
+
+    def load_host_state(self, d: Dict):
+        set_numpy_rng_state(self.np_rng, d["np_rng"])
+        set_generator_state(self._grid_gen, d["grid"])
+        self._finetune_lip_flag = bool(d["lip_flag"])
+        self.mean_density = float(d["mean_density"])
+        self.grid_telemetry = {k: float(v) for k, v in d["grid_telemetry"].items()}

@@ -1,7 +1,8 @@
 """Checkpoint store: step-stamped, atomic files (port of
 `genefaceplusplus_tpu/utils/ckpt.py`: `checkpoint_path`, `get_all_ckpts`,
-`get_last_checkpoint`, `load_ckpt_file`, `save_checkpoint`, `restore_into`,
-with the same naming and retention).
+`get_last_checkpoint`, `load_ckpt_file`, `save_checkpoint` (as
+`save_flax_checkpoint`), `restore_into`, with the same naming and
+retention).
 
 `model_ckpt_steps_{N}.ckpt` holds one of two formats, told apart by the
 file's first byte:
@@ -9,8 +10,8 @@ file's first byte:
 - flax msgpack (a msgpack map), the JAX package's work dirs: read by
   `utils/msgpack.py`, and written in JAX's layout by
   `save_flax_checkpoint`, with the work dir's `config.yaml`;
-- `torch.save` (a zip archive, `PK`), the port's trainer: `save_checkpoint`
-  writes a dict of torch state dicts and `config.json` beside it.
+- `torch.save` (a zip archive, `PK`), read only: the port's trainer wrote
+  a dict of torch state dicts before it wrote JAX's layout.
 
 Writes are atomic (`.part`, then `os.replace`). Retention keeps the newest
 `num_ckpt_keep` plus every `milestone_interval` milestone.
@@ -19,7 +20,6 @@ Writes are atomic (`.part`, then `os.replace`). Retention keeps the newest
 from __future__ import annotations
 
 import glob
-import json
 import os
 import re
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -69,33 +69,6 @@ def get_last_checkpoint(work_dir: str, steps: Optional[int] = None, map_location
     return load_ckpt_file(paths[0], map_location=map_location), paths[0]
 
 
-def _write_atomic(work_dir: str, step: int, write, num_ckpt_keep: int, milestone_interval: int) -> str:
-    path = checkpoint_path(work_dir, step)
-    tmp = path + ".part"
-    write(tmp)
-    os.replace(tmp, path)
-    for old in get_all_ckpts(work_dir)[num_ckpt_keep:]:
-        old_step = int(re.findall(r"steps_(\d+)\.ckpt", old)[0])
-        if milestone_interval and old_step % milestone_interval == 0:
-            continue
-        os.remove(old)
-    return path
-
-
-def save_checkpoint(work_dir: str, step: int, state: Dict[str, Any], config=None,
-                    num_ckpt_keep: int = 1, milestone_interval: int = 100_000) -> str:
-    """Atomically write a step-stamped `torch.save` checkpoint, then apply
-    retention."""
-    os.makedirs(work_dir, exist_ok=True)
-    if config is not None:
-        with open(os.path.join(work_dir, "config.json"), "w") as f:
-            json.dump(config, f, indent=1, sort_keys=True, default=str)
-    payload = dict(state)
-    payload["global_step"] = step
-    return _write_atomic(work_dir, step, lambda tmp: torch.save(payload, tmp), num_ckpt_keep,
-                         milestone_interval)
-
-
 def _to_numpy(tree):
     """Every leaf as an array, as JAX's `save_checkpoint` maps them (Python
     scalars become 0-d arrays; bfloat16 tensors stay tensors)."""
@@ -122,12 +95,16 @@ def save_flax_checkpoint(work_dir: str, step: int, state: Dict[str, Any], config
     payload = dict(state)
     payload["global_step"] = step
     blob = msgpack.packb(_to_numpy(payload))
-
-    def write(tmp):
-        with open(tmp, "wb") as f:
-            f.write(blob)
-
-    return _write_atomic(work_dir, step, write, num_ckpt_keep, milestone_interval)
+    path = checkpoint_path(work_dir, step)
+    with open(path + ".part", "wb") as f:
+        f.write(blob)
+    os.replace(path + ".part", path)
+    for old in get_all_ckpts(work_dir)[num_ckpt_keep:]:
+        old_step = int(re.findall(r"steps_(\d+)\.ckpt", old)[0])
+        if milestone_interval and old_step % milestone_interval == 0:
+            continue
+        os.remove(old)
+    return path
 
 
 def restore_into(template: Mapping[str, torch.Tensor],

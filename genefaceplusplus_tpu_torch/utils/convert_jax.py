@@ -2,8 +2,9 @@
 port's `state_dict`.
 
 flax `Dense` kernels `[in, out]` become `Linear` weights `[out, in]`; flax
-`Conv` kernels `[k, in, out]` become `Conv1d` weights `[out, in, k]`;
-`Embed.embedding` becomes `Embedding.weight`. The super-resolution's own
+`Conv` kernels `[k, in, out]` become `Conv1d` weights `[out, in, k]`, and
+2-D ones `[kh, kw, in, out]` `Conv2d` weights `[out, in, kh, kw]` (the
+perceptual towers); `Embed.embedding` becomes `Embedding.weight`. The super-resolution's own
 leaves named `weight` keep their layout when 2-D (`FullyConnectedLayer`,
 already `[out, in]`) and go from HWIO `[kh, kw, in, out]` to OIHW when 4-D;
 its scalar `noise_strength` and its `buffers` collection (`noise_const`)
@@ -25,6 +26,9 @@ so a port optimizer can start from them (`TrainState.model.load_state_dict`).
 trainer's payload), and `export_flax_params` is the inverse of
 `convert_flax_params`: a port model's tensors as the JAX variables tree,
 told apart by the port module that holds each tensor (no flax needed).
+`export_flax_tree` / `load_flax_tree` / `flax_tree_leaves` do the same for
+a `ModuleDict` of models, one variables tree per entry (the SR task's
+`{'head': ..., 'sr': ...}`).
 """
 
 from __future__ import annotations
@@ -73,6 +77,8 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
             return at("weight"), arr.T
         if arr.ndim == 3:
             return at("weight"), arr.transpose(2, 1, 0)
+        if arr.ndim == 4:
+            return at("weight"), arr.transpose(3, 2, 0, 1)
         raise ValueError(f"{'/'.join(path)}: unexpected kernel rank {arr.ndim}")
     if name == "weight" and arr.ndim == 4:
         return at("weight"), arr.transpose(3, 2, 0, 1)
@@ -172,30 +178,41 @@ def _flax_path(module_path: str) -> list:
     return out
 
 
-def export_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
+def export_flax_params(model: torch.nn.Module,
+                       values: Optional[Mapping[str, Optional[torch.Tensor]]] = None) -> Dict[str, Any]:
     """The JAX variables tree of `model`'s tensors (the inverse of
     `convert_flax_params`): {'params': ...[, 'buffers': ...][,
     'batch_stats': ...]} of float32 numpy arrays. `Linear` weights go back
     to `Dense` kernels [in, out]; `Conv1d` weights to `Conv` kernels [k, in,
-    out]; `ConvTranspose1d` weights to unflipped `ConvTranspose` kernels;
-    `Embedding` weights to `embedding`; BatchNorm's weight and bias to
-    `scale` and `bias` and its running statistics to `batch_stats`; other
-    modules' `weight` keeps its name (4-D ones go from OIHW to HWIO); other
-    buffers land in `buffers`. BatchNorm's `num_batches_tracked` has no flax
-    leaf."""
+    out] and `Conv2d` weights to [kh, kw, in, out]; `ConvTranspose1d`
+    weights to unflipped `ConvTranspose` kernels; `Embedding` weights to
+    `embedding`; BatchNorm's weight and bias to `scale` and `bias` and its
+    running statistics to `batch_stats`; other modules' `weight` keeps its
+    name (4-D ones go from OIHW to HWIO); other buffers land in `buffers`.
+    BatchNorm's `num_batches_tracked` has no flax leaf.
+
+    `values` ({state-dict key: tensor}) replaces the model's tensors of
+    those keys, in their layout (an optimizer's moments); a None value
+    writes an empty dict, as flax serialises optax's `MaskedNode`."""
     tree: Dict[str, Any] = {}
 
-    def put(col: str, path, leaf: str, arr: torch.Tensor):
+    def put(col: str, path, leaf: str, arr: Optional[torch.Tensor]):
         node = tree.setdefault(col, {})
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = np.array(arr.detach().cpu().float().numpy(), dtype=np.float32)
+        node[leaf] = {} if arr is None else np.array(arr.detach().cpu().float().numpy(), dtype=np.float32)
 
     params = dict(model.named_parameters())
     for key, t in model.state_dict().items():
+        if values is not None and key in values:
+            t = values[key]
         mod_path, _, name = key.rpartition(".")
         module = model.get_submodule(mod_path) if mod_path else model
         path = _flax_path(mod_path)
+
+        def layout(fn):
+            return None if t is None else fn(t)
+
         if isinstance(module, torch.nn.modules.batchnorm._BatchNorm):
             if name == "num_batches_tracked":
                 continue
@@ -204,15 +221,57 @@ def export_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
         elif key not in params:
             put("buffers", path, name, t)
         elif name == "weight" and isinstance(module, torch.nn.Linear):
-            put("params", path, "kernel", t.t())
+            put("params", path, "kernel", layout(lambda w: w.t()))
         elif name == "weight" and isinstance(module, torch.nn.ConvTranspose1d):
-            put("params", path, "kernel", t.flip(-1).permute(2, 0, 1))
+            put("params", path, "kernel", layout(lambda w: w.flip(-1).permute(2, 0, 1)))
         elif name == "weight" and isinstance(module, torch.nn.Conv1d):
-            put("params", path, "kernel", t.permute(2, 1, 0))
+            put("params", path, "kernel", layout(lambda w: w.permute(2, 1, 0)))
+        elif name == "weight" and isinstance(module, torch.nn.Conv2d):
+            put("params", path, "kernel", layout(lambda w: w.permute(2, 3, 1, 0)))
         elif name == "weight" and isinstance(module, torch.nn.Embedding):
             put("params", path, "embedding", t)
-        elif name == "weight" and t.dim() == 4:
-            put("params", path, "weight", t.permute(2, 3, 1, 0))
+        elif name == "weight" and params[key].dim() == 4:
+            put("params", path, "weight", layout(lambda w: w.permute(2, 3, 1, 0)))
         else:
             put("params", path, name, t)
     return tree
+
+
+def _entries(model: torch.nn.Module):
+    """(prefix, model) pairs: a ModuleDict's entries, or the model itself."""
+    if isinstance(model, torch.nn.ModuleDict):
+        return [(f"{k}.", m) for k, m in model.items()]
+    return [("", model)]
+
+
+def export_flax_tree(model: torch.nn.Module,
+                     values: Optional[Mapping[str, Optional[torch.Tensor]]] = None) -> Dict[str, Any]:
+    """`export_flax_params`, with a `ModuleDict` as {name: variables tree}
+    (`values` keyed by the ModuleDict's own state-dict names)."""
+    if not isinstance(model, torch.nn.ModuleDict):
+        return export_flax_params(model, values)
+    out = {}
+    for prefix, m in _entries(model):
+        sub = None if values is None else {k[len(prefix):]: v for k, v in values.items()
+                                           if k.startswith(prefix)}
+        out[prefix[:-1]] = export_flax_params(m, sub)
+    return out
+
+
+def flax_tree_leaves(tree: Mapping, model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """{state-dict key of `model`: array in the port's layout} of the leaves
+    a variables tree holds (for a `ModuleDict`, one tree per entry); empty
+    dicts (optax's masked leaves) hold none."""
+    out: Dict[str, np.ndarray] = {}
+    for prefix, _ in _entries(model):
+        sub = tree[prefix[:-1]] if prefix else tree
+        out.update({prefix + k: arr for k, (_, arr) in flax_leaves(sub).items()})
+    return out
+
+
+def load_flax_tree(model: torch.nn.Module, tree: Mapping):
+    """Load a variables tree (for a `ModuleDict`, one per entry) into
+    `model`, every leaf and every tensor accounted for
+    (`convert_flax_params`)."""
+    for prefix, m in _entries(model):
+        m.load_state_dict(convert_flax_params(tree[prefix[:-1]] if prefix else tree, m))

@@ -353,7 +353,8 @@ def test_port_reads_jax_checkpoints_and_jax_reads_the_ports(tmp_path):
 
 
 def test_torch_checkpoints_still_load_and_other_files_raise(tmp_path):
-    path = t_ckpt.save_checkpoint(str(tmp_path), 3, {"state_dict": {"w": torch.ones(2)}})
+    path = t_ckpt.checkpoint_path(str(tmp_path), 3)  # the port's trainer before it wrote JAX's layout
+    torch.save({"state_dict": {"w": torch.ones(2)}, "global_step": 3}, path)
     got = t_ckpt.load_ckpt_file(path)
     assert got["global_step"] == 3 and torch.equal(got["state_dict"]["w"], torch.ones(2))
     bad = tmp_path / "model_ckpt_steps_9.ckpt"

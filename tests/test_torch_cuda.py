@@ -2,8 +2,8 @@
 launch, count, mask the ragged tile and agree with their plain versions,
 and a fused train step on the card agrees with the CPU; the full frame
 (head + torso + float32 SR) on the card agrees with the CPU, and the
-float32 SR and the audio-to-motion model do so with cuDNN's TF32 flag
-on. Imports no jax, so it runs on a machine with the card and no JAX:
+float32 SR, the audio-to-motion model and the SR and torso training steps
+do so with cuDNN's TF32 flag on. Imports no jax, so it runs on a machine with the card and no JAX:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -590,3 +590,110 @@ def test_stream_resume_tail_is_exact_on_the_card(cuda_setup, tmp_path):
     assert len(full) > k and len(resumed) == len(full) - k
     for a, b in zip(resumed, full[k:]):
         np.testing.assert_array_equal(a, b)
+
+
+def _seeded_optax(tree, rs, moment=None):
+    """An optax-layout optimizer state (RADNeRFAdam.export_optax) with its
+    moments seeded (mu ~ N(0, 1e-3), nu ~ U(1e-4, 1e-3)) and every count
+    10: an update is then smooth in the gradient (Adam's first step from
+    zero moments is lr x sign(g))."""
+    if isinstance(tree, dict):
+        return {k: _seeded_optax(v, rs, k if k in ("mu", "nu") else moment) for k, v in tree.items()}
+    if moment is None:  # a step count
+        return np.asarray(10, np.int32)
+    if moment == "mu":
+        return np.asarray(rs.randn(*tree.shape) * 1e-3, np.float32)
+    return np.asarray(rs.uniform(1e-4, 1e-3, tree.shape), np.float32)
+
+
+def _step_on(task_fn, device, prepare, step_args):
+    task = task_fn(device)
+    state = task.create_state()
+    prepare(task, state)
+    state.opt.load_optax(_seeded_optax(state.opt.export_optax(), np.random.RandomState(3)))
+    state, metrics = task.train_step(state, *step_args(device))
+    params = {k: v.detach().float().cpu() for k, v in state.model.state_dict().items()}
+    return {k: float(v) for k, v in metrics.items()}, params
+
+
+def _card_vs_cpu(task_fn, prepare, step_args, keys, rtol, atol, what):
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default; the float32 convolutions clear it
+    m_c, p_c = _step_on(task_fn, "cpu", prepare, step_args)
+    m_g, p_g = _step_on(task_fn, dev, prepare, step_args)
+    assert torch.backends.cudnn.allow_tf32
+    for k in keys:
+        assert np.isfinite(m_g[k]) and m_c[k] > 0, k
+        np.testing.assert_allclose(m_g[k], m_c[k], rtol=rtol, err_msg=k)
+    worst = max(((p_g[k] - p_c[k]).abs().max().item(), k) for k in p_c)
+    print(f"[{what}] card vs cpu: losses {[(k, abs(m_g[k] - m_c[k]) / m_c[k]) for k in keys]}; "
+          f"updated params max |d| {worst[0]:.3e} ({worst[1]})")
+    assert worst[0] <= atol, worst
+
+
+def _identity(size, seed=0):
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+
+    d = synthetic(num_frames=8, H=size, W=size, seed=seed)
+    rs = np.random.RandomState(seed + 1)
+    for s in d["train_samples"] + d["val_samples"]:
+        t = rs.rand(size, size, 4).astype(np.float32)
+        t[..., 3] = t[..., 3] > 0.5
+        s["torso_img"] = t
+    return RADNeRFDataset(d, smo_win_size=3, with_sr=True)
+
+
+def _head_occupancy(grid):
+    lin = torch.linspace(-1, 1, grid)
+    xx, yy, zz = torch.meshgrid(lin, lin, lin, indexing="ij")
+    return (xx ** 2 + (2.2 * yy) ** 2 + (1.4 * zz) ** 2) < 0.3
+
+
+@pytest.mark.cuda
+def test_sr_step_on_card_matches_cpu(cuda_setup):
+    """One head + SR train step (float32 SR; every term on: SR mse, the
+    perceptual terms on the raw, SR and lip-crop frames) at the May SR
+    widths over a 128^2 identity (64^2 renders), card vs CPU from the same
+    weights, Adam state, occupancy and noise, with cuDNN's TF32 flag on:
+    losses rtol 1e-4 and updated parameters within 2e-5 (measured on an
+    H100: 9.3e-7 and 1.9e-6)."""
+    from genefaceplusplus_tpu_torch.models.radnerf import MAY_LM3D_RADNERF_SR
+    from genefaceplusplus_tpu_torch.training.tasks.sr_task import SRHeadNeRFTask, SRTaskConfig
+
+    assert cuda_setup  # skips without a card
+    ds = _identity(128)
+    cfg = RADNeRFConfig.from_hparams({**MAY_LM3D_RADNERF_SR, "grid_size": 32, "individual_embedding_num": 16})
+    tcfg = SRTaskConfig(n_rays=ds.H * ds.W, lpips_start_iters=0, lip_window=32, sr_dtype="float32")
+    noise = torch.rand(ds.H * ds.W, generator=torch.Generator().manual_seed(5))
+
+    def prepare(task, state):
+        task.occupancy = _head_occupancy(32).to(task.device)
+
+    _card_vs_cpu(lambda dev: SRHeadNeRFTask(ds, cfg, tcfg, seed=5, device=dev), prepare,
+                 lambda dev: ({"frame_idx": 2}, noise.to(dev)),
+                 ["mse_loss", "sr_mse_loss", "lpips_loss", "sr_lpips_loss", "sr_lip_lpips_loss", "total_loss"],
+                 1e-4, 2e-5, "sr step")
+
+
+@pytest.mark.cuda
+def test_torso_step_on_card_matches_cpu(cuda_setup):
+    """One torso train step at the May torso_sr widths over the frozen
+    (seeded) head at a 128^2 identity (64^2 frames), card vs CPU from the
+    same weights, Adam state and occupancy, with cuDNN's TF32 flag on:
+    losses rtol 1e-4, updated torso parameters within 2e-5 (measured on an
+    H100: 3.3e-6 and 4.3e-7)."""
+    from genefaceplusplus_tpu_torch.models.radnerf import MAY_LM3D_RADNERF_TORSO_SR
+    from genefaceplusplus_tpu_torch.training.tasks.torso_task import TorsoNeRFTask
+
+    assert cuda_setup  # skips without a card
+    ds = _identity(128, seed=2)
+    hp = {**MAY_LM3D_RADNERF_TORSO_SR, "grid_size": 32, "individual_embedding_num": 16,
+          "lambda_torso_deform": 0.01, "head_model_dir": ""}
+    cfg = RADNeRFConfig.from_hparams(hp)
+
+    def prepare(task, state):
+        task.occupancy = _head_occupancy(32).to(task.device)
+
+    _card_vs_cpu(lambda dev: TorsoNeRFTask(ds, cfg, hp, seed=5, device=dev), prepare,
+                 lambda dev: ({"frame_idx": 3},), ["mse_loss", "torso_entropy", "deform_reg", "total_loss"],
+                 1e-4, 2e-5, "torso step")

@@ -116,8 +116,9 @@ def test_gt_driven_frames_match_jax(pair):
 
 
 def test_port_imports_no_jax_yaml_or_cv2():
-    """Importing every module of the port, and running the CLI's --help,
-    loads none of jax, flax, yaml, msgpack, cv2, imageio or the JAX package."""
+    """Importing every module of the port, and running the inference and
+    training CLIs' --help, loads none of jax, flax, yaml, msgpack, cv2,
+    imageio or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import genefaceplusplus_tpu_torch as p\n"
@@ -132,14 +133,16 @@ def test_port_imports_no_jax_yaml_or_cv2():
         "       'models.audio2motion.wavenet', 'models.audio2motion.flow', 'models.audio2motion.fvae',\n"
         "       'models.audio2motion.vae_model', 'models.postnet.lle', 'data.face3d', 'data.landmarks',\n"
         "       'data.audio', 'utils.msgpack', 'utils.ckpt', 'config.config', 'config.yaml_io', 'data.video',\n"
-        "       'inference.metrics', 'inference.serving', 'inference.cli']\n"
+        "       'inference.metrics', 'inference.serving', 'inference.cli', 'training.run',\n"
+        "       'training.perceptual', 'training.tasks.sr_task', 'training.tasks.torso_task',\n"
+        "       'training.trainer', 'training.schedulers', 'data.image_io']\n"
         "assert all('genefaceplusplus_tpu_torch.' + m in sys.modules for m in new)\n"
         "print('modules', sum(k.startswith('genefaceplusplus_tpu_torch') for k in sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 44
+    assert int(out.stdout.split()[-1]) >= 49
     code = ("import runpy, sys\n"
             "sys.argv = ['cli', '--help']\n"
             "try:\n"
@@ -149,9 +152,12 @@ def test_port_imports_no_jax_yaml_or_cv2():
             "bad = [m for m in ('jax', 'flax', 'yaml', 'msgpack', 'cv2', 'imageio', 'genefaceplusplus_tpu')\n"
             "       if m in sys.modules]\n"
             "assert not bad, bad\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert "--drv_aud_features" in out.stdout and "--device" in out.stdout
+    for module, flags in (("inference.cli", ("--drv_aud_features", "--device")),
+                          ("training.run", ("--config", "--hparams", "--device"))):
+        run = code.replace("genefaceplusplus_tpu_torch.inference.cli", "genefaceplusplus_tpu_torch." + module)
+        out = subprocess.run([sys.executable, "-c", run], cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert all(f in out.stdout for f in flags), out.stdout
 
 
 @pytest.mark.parametrize("name,yaml_path", [

@@ -14,6 +14,7 @@ Tolerances:
   tail: exact."""
 
 import math
+import threading
 import time
 
 import flax
@@ -208,18 +209,25 @@ def test_stream_needs_features(pair):
 
 
 def test_pusher_slow_client_drops_oldest_never_blocks():
+    """The client holds its first frame until every push has returned, then
+    takes 20 ms a frame: all 100 pushes return while it has sent nothing,
+    so the producer is not paced by it (no clock involved; were a push to
+    wait for the client, the client's 60 s guard would release it and
+    frames would be sent before the last push returned)."""
     metrics = ServingMetrics()
     sent = []
+    release = threading.Event()
 
     def slow_send(item):
+        release.wait(timeout=60)
         time.sleep(0.02)
         sent.append(item)
 
     pusher = serving.FramePusher(slow_send, maxsize=4, metrics=metrics)
-    t0 = time.time()
     for i in range(100):
         pusher.push(i)
-    assert time.time() - t0 < 1.0  # the producer is not paced by a 20 ms a frame client
+    assert sent == []  # every push returned before the client sent a frame
+    release.set()
     pusher.close()
     assert pusher.sent == len(sent) and pusher.sent + pusher.dropped == 100 and pusher.dropped > 0
     assert sent == sorted(sent)
