@@ -69,6 +69,24 @@ Phases (any failure exits non-zero, and no result line is printed):
               stage; then GeneFaceInfer.from_work_dirs on the torso dir serves 8
               frames on the card (8 B1 launches) and its float32 frame is held
               to the CPU's
+  train_audio an identity's tracks (1,000 motion frames at 25 fps: seeded
+              HuBERT, a voiced f0 contour, exp and idexp_lm3d smooth in time)
+              as trainval_dataset.npy; the training CLI trains the a2m
+              (egs/datasets/May/audio2motion_vae.yaml, full width, 11,840,768
+              variables, batch 8 x 64 frames; SIGTERM after step 20, exit 0 with
+              a checkpoint, resumed) and then the postnet
+              (egs/datasets/May/postnet.yaml, batch 4), 60 steps each with
+              validation at 30 and 60, each in a process of its own with
+              cuDNN's TF32 flag at the process default; losses finite, checkpoints
+              flax msgpack equal to the live state bit for bit, every step logged
+              once; one a2m and one postnet step on the card vs the CPU from the
+              trained state with the TF32 flag on (losses 1e-5 relative, every
+              updated tensor 1e-5 of its largest entry); then 2 requests of 4 s
+              served from the trained a2m + postnet dirs with seeded head + SR
+              and torso dirs (one B1 launch a frame), request 1's condition
+              rerun on the CPU from the card's a2m output through the postnet;
+              timed (ms/step, peak memory, the postnet by CUDA events,
+              audio2secc with and without it, ms a frame)
 
 Output: the card's name and power limit first; one JSON line
 {"kernels": [...]} before the last; the last line is
@@ -479,20 +497,24 @@ def stage_split(infer, dev, batch, frames: int) -> dict:
     return {k: (statistics.median(v), min(v), max(v)) for k, v in times.items()}
 
 
-def profile_request(infer, batch) -> tuple:
-    """(device activities a frame, kernels a frame, device-busy ms a frame,
-    the ten kernels with the most device time [(name, launches a frame, ms a
-    frame)]) over one request under torch.profiler, busy being the union of
-    the device activities' spans; Nones when the profiler shows no device
-    activity."""
+def profile_device(run) -> tuple:
+    """(device activities a unit, kernels a unit, device-busy ms a unit, the
+    ten kernels with the most device time [(name, launches a unit, ms a
+    unit)]) over `run()` under torch.profiler, which returns the number of
+    units it did (frames, steps); busy is the union of the device
+    activities' spans. A `record_function` range (the optimizer's step) also
+    shows on the device's timeline, spanning its kernels and the gaps
+    between them: it is no activity of its own and is left out. Nones when
+    the profiler shows no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        frames = list(infer.forward_secc2video(batch, {"frames_per_dispatch": 8}))
+        n = run()
         torch.cuda.synchronize()
-    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False) and not e.name.startswith("Optimizer.")]
     if not dev_events:
         return None, None, None, []
     kernels = [e for e in dev_events if not e.name.lower().startswith(("memcpy", "memset"))]
@@ -505,7 +527,6 @@ def profile_request(infer, batch) -> tuple:
         else:
             cur_e = max(cur_e, e0)
     busy_us += cur_e - cur_s
-    n = len(frames)
     by_name = {}
     for e in kernels:
         c, t = by_name.get(e.name, (0, 0.0))
@@ -513,6 +534,11 @@ def profile_request(infer, batch) -> tuple:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     top = [(name[:70], c / n, t / 1e3 / n) for name, (c, t) in top]
     return len(dev_events) / n, len(kernels) / n, busy_us / 1e3 / n, top
+
+
+def profile_request(infer, batch) -> tuple:
+    """`profile_device` a frame over one request."""
+    return profile_device(lambda: len(list(infer.forward_secc2video(batch, {"frames_per_dispatch": 8}))))
 
 
 def phase_serve_full(dev):
@@ -1390,8 +1416,45 @@ def _stage_metrics(work_dir: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def phase_train_cli(dev):
+def run_until_sigterm(argv, work_dir: str, after_step: int, max_steps: int, log_path: str, what: str) -> int:
+    """The training CLI module itself in a process of its own, sent SIGTERM
+    once step `after_step` is logged: it must exit 0 with one checkpoint, at
+    the step it stopped at (returned)."""
     import signal
+
+    from genefaceplusplus_tpu_torch.utils.ckpt import get_all_ckpts
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with open(log_path, "w") as log_file:  # a file: nothing reads a pipe while it runs
+        proc = subprocess.Popen([sys.executable, "-m", "genefaceplusplus_tpu_torch.training.run", *argv],
+                                cwd=repo, stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        metrics_path = os.path.join(work_dir, "metrics.jsonl")
+        deadline = time.time() + 900
+        while proc.poll() is None and time.time() < deadline:
+            if os.path.exists(metrics_path) and any(
+                    r.get("step", 0) >= after_step and "total_loss" in r for r in _stage_metrics(work_dir)):
+                break
+            time.sleep(0.05)
+        signalled = proc.poll() is None
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        log = f.read()
+    check(signalled and proc.returncode == 0 and "checkpoint saved, exiting" in log,
+          f"{what}: SIGTERM run exit {proc.returncode}\n{log[-3000:]}")
+    preempted_at = int(re.findall(r"preempted at step (\d+)", log)[-1])
+    check(after_step <= preempted_at < max_steps, f"{what}: preempted at step {preempted_at}")
+    check([os.path.basename(p) for p in get_all_ckpts(work_dir)] == [f"model_ckpt_steps_{preempted_at}.ckpt"],
+          f"{what}: the preempted run's checkpoint")
+    return preempted_at
+
+
+def phase_train_cli(dev):
     import tempfile
 
     from genefaceplusplus_tpu_torch.data.dataset import synthetic
@@ -1439,33 +1502,8 @@ def phase_train_cli(dev):
         t0 = time.perf_counter()
         res = {"head": stage("head")}
         # the SR stage: the CLI module itself, SIGTERM once step TRAIN_CLI_START is logged
-        log_path = os.path.join(root, "sr_sigterm.log")  # a file: nothing reads a pipe while it runs
-        with open(log_path, "w") as log_file:
-            proc = subprocess.Popen([sys.executable, "-m", "genefaceplusplus_tpu_torch.training.run",
-                                     *argv("sr")], cwd=repo, stdout=log_file, stderr=subprocess.STDOUT)
-        try:
-            metrics_path = os.path.join(dirs["sr"], "metrics.jsonl")
-            deadline = time.time() + 900
-            while proc.poll() is None and time.time() < deadline:
-                if os.path.exists(metrics_path) and any(
-                        r.get("step", 0) >= TRAIN_CLI_START and "total_loss" in r for r in _stage_metrics(dirs["sr"])):
-                    break
-                time.sleep(0.05)
-            signalled = proc.poll() is None
-            proc.send_signal(signal.SIGTERM)
-            proc.wait(timeout=300)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        with open(log_path) as f:
-            log = f.read()
-        check(signalled and proc.returncode == 0 and "checkpoint saved, exiting" in log,
-              f"train_cli sr: SIGTERM run exit {proc.returncode}\n{log[-3000:]}")
-        preempted_at = int(re.findall(r"preempted at step (\d+)", log)[-1])
-        check(TRAIN_CLI_START <= preempted_at < TRAIN_CLI_STEPS, f"preempted at step {preempted_at}")
-        check([os.path.basename(p) for p in get_all_ckpts(dirs["sr"])] == [f"model_ckpt_steps_{preempted_at}.ckpt"],
-              "the preempted run's checkpoint")
+        preempted_at = run_until_sigterm(argv("sr"), dirs["sr"], TRAIN_CLI_START, TRAIN_CLI_STEPS,
+                                         os.path.join(root, "sr_sigterm.log"), "train_cli sr")
         res["sr"] = stage("sr")
         res["torso"] = stage("torso")
         wall = time.perf_counter() - t0
@@ -1557,6 +1595,344 @@ def phase_train_cli(dev):
     return launches
 
 
+# train_audio: an identity's tracks of TRAIN_AUDIO_FRAMES motion frames at 25
+# fps (40 s; held-out split 90 frames), the a2m (audio2motion_vae.yaml, batch
+# 8 x 64 frames) and then the postnet (postnet.yaml, batch 4) through the
+# training CLI, TRAIN_AUDIO_STEPS steps each with validation every
+# TRAIN_AUDIO_VAL; the a2m is preempted by SIGTERM once step
+# TRAIN_AUDIO_SIGTERM is logged and resumed. Then TRAIN_AUDIO_REQUESTS
+# requests of 4 s served from the trained dirs through the refiner.
+TRAIN_AUDIO_FRAMES, TRAIN_AUDIO_STEPS, TRAIN_AUDIO_VAL, TRAIN_AUDIO_SIGTERM = 1000, 60, 30, 20
+TRAIN_AUDIO_REQUESTS = 2
+TRAIN_AUDIO_STAGES = {"a2m": "egs/datasets/May/audio2motion_vae.yaml", "postnet": "egs/datasets/May/postnet.yaml"}
+TRAIN_AUDIO_VAL_KEYS = {"a2m": ("val_recon_mse", "val_gen_l1", "val_kl"),
+                        "postnet": ("val_l1_refined", "val_l1_raw", "val_lmd")}
+# one train step on the card against the CPU from the same state, batch and
+# noise, with cuDNN's TF32 flag on: losses (relative) and every updated
+# tensor, BatchNorm statistics included (of its largest entry)
+STEP_LOSS_RTOL, STEP_TENSOR_REL = 1e-5, 1e-5
+
+
+def audio_tracks(frames: int, seed: int) -> dict:
+    """An identity's record with `frames` motion frames: synthetic's record
+    at 16^2 (its per-frame samples; the tasks read no image), HuBERT [2T,
+    1024] and a voiced f0 contour [2T] (`voiced_f0`),
+    exp [T, 64] and idexp_lm3d [T, 204] smooth in time and partly driven by
+    the audio, with their mean and std."""
+    from genefaceplusplus_tpu_torch.data.dataset import synthetic
+
+    d = synthetic(num_frames=frames, H=16, W=16, seed=seed)
+    rs = np.random.RandomState(seed + 1)
+    hubert = rs.randn(2 * frames, 1024).astype(np.float32)
+    kern = np.ones(9) / 9.0
+
+    def smooth(x):
+        return np.stack([np.convolve(c, kern, mode="same") for c in x.T], 1)
+
+    drive = hubert[::2, :64]
+    exp = (0.3 * smooth(rs.randn(frames, 64)) + 0.05 * drive).astype(np.float32)
+    lm = (smooth(rs.randn(frames, 204)) + 0.05 * np.tile(drive, (1, 4))[:, :204]).astype(np.float32)
+    d.update(hubert=hubert, f0=voiced_f0(2 * frames), exp=exp, idexp_lm3d=lm, idexp_lm3d_mean=lm.mean(0),
+             idexp_lm3d_std=lm.std(0) + 1e-3)
+    return d
+
+
+def voiced_f0(n: int, start_s: float = 0.0) -> np.ndarray:
+    """A voiced f0 contour of n frames at 50 Hz from `start_s` seconds in: a
+    pitch gliding around 150 Hz, with unvoiced (0) stretches."""
+    t = start_s + np.arange(n) / 50.0
+    f0 = 150.0 + 40.0 * np.sin(2 * np.pi * t / 3.0) + 15.0 * np.sin(2 * np.pi * t / 0.7)
+    f0[np.sin(2 * np.pi * t / 5.0) > 0.8] = 0.0
+    return f0.astype(np.float32)
+
+
+def step_card_vs_cpu(cfg, ckpt, dev, what: str):
+    """One train step of the task `cfg` names, on the card and on the CPU,
+    from the checkpoint's state, one batch and one posterior draw, with
+    cuDNN's TF32 flag on: (worst loss rtol, worst tensor error of its
+    largest entry, its name); fails past STEP_LOSS_RTOL / STEP_TENSOR_REL."""
+    from genefaceplusplus_tpu_torch.training import run
+    from genefaceplusplus_tpu_torch.training.trainer import load_flax_state
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        out, batch, noise = {}, None, None
+        for d in ("cpu", dev):
+            task = run.build_task(cfg, device=d)
+            state = load_flax_state(task.create_state(), ckpt["state_dict"])
+            if batch is None:
+                batch = {k: v.cpu() for k, v in task.sample_train_batch().items()}
+                if what == "a2m":
+                    c = task.cfg
+                    noise = torch.randn((c.batch_size, state.model.vae.latent_length(c.seq_len), 16),
+                                        generator=torch.Generator().manual_seed(7))
+            kw = {"noise": noise} if what == "a2m" else {}
+            state, metrics = task.train_step(state, {k: v.to(d) for k, v in batch.items()}, **kw)
+            out[str(d)] = ({k: float(v) for k, v in metrics.items()},
+                           {k: v.detach().cpu() for k, v in state.model.state_dict().items() if v.is_floating_point()})
+        check(torch.backends.cudnn.allow_tf32, "the TF32 flag was changed")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    (m_c, t_c), (m_g, t_g) = out["cpu"], out[str(dev)]
+    loss_rel = max(abs(m_g[k] - m_c[k]) / max(abs(m_c[k]), 1e-30) for k in m_c)
+    worst = max(((t_g[k] - t_c[k]).abs().max().item() / max(t_c[k].abs().max().item(), 1e-30), k) for k in t_c)
+    print(f"[train_audio] {what} step on the card vs the CPU (the trained state, one batch and draw, "
+          f"cudnn.allow_tf32=True): losses {', '.join(f'{k} {m_g[k]:.6g} vs {m_c[k]:.6g}' for k in m_c)}, worst "
+          f"relative {loss_rel:.3e} (<= {STEP_LOSS_RTOL}); updated tensors (BatchNorm statistics included) max "
+          f"|d| / max |v| {worst[0]:.3e} at {worst[1]} (<= {STEP_TENSOR_REL})")
+    check(all(math.isfinite(v) for v in m_g.values()), f"{what}: a loss on the card is not finite")
+    check(loss_rel <= STEP_LOSS_RTOL, f"{what} step card vs CPU: losses")
+    check(worst[0] <= STEP_TENSOR_REL, f"{what} step card vs CPU: {worst[1]}")
+    return loss_rel, worst
+
+
+def profile_train_steps(cfg, ckpt, dev, what: str, steps: int = 5):
+    """Where a train step's time goes: the task `cfg` names on the card from
+    the checkpoint's state, 3 warm steps, then `steps` timed steps (host
+    wall, synchronised) and `steps` more under the profiler; prints the
+    kernels a step, the device-busy ms a step, the idle share of the wall
+    and the kernels with the most device time."""
+    from genefaceplusplus_tpu_torch.training import run
+    from genefaceplusplus_tpu_torch.training.trainer import load_flax_state
+
+    task = run.build_task(cfg, device=dev)
+    state = load_flax_state(task.create_state(), ckpt["state_dict"])
+
+    def run_steps():
+        for _ in range(steps):
+            task.train_step(state, task.sample_train_batch())
+        return steps
+
+    for _ in range(3):
+        task.train_step(state, task.sample_train_batch())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    acts, kernels, busy, top = profile_device(run_steps)
+    check(busy is not None, f"{what}: the profiler saw no device activity")
+    print(f"[train_audio] {card_line()}; {what} step under torch.profiler ({steps} steps after 3 warm): "
+          f"{kernels:.1f} kernels ({acts:.1f} device activities) a step, device busy {busy:.3f} ms a step against "
+          f"{wall:.3f} ms of host wall a step without the profiler: the device is idle {100 * (1 - busy / wall):.1f} %; "
+          f"most device time: " + "; ".join(f"{t:.3f} ms in {c:.0f} launches {name[:48]}" for name, c, t in top[:4]))
+    return wall, busy, kernels
+
+
+def phase_train_audio(dev):
+    import tempfile
+
+    from genefaceplusplus_tpu_torch.config import load_config, set_hparams
+    from genefaceplusplus_tpu_torch.data.dataset import synthetic
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer, default_inp
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint, save_flax_checkpoint
+    from genefaceplusplus_tpu_torch.utils.convert_jax import export_flax_params
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_audio_")
+    try:
+        binary = os.path.join(root, "binary")
+        os.makedirs(os.path.join(binary, "tracks"))
+        os.makedirs(os.path.join(binary, "May"))
+        np.save(os.path.join(binary, "tracks", "trainval_dataset.npy"), audio_tracks(TRAIN_AUDIO_FRAMES, 0),
+                allow_pickle=True)
+        dirs = {s: os.path.join(root, s) for s in TRAIN_AUDIO_STAGES}
+
+        def argv(stage):
+            return ["--config", os.path.join(repo, TRAIN_AUDIO_STAGES[stage]), "--exp_name", f"chip_smoke_{stage}",
+                    "--work_dir", dirs[stage], "--hparams",
+                    f"binary_data_dir={binary},video_id=tracks,max_updates={TRAIN_AUDIO_STEPS},"
+                    f"val_check_interval={TRAIN_AUDIO_VAL},tb_log_interval=1"]
+
+        def stage(name):
+            out = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                                  "sys.exit(chip_smoke.train_cli_stage(sys.argv[1:]))", *argv(name)],
+                                 cwd=repo, capture_output=True, text=True, timeout=900)
+            check(out.returncode == 0, f"train_audio {name}: exit {out.returncode}\n{out.stdout[-3000:]}\n"
+                                       f"{out.stderr[-3000:]}")
+            with open(os.path.join(dirs[name], "chip_smoke_stage.json")) as f:
+                return json.load(f)
+
+        t0 = time.perf_counter()
+        preempted_at = run_until_sigterm(argv("a2m"), dirs["a2m"], TRAIN_AUDIO_SIGTERM, TRAIN_AUDIO_STEPS,
+                                         os.path.join(root, "a2m_sigterm.log"), "train_audio a2m")
+        res = {"a2m": stage("a2m"), "postnet": stage("postnet")}
+        wall = time.perf_counter() - t0
+        vals = {}
+        for name, r in res.items():
+            recs = _stage_metrics(dirs[name])
+            steps = [x for x in recs if "total_loss" in x]
+            check([x["step"] for x in steps] == list(range(1, TRAIN_AUDIO_STEPS + 1)),
+                  f"train_audio {name}: steps logged {[x['step'] for x in steps]}")
+            check(all(math.isfinite(v) for x in steps for k, v in x.items() if k.endswith("loss")),
+                  f"train_audio {name}: a loss is not finite")
+            vals[name] = {x["step"]: {k: x[k] for k in TRAIN_AUDIO_VAL_KEYS[name]}
+                          for x in recs if TRAIN_AUDIO_VAL_KEYS[name][0] in x}
+            check(sorted(vals[name]) == [TRAIN_AUDIO_VAL, TRAIN_AUDIO_STEPS]
+                  and all(math.isfinite(v) for m in vals[name].values() for v in m.values()),
+                  f"train_audio {name}: validations {vals[name]}")
+            check(r["global_step"] == TRAIN_AUDIO_STEPS and r["ckpt_equal"],
+                  f"train_audio {name}: final step {r['global_step']}, checkpoint equals the live state "
+                  f"{r['ckpt_equal']}")
+            with open(get_last_checkpoint(dirs[name])[1], "rb") as f:
+                check(f.read(1)[0] in MSGPACK_MAP_FIRST_BYTES, f"{name}: not flax msgpack")
+        a2m_cfg, pn_cfg = set_hparams(work_dir=dirs["a2m"]), set_hparams(work_dir=dirs["postnet"])
+        n_a2m = sum(np.asarray(x).size for x in _leaves(get_last_checkpoint(dirs["a2m"])[0]["state_dict"]["variables"]))
+        check(n_a2m == 11_840_768, f"the trained a2m has {n_a2m} variables")
+        print(f"[train_audio] tracks of {TRAIN_AUDIO_FRAMES} frames (40 s at 25 fps; held out 90); the a2m "
+              f"({TRAIN_AUDIO_STAGES['a2m']}, {n_a2m} variables, batch {a2m_cfg['batch_size']} x "
+              f"{a2m_cfg['seq_len']} frames) and then the postnet ({TRAIN_AUDIO_STAGES['postnet']}, hidden "
+              f"{pn_cfg['postnet_hidden']}, {pn_cfg['postnet_layers']} layers, batch {pn_cfg['batch_size']}) "
+              f"through the training CLI, {TRAIN_AUDIO_STEPS} steps each with cuDNN's TF32 flag at the process "
+              f"default, {wall:.1f} s of wall: every loss finite, each checkpoint flax msgpack and equal to the "
+              f"live state bit for bit; a2m: SIGTERM after step {TRAIN_AUDIO_SIGTERM}: checkpoint at step "
+              f"{preempted_at}, exit 0, resumed to step {TRAIN_AUDIO_STEPS}, every step logged once")
+        for name, r in res.items():
+            first = TRAIN_AUDIO_STEPS - len(r["step_ms"]) + 1
+            rest = r["step_ms"][1:]
+            print(f"[train_audio] {card_line()}; {name} ms/step (host wall, synchronised, steps {first + 1}.."
+                  f"{TRAIN_AUDIO_STEPS}): median {statistics.median(rest):.3f}, min {min(rest):.3f}, max "
+                  f"{max(rest):.3f}, n={len(rest)}; step {first} (set-up) {r['step_ms'][0]:.3f} ms; peak allocated "
+                  f"{r['peak_gib']:.3f} GiB; validation " + "; ".join(
+                      f"@{s}: " + ", ".join(f"{k} {v:.5g}" for k, v in m.items()) for s, m in vals[name].items()))
+
+        # one step of each on the card against the CPU, from the trained state
+        for name in TRAIN_AUDIO_STAGES:
+            cfg_, ckpt = set_hparams(work_dir=dirs[name]), get_last_checkpoint(dirs[name])[0]
+            step_card_vs_cpu(cfg_, ckpt, dev, name)
+            profile_train_steps(cfg_, ckpt, dev, name)
+
+        # serving through the refiner: the trained a2m and postnet dirs, with
+        # serve_audio's seeded head + SR and torso written as work dirs
+        cfg, tcfg, hp = sr_head_config(), torso_config(), a2m_hparams()
+        models = seeded_audio_models(cfg, tcfg, hp)
+        np.save(os.path.join(binary, "May", "trainval_dataset.npy"), synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0),
+                allow_pickle=True)
+        cwd = os.getcwd()
+        os.chdir(repo)  # base_config paths are relative to the repository root
+        try:
+            head_yaml = load_config("egs/datasets/May/lm3d_radnerf_sr.yaml")
+            torso_yaml = load_config("egs/datasets/May/lm3d_radnerf_torso_sr.yaml")
+        finally:
+            os.chdir(cwd)
+        head_dir, torso_dir = os.path.join(root, "head_sr"), os.path.join(root, "torso")
+        params = {"head": export_flax_params(models["head"]), "sr": export_flax_params(models["sr"])}
+        save_flax_checkpoint(head_dir, 1, {
+            "state_dict": {"params": params, "opt_state": {}},
+            "extra_state": {"occupancy": bench_occupancy(cfg.grid_size)}},
+            config=dict(head_yaml, binary_data_dir=binary, video_id="May"))
+        save_flax_checkpoint(torso_dir, 1, {
+            "state_dict": {"torso_params": export_flax_params(models["torso"]), "opt_state": {}},
+            "extra_state": {"torso_grid": bench_torso_grid(tcfg.grid_size)}},
+            config=dict(torso_yaml, head_model_dir=head_dir, binary_data_dir=binary, video_id="May"))
+        infer = GeneFaceInfer.from_work_dirs(audio2secc_dir=dirs["a2m"], postnet_dir=dirs["postnet"],
+                                             torso_model_dir=torso_dir, device=dev)
+        check(infer.postnet_model is not None, "no postnet loaded")
+        rs = np.random.RandomState(300)
+        paths = []
+        for r in range(TRAIN_AUDIO_REQUESTS):
+            f0 = voiced_f0(HUBERT_FRAMES, start_s=7.0 * r + 1.0)
+            paths.append(os.path.join(root, f"request{r}.npy"))
+            np.save(paths[-1], {"hubert": rs.randn(HUBERT_FRAMES, 1024).astype(np.float32), "f0": f0},
+                    allow_pickle=True)
+        pn_events = []
+        hooks = [infer.postnet_model.register_forward_pre_hook(lambda *_: pn_events.append([cuda_event()])),
+                 infer.postnet_model.register_forward_hook(lambda *_: pn_events[-1].append(cuda_event()))]
+        batches, frames_all, cond_ms, frame_ms = [], [], [], []
+        torch.cuda.synchronize()
+        ff.fused_field.launches = 0  # count only the main path's launches
+        try:
+            for path in paths:
+                inp = default_inp(drv_aud_features=path, frames_per_dispatch=8)
+                t0 = time.perf_counter()
+                batch = infer.forward_audio2secc(infer.prepare_batch_from_inp(inp), inp)
+                t_cond = time.perf_counter()
+                frames = list(infer.forward_secc2video(batch, inp))
+                t_end = time.perf_counter()
+                cond_ms.append((t_cond - t0) * 1e3)
+                frame_ms.append((t_end - t_cond) * 1e3 / len(frames))
+                batches.append(batch)
+                frames_all.append(frames)
+            launches = ff.fused_field.launches
+        finally:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        pn_ms = [a.elapsed_time(b) for a, b in pn_events]
+        n_frames = sum(len(f) for f in frames_all)
+        H = infer.dataset.H
+        for batch, frames in zip(batches, frames_all):
+            T = batch["T"]
+            check(len(frames) == T == HUBERT_FRAMES // 2, f"{len(frames)} frames for a motion of {T}")
+            check(np.isfinite(batch["cond"]).all() and batch["cond"].shape == (T, 1, 204), "condition")
+            check(np.isfinite(batch["lm68"]).all() and batch["lm68"].shape == (T, 68, 2), "torso landmarks")
+            check(all(f.shape == (2 * H, 2 * H, 3) and f.dtype == np.uint8 for f in frames), "frames")
+            check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "frames do not vary")
+        check(len(pn_ms) == TRAIN_AUDIO_REQUESTS, f"the postnet ran {len(pn_ms)} times")
+        check(launches >= n_frames, f"fused_field launched {launches} times for {n_frames} frames")
+
+        # audio2secc without the refiner, same requests and draws (host wall)
+        plain_ms = []
+        postnet, infer.postnet_model = infer.postnet_model, None
+        try:
+            for path, b in zip(paths, batches):
+                inp = default_inp(drv_aud_features=path)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                unrefined = infer.forward_audio2secc(infer.prepare_batch_from_inp(inp), inp,
+                                                     noise=torch.from_numpy(b["a2m_noise"]))
+                plain_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            infer.postnet_model = postnet
+        moved = float(np.abs(unrefined["cond"] - batches[-1]["cond"]).max())
+        check(moved > 0.0, "the postnet did not change the condition")
+
+        # request 1's condition again on the CPU from the card's a2m output, the postnet included
+        b0 = batches[0]
+
+        class ReplayA2M(torch.nn.Module):
+            def forward(self, *_, **__):
+                return torch.from_numpy(b0["a2m_out"])[None], None
+
+        cpu_infer = GeneFaceInfer(infer.head_cfg, {k: v.cpu() for k, v in infer.head_model.state_dict().items()},
+                                  infer.dataset, infer.occupancy.cpu(), device="cpu", a2m_hparams=infer.a2m_cfg,
+                                  a2m_params=a2m_model_from_hparams(infer.a2m_cfg).state_dict(),
+                                  postnet_hparams=pn_cfg.to_dict(),
+                                  postnet_params={k: v.cpu() for k, v in postnet.state_dict().items()})
+        cpu_infer.a2m_model = ReplayA2M()
+        keys = ("hubert", "f0", "wav16k", "T", "pose_idx", "poses", "eulers", "transs")
+        cpu_b0 = cpu_infer.forward_audio2secc({k: b0[k] for k in keys}, default_inp(frames_per_dispatch=8),
+                                              noise=torch.from_numpy(b0["a2m_noise"]))
+        cond_err = float(np.abs(b0["cond"] - cpu_b0["cond"]).max())
+        lm_rel = float((np.abs(b0["lm68"].astype(np.float64) - cpu_b0["lm68"])
+                        / np.maximum(1.0, np.abs(cpu_b0["lm68"]))).max())
+        print(f"[train_audio] served from the trained a2m + postnet dirs (with seeded head + SR and torso "
+              f"dirs): {TRAIN_AUDIO_REQUESTS} requests of {AUDIO_SECONDS} s, {n_frames} frames of {2 * H}x{2 * H}, "
+              f"{launches} fused_field launches; the refiner moves the condition by up to {moved:.4f}; request 1's "
+              f"condition on the CPU from the card's a2m output, postnet included: cond max |d| {cond_err:.3e} "
+              f"(<= {COND_CARD_MAX}), lm68 max |d| / max(1, |v|) {lm_rel:.3e} (<= {LM68_CARD_REL})")
+        check(cond_err <= COND_CARD_MAX, "condition through the postnet on the card vs the CPU")
+        check(lm_rel <= LM68_CARD_REL, "torso landmarks through the postnet on the card vs the CPU")
+        card = card_line()
+        print(f"[train_audio] {card}; per request (1 first): postnet by CUDA events "
+              f"{', '.join(f'{x:.3f}' for x in pn_ms)} ms; audio2secc host wall with the postnet "
+              f"{', '.join(f'{x:.3f}' for x in cond_ms)} ms, without it (synchronised) "
+              f"{', '.join(f'{x:.3f}' for x in plain_ms)} ms; per-frame time (forward_secc2video wall / frames) "
+              f"{', '.join(f'{x:.3f}' for x in frame_ms)} ms")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1580,16 +1956,18 @@ def main() -> int:
     cli_launches = phase_serve_cli(dev)
     train_fwd, train_chain, train_wgrad = phase_train(dev)
     trained_launches = phase_train_cli(dev)
+    refined_launches = phase_train_audio(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
           f"{audio_launches} audio-driven serving + {cli_launches} CLI and streaming + {train_fwd} training + "
-          f"{trained_launches} serving from CLI-trained dirs; fused_field_bwd_chain: {train_chain} training; "
-          f"fused_field_wgrad: {train_wgrad} training")
+          f"{trained_launches} serving from CLI-trained dirs + {refined_launches} serving through the trained "
+          f"postnet; fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:156",
-        "launches": serve_launches + full_launches + audio_launches + cli_launches + train_fwd + trained_launches,
+        "launches": (serve_launches + full_launches + audio_launches + cli_launches + train_fwd + trained_launches
+                     + refined_launches),
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {

@@ -8,8 +8,9 @@ The flags and defaults of `genefaceplusplus_tpu/inference/cli.py`, plus
 `--drv_aud_features` is an .npy of {'hubert' [2T, C], 'f0' [2T][, 'wav16k']}
 (the port computes no HuBERT, so a bare `--drv_aud` wav raises). The output
 is an uncompressed AVI with the audio (`<stem>.avi` for an .mp4 name).
-Flags whose function the port lacks raise when set away from their
-default: `--postnet_ckpt`, `--debug`, `--color_topk`, `--compact_frac` and
+`--postnet_ckpt` names a postnet work dir: its refiner runs on the a2m's
+landmarks. Flags whose function the port lacks raise when set away from
+their default: `--debug`, `--color_topk`, `--compact_frac` and
 `--n_devices` above 1.
 """
 
@@ -21,7 +22,7 @@ import argparse
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="GeneFace++ inference (PyTorch port)")
     p.add_argument("--a2m_ckpt", type=str, default="", help="audio2motion work dir")
-    p.add_argument("--postnet_ckpt", type=str, default="")
+    p.add_argument("--postnet_ckpt", type=str, default="", help="postnet work dir")
     p.add_argument("--head_ckpt", type=str, default="", help="head NeRF work dir")
     p.add_argument("--torso_ckpt", type=str, default="", help="torso work dir")
     p.add_argument("--drv_aud", type=str, default="", help="driving wav")
@@ -53,8 +54,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args) -> None:
     """Raise for a flag set away from its default whose function is not
     ported (ROADMAP.md names each item)."""
-    if args.postnet_ckpt:
-        raise NotImplementedError("--postnet_ckpt: the postnet refiner is not ported (ROADMAP queue A3)")
     if args.debug:
         raise NotImplementedError("--debug: the SECC and landmark panels are not ported (ROADMAP queue A5)")
     if args.color_topk != 0:
@@ -75,6 +74,7 @@ def main(argv=None) -> str:
         audio2secc_dir=args.a2m_ckpt or None,
         head_model_dir=args.head_ckpt or None,
         torso_model_dir=args.torso_ckpt or None,
+        postnet_dir=args.postnet_ckpt or None,
         device=args.device,
     )
     inp = {

@@ -5,9 +5,10 @@ Audio-driven: `prepare_batch_from_inp` reads a request's features (HuBERT
 [2T, 1024] and f0 [2T] at 50 Hz, precomputed) and sets its driving-pose
 schedule; `forward_audio2secc` samples the motion from the flow-VAE
 audio-to-motion model, reconstructs the 68 landmarks through the 3DMM
-basis, blends them onto the identity's landmarks (LLE), normalises,
+basis, refines them with the pitch-conditioned postnet where one is
+loaded, blends them onto the identity's landmarks (LLE), normalises,
 clamps, injects blinks and gives the torso's 2D landmarks. The a2m, the
-3DMM algebra and the LLE run as tensors on the infer device; the
+3DMM algebra, the postnet and the LLE run as tensors on the infer device; the
 statistics, clamps and blinks are numpy on the host, as in JAX.
 
 GT-driven: `prepare_gt_batch` fills the same batch from the dataset's own
@@ -48,6 +49,7 @@ from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_batch, 
 from genefaceplusplus_tpu_torch.models.full_renderer import (
     auto_head_bbox, auto_head_crop, auto_sr_crop, auto_torso_crop, render_full_frame)
 from genefaceplusplus_tpu_torch.models.postnet.lle import compute_lle_projection
+from genefaceplusplus_tpu_torch.models.postnet.models import postnet_from_hparams
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
 from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoConfig, TorsoField
 from genefaceplusplus_tpu_torch.models.renderer import RenderOptions
@@ -122,7 +124,9 @@ class GeneFaceInfer:
     config's keys, JAX's defaults where absent); the 3DMM basis comes from
     `bfm_dir` (the stand-in basis where `BFM_model_front.mat` is absent), and
     the a2m's draws from a generator seeded with 42, JAX's key. The postnet
-    refiner is not ported: `postnet_params` raises. Everything lives on
+    refiner runs where `postnet_params` (a `PitchContourCNNPostNet`
+    state_dict, built from `postnet_hparams`: `postnet_out_dim`,
+    `postnet_hidden`, `postnet_layers`) is given. Everything lives on
     `device`: the CUDA card unless another device is named (raises when
     there is no card). `from_work_dirs` builds one from JAX work dirs."""
 
@@ -134,11 +138,9 @@ class GeneFaceInfer:
                  sr_dtype: torch.dtype = torch.bfloat16,
                  a2m_hparams: Optional[Mapping[str, Any]] = None,
                  a2m_params: Optional[Mapping[str, torch.Tensor]] = None,
+                 postnet_hparams: Optional[Mapping[str, Any]] = None,
                  postnet_params: Optional[Mapping[str, torch.Tensor]] = None,
                  bfm_dir: str = "deep_3drecon/BFM", head_crop_pad_px: int = 12):
-        if postnet_params is not None:
-            raise NotImplementedError("the postnet landmark refiner (models/postnet/models.py) is not "
-                                      "ported yet")
         self.device = resolve_device(device)
         self.a2m_cfg = dict(a2m_hparams or {})
         self.a2m_model = None
@@ -146,6 +148,11 @@ class GeneFaceInfer:
             self.a2m_model = a2m_model_from_hparams(self.a2m_cfg)
             self.a2m_model.load_state_dict(a2m_params)
             self.a2m_model.to(self.device).eval()
+        self.postnet_model = None
+        if postnet_params is not None:
+            self.postnet_model = postnet_from_hparams(postnet_hparams or {})
+            self.postnet_model.load_state_dict(postnet_params)
+            self.postnet_model.to(self.device).eval()
         self.generator = torch.Generator(device=self.device).manual_seed(42)
         self.face3d_helper = Face3DHelper.load(bfm_dir, keypoint_mode="mediapipe", device=self.device)
         eaps = dataset.eye_area_percents
@@ -201,18 +208,17 @@ class GeneFaceInfer:
         it the instance is GT-driven); the dataset, unless given, from the
         head config's `binary_data_dir/video_id/trainval_dataset.npy`. The
         occupancy grid and the torso's 2D grid come from the checkpoints'
-        `extra_state` (the head's grid all ones where absent). A checkpoint
-        that restores no tensor raises; a dir without a checkpoint keeps the
-        port's initial weights (seed 0) and says so."""
-        if postnet_dir:
-            raise NotImplementedError("the postnet landmark refiner (models/postnet/models.py) is not "
-                                      "ported yet (ROADMAP queue A3)")
+        `extra_state` (the head's grid all ones where absent); the postnet
+        refiner from `postnet_dir`, its widths from that dir's config. A
+        checkpoint that restores no tensor raises; a dir without a
+        checkpoint keeps the port's initial weights (seed 0) and says so."""
         if not head_model_dir and torso_model_dir:
             head_model_dir = set_hparams(work_dir=torso_model_dir).get("head_model_dir", "") or None
         head_dir = head_model_dir or torso_model_dir
         if not head_dir:
             raise ValueError("from_work_dirs needs a head or a torso work dir")
-        newest = {d: get_last_checkpoint(d) for d in {head_dir, torso_model_dir, audio2secc_dir} if d}
+        newest = {d: get_last_checkpoint(d) for d in {head_dir, torso_model_dir, audio2secc_dir, postnet_dir}
+                  if d}
         head_raw = set_hparams(work_dir=head_dir)
         cfg = RADNeRFConfig.from_hparams(head_raw)
         params = _restore(RADNeRF(cfg, generator=_seed()), newest[head_dir], head_dir, "head")
@@ -230,7 +236,11 @@ class GeneFaceInfer:
         if audio2secc_dir:
             a2m_hp = set_hparams(work_dir=audio2secc_dir).to_dict()
             kw.update(a2m_hparams=a2m_hp, a2m_params=_restore(
-                a2m_model_from_hparams(a2m_hp, generator=_seed()), newest[audio2secc_dir], audio2secc_dir, None))
+                a2m_model_from_hparams(a2m_hp, generator=_seed()), newest[audio2secc_dir], audio2secc_dir, None, "a2m"))
+        if postnet_dir:
+            pn_hp = set_hparams(work_dir=postnet_dir).to_dict()
+            kw.update(postnet_hparams=pn_hp, postnet_params=_restore(
+                postnet_from_hparams(pn_hp, generator=_seed()), newest[postnet_dir], postnet_dir, None, "postnet"))
         if dataset is None:
             ds_path = os.path.join(head_raw.get("binary_data_dir", ""), head_raw.get("video_id", ""),
                                    "trainval_dataset.npy")
@@ -381,6 +391,9 @@ class GeneFaceInfer:
         upper = np.quantile(norm_ds, 0.97, axis=0)
 
         flat = idexp.reshape(T, 68 * 3)
+        if self.postnet_model is not None:  # refine the raw landmarks before the LLE blend
+            f0n = (np.asarray(batch["f0"], np.float32) / 400.0).reshape(1, -1, 1)
+            flat = self.postnet_model(self._tensor(flat[None]), self._tensor(f0n))[0].cpu().numpy()
         lle_percent = float(inp.get("lle_percent", 0.2))
         if lle_percent > 0:  # LLE blend onto the identity's landmarks, K capped by its frames
             fuse, _, _ = compute_lle_projection(self._tensor(flat), self._tensor(ds_lm.reshape(-1, 68 * 3)),
@@ -600,13 +613,15 @@ def _seed() -> torch.Generator:
     return torch.Generator().manual_seed(0)
 
 
-def _restore(model: torch.nn.Module, newest, work_dir: str, sub: Optional[str]) -> Dict[str, torch.Tensor]:
+def _restore(model: torch.nn.Module, newest, work_dir: str, sub: Optional[str],
+             label: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """`model`'s state dict with the tensors of `newest` (the work dir's
-    newest (checkpoint, path)), its `sub` tree, matched by name and shape."""
+    newest (checkpoint, path)), its `sub` tree, matched by name and shape;
+    `label` names the model in messages (default: `sub`)."""
     template = model.state_dict()
     ckpt, path = newest
     if ckpt is None:
-        print(f"| {work_dir}: no checkpoint; the {sub or 'a2m'} keeps the port's initial weights (seed 0)")
+        print(f"| {work_dir}: no checkpoint; the {label or sub} keeps the port's initial weights (seed 0)")
         return template
     loaded = {k: arr for k, (_, arr) in flax_leaves(unwrap_train_state(ckpt, sub)).items()}
     state, restored = restore_into(template, loaded)

@@ -5,8 +5,9 @@ reconnect cursor, `FramePusher` and `ClientGone`).
 - Audio streams in chunks of `chunk_seconds`. Each chunk's mel and F0 are
   computed here; its HuBERT features are the matching rows of
   `inp['hubert_full']` (the port computes no HuBERT). Each chunk runs the
-  audio-to-motion once and renders its frames, so frames come out with a
-  chunk's latency, not a clip's.
+  audio-to-motion once (`forward_audio2secc`, with the postnet refiner on
+  the chunk's own F0 where one is loaded) and renders its frames, so
+  frames come out with a chunk's latency, not a clip's.
 - One-chunk pipeline: chunk k's frames are rendered into uint8 tensors on
   the card (`GeneFaceInfer.launch_secc2video`) and stay there, uncopied,
   until chunk k+1's render has been launched; then they are copied and

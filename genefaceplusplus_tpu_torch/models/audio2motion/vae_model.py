@@ -14,8 +14,8 @@ pairwise mean for `VAEModel`, every second frame for the pitch model.
 I/O is JAX's batch dict: 'audio' [B, 2T, C_aud], 'f0' [B, 2T], 'y_mask'
 [B, T], optional 'blink' [B, 2T, 1], 'mouth_amp' / 'eye_amp' [B, 1], 'y'
 [B, T, C_io] (training). BatchNorm uses its running statistics unless
-`train=True`; training updates them with torch's rule (unbiased running
-variance), which the serving path never runs.
+`train=True`; then it normalises with the batch's statistics and updates
+the running ones by flax's rule (`ConvStack`).
 """
 
 from __future__ import annotations
@@ -53,7 +53,12 @@ def embedding(num: int, features: int, generator: Optional[torch.Generator]) -> 
 
 class ConvStack(nn.Module):
     """Conv (k3, no bias) -> BatchNorm -> GELU -> conv (k3, no bias); flax's
-    `Conv_0`, `BatchNorm_0`, `Conv_1`."""
+    `Conv_0`, `BatchNorm_0`, `Conv_1`.
+
+    BatchNorm in train mode is flax's (`use_fast_variance`): the batch's mean
+    and biased variance max(0, mean(x^2) - mean(x)^2) over batch and time
+    normalise, and the running statistics take ra = 0.9 ra + 0.1 stat,
+    the variance biased too (torch's own rule keeps it unbiased)."""
 
     def __init__(self, c_in: int, feat_dim: int, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -65,8 +70,15 @@ class ConvStack(nn.Module):
         """[B, T, C_in] -> [B, T, feat_dim]."""
         bn = self.norms[0]
         h = self.convs[0](channels_first(x))
-        h = F.batch_norm(h, bn.running_mean, bn.running_var, bn.weight, bn.bias, training=train,
-                         momentum=bn.momentum, eps=bn.eps)
+        if train:
+            mean = h.mean(dim=(0, 2))
+            var = torch.clamp((h * h).mean(dim=(0, 2)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+                bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+            h = (h - mean[:, None]) * (torch.rsqrt(var + bn.eps) * bn.weight)[:, None] + bn.bias[:, None]
+        else:
+            h = F.batch_norm(h, bn.running_mean, bn.running_var, bn.weight, bn.bias, eps=bn.eps)
         h = F.gelu(h, approximate="none")
         return channels_first(self.convs[1](h))
 

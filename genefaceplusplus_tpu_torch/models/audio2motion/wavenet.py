@@ -8,7 +8,8 @@ JAX's feature-last layout [B, T, C]; inside, the convolutions run on
 `res_skip_layer_i`), so the weight bridge maps them one to one.
 
 `Conv1d` and `ConvTranspose1d` are the a2m's convolutions: a float32
-convolution on the card runs with cuDNN's TF32 off for the call. Weights
+convolution runs in full float32, forward and backward
+(`utils/device.py:conv_f32`), whatever cuDNN's TF32 flag says. Weights
 follow flax's initialisers: `lecun_normal` kernels, zero biases.
 """
 
@@ -20,19 +21,10 @@ import torch
 from torch import nn
 
 from genefaceplusplus_tpu_torch.models.cond_encoder import lecun_normal_
-from genefaceplusplus_tpu_torch.utils.device import cudnn_tf32_off
+from genefaceplusplus_tpu_torch.utils.device import Float32Conv, conv_f32
 
 
-class _FullFloat32:
-    """A convolution module whose float32 call on the card runs in full
-    float32 (cuDNN runs it in TF32 by default)."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with cudnn_tf32_off():
-            return super().forward(x)
-
-
-class Conv1d(_FullFloat32, nn.Conv1d):
+class Conv1d(Float32Conv, nn.Conv1d):
     """`nn.Conv1d` on [B, C, T], in full float32."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int = 1, padding: int = 0,
@@ -44,7 +36,7 @@ class Conv1d(_FullFloat32, nn.Conv1d):
             nn.init.zeros_(self.bias)
 
 
-class ConvTranspose1d(_FullFloat32, nn.ConvTranspose1d):
+class ConvTranspose1d(nn.ConvTranspose1d):
     """`nn.ConvTranspose1d` (kernel = stride, no padding) on [B, C, T], in
     full float32. torch flips the kernel where flax's `ConvTranspose` does
     not: the weight bridge flips it."""
@@ -53,6 +45,10 @@ class ConvTranspose1d(_FullFloat32, nn.ConvTranspose1d):
         super().__init__(c_in, c_out, stride, stride=stride)
         lecun_normal_(self.weight, stride * c_in, generator)
         nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_f32(x, self.weight, self.bias, self.stride, self.padding, self.dilation, self.groups,
+                        transposed=True, output_padding=self.output_padding)
 
 
 def channels_first(x: torch.Tensor) -> torch.Tensor:

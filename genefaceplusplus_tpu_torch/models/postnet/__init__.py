@@ -1,2 +1,2 @@
-"""Postnet-side landmark projection (port of `genefaceplusplus_tpu/models/postnet/`):
-the LLE projection. The postnet CNN itself is not ported yet."""
+"""Postnet-side landmark models (port of `genefaceplusplus_tpu/models/postnet/`):
+the LLE projection and the pitch-conditioned CNN refiner."""

@@ -6,9 +6,10 @@ Layout: NCHW activations, OIHW conv weights (`F.conv2d`'s); filters are
 lacks: here the input is zero-inserted explicitly (size n * up, so JAX's
 after-pad `p1 + up - 1` becomes `p1`), giving the same sizes and values.
 Both convolutions are cross-correlations, so every flip sits where JAX has
-it. A float32 convolution on the card runs with cuDNN's TF32 off for the
-call (`conv2d`), whatever `torch.backends.cudnn.allow_tf32` says; bfloat16
-convolutions are unaffected.
+it. A float32 convolution runs in full float32, forward and backward
+(`conv2d`, through `utils/device.py:conv_f32`), whatever
+`torch.backends.cudnn.allow_tf32` says; bfloat16 convolutions are
+unaffected.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from genefaceplusplus_tpu_torch.utils.device import cudnn_tf32_off
+from genefaceplusplus_tpu_torch.utils.device import conv_f32
 
 
 def setup_filter(f: Sequence[float], normalize: bool = True, gain: float = 1.0) -> np.ndarray:
@@ -45,12 +46,9 @@ def _parse_padding(padding: Union[int, Sequence[int]]):
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, groups: int = 1) -> torch.Tensor:
     """VALID cross-correlation of x [N, C, H, W] with w [O, C/groups, kh, kw]
-    in x's dtype; in full float32 for a float32 CUDA tensor."""
-    w = w.to(x.dtype)
-    if x.is_cuda and x.dtype == torch.float32:
-        with cudnn_tf32_off():
-            return F.conv2d(x, w, stride=stride, groups=groups)
-    return F.conv2d(x, w, stride=stride, groups=groups)
+    in x's dtype; in full float32, forward and backward, for a float32
+    tensor (`conv_f32`)."""
+    return conv_f32(x, w.to(x.dtype), stride=stride, groups=groups)
 
 
 def _zero_insert(x: torch.Tensor, up: int) -> torch.Tensor:

@@ -16,8 +16,9 @@ the weight bridge (`Conv_i` -> `convs.i`, HWIO -> OIHW). Without a file the
 towers start from flax's default initialisation's distribution (truncated
 lecun normal, zero bias) drawn from a torch generator, so the random
 weights differ from JAX's `PRNGKey(0)` ones: tests carry JAX's across.
-Inputs are NHWC in [0, 1], as in JAX; float32 convolutions run with TF32
-off.
+Inputs are NHWC in [0, 1], as in JAX; the convolutions run in full
+float32, forward and backward (`utils/device.py:Conv2d`), whatever cuDNN's
+TF32 flag says.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from torch import nn
 
 from genefaceplusplus_tpu_torch.utils import msgpack
 from genefaceplusplus_tpu_torch.utils.convert_jax import load_flax_tree
-from genefaceplusplus_tpu_torch.utils.device import cudnn_tf32_off
+from genefaceplusplus_tpu_torch.utils.device import Conv2d
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -64,7 +65,7 @@ def _conv_stack(widths, generator: Optional[torch.Generator]) -> nn.ModuleList:
     `nn.Conv` is (truncated lecun normal kernels, zero biases)."""
     convs, c_in = nn.ModuleList(), 3
     for w in widths:
-        conv = nn.Conv2d(c_in, w, 3, padding=1)
+        conv = Conv2d(c_in, w, 3, padding=1)
         std = math.sqrt(1.0 / (9 * c_in)) / 0.87962566103423978
         with torch.no_grad():
             nn.init.trunc_normal_(conv.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
@@ -146,15 +147,14 @@ class PerceptualLoss(nn.Module):
     def forward(self, pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
         """pred/gt: [B, H, W, 3] in [0, 1] -> a scalar."""
         a, b = pred.permute(0, 3, 1, 2).float(), gt.permute(0, 3, 1, 2).float()
-        with cudnn_tf32_off():
-            if self.arch == "vgg19":
-                return self._vgg_loss(a, b)
-            total = a.new_zeros(())
-            for x, y in zip(self.net(a * 2 - 1), self.net(b * 2 - 1)):
-                xn = x / (torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-8)
-                yn = y / (torch.linalg.vector_norm(y, dim=1, keepdim=True) + 1e-8)
-                total = total + torch.mean((xn - yn) ** 2)
-            return total
+        if self.arch == "vgg19":
+            return self._vgg_loss(a, b)
+        total = a.new_zeros(())
+        for x, y in zip(self.net(a * 2 - 1), self.net(b * 2 - 1)):
+            xn = x / (torch.linalg.vector_norm(x, dim=1, keepdim=True) + 1e-8)
+            yn = y / (torch.linalg.vector_norm(y, dim=1, keepdim=True) + 1e-8)
+            total = total + torch.mean((xn - yn) ** 2)
+        return total
 
     def _vgg_loss(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         lw = VGG19_LAYER_WEIGHTS

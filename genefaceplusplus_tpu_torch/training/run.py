@@ -4,14 +4,17 @@
         --exp_name NAME [--hparams k=v,...] [--reset] [--work_dir DIR] [--device cpu]
 
 The task comes from the config's `task_cls` (JAX's `TASK_REGISTRY`): the
-head (`HeadNeRFTask`, or `SRHeadNeRFTask` with `with_sr`) or the torso
-(`TorsoNeRFTask`, from `head_model_dir`). The dataset is
+head (`HeadNeRFTask`, or `SRHeadNeRFTask` with `with_sr`), the torso
+(`TorsoNeRFTask`, from `head_model_dir`), the audio-to-motion flow-VAE
+(`A2MTask`; `egs/datasets/May/audio2motion_vae.yaml`) or the postnet
+refiner (`PostnetTask`; `egs/datasets/May/postnet.yaml`). The dataset is
 `binary_data_dir/video_id/trainval_dataset.npy`, rendered at half size
 where `with_sr` (JAX's default, also for the dataset of a head config that
-does not set it), with the held-out val split where it has one. The work
-dir gets JAX-layout checkpoints and config.yaml, with the resolved
-`binary_data_dir` and `video_id`. It runs on the card unless `--device`
-names another. The a2m and postnet tasks are not ported (ROADMAP queue A6).
+does not set it), with the held-out val split where it has one; the a2m
+and postnet tasks read only its arrays (`hubert`, `f0`, `exp`,
+`idexp_lm3d`), never an image. The work dir gets JAX-layout checkpoints
+and config.yaml, with the resolved `binary_data_dir` and `video_id`. It
+runs on the card unless `--device` names another.
 """
 
 from __future__ import annotations
@@ -48,19 +51,33 @@ def build_task(cfg, device=None):
     from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig
 
     kind = TASK_REGISTRY.get(cfg.get("task_cls", "head"), "head")
-    if kind in ("a2m", "postnet"):
-        raise NotImplementedError(
-            f"task kind {kind!r}: the a2m and postnet training tasks (JAX "
-            f"training/tasks/{kind}_task.py) are not ported (ROADMAP queue A6)")
     ds_path = os.path.join(cfg["binary_data_dir"], cfg["video_id"], "trainval_dataset.npy")
     dataset = _dataset(cfg, ds_path, "train")
+    seed = cfg.get("seed", 9999)
+    if kind == "a2m":  # the widths are A2MTaskConfig's defaults, as in JAX
+        from genefaceplusplus_tpu_torch.training.tasks.a2m_task import A2MTask, A2MTaskConfig
+
+        target = cfg.get("a2m_target", "exp")
+        return A2MTask(dataset, A2MTaskConfig(
+            lr=cfg.get("lr", 5e-4), lambda_kl=cfg.get("lambda_kl", 0.02),
+            kl_anneal_steps=cfg.get("kl_anneal_steps", 20000), seq_len=cfg.get("seq_len", 64),
+            batch_size=cfg.get("batch_size", 8), use_pitch=cfg.get("use_pitch", True),
+            audio_in_dim=cfg.get("audio_in_dim", 1024), target=target,
+            in_out_dim=cfg.get("a2m_in_out_dim", 204 if target == "idexp_lm3d" else 64)),
+            seed=seed, device=device)
+    if kind == "postnet":
+        from genefaceplusplus_tpu_torch.training.tasks.postnet_task import PostnetTask, PostnetTaskConfig
+
+        return PostnetTask(dataset, PostnetTaskConfig(
+            lr=cfg.get("lr", 1e-4), seq_len=cfg.get("seq_len", 64), batch_size=cfg.get("batch_size", 4),
+            hidden=cfg.get("postnet_hidden", 256), n_layers=cfg.get("postnet_layers", 4)),
+            seed=seed, device=device)
     hp = TaskHParams(
         lambda_weights_entropy=cfg.get("lambda_weights_entropy", 1e-4),
         target_ambient_loss=float(cfg.get("target_ambient_loss", 1e-8) or 1e-8),
         lr_lambda_ambient=cfg.get("lr_lambda_ambient", 0.01),
         ambient_loss_mode=cfg.get("ambient_loss_mode", "mae"),
     )
-    seed = cfg.get("seed", 9999)
     if kind == "torso":
         from genefaceplusplus_tpu_torch.training.tasks.torso_task import TorsoNeRFTask
 

@@ -1,6 +1,7 @@
 """The exponential LR schedule and the grouped RAD-NeRF Adam (port of
 `exponential_schedule`, `_radnerf_group`, `grad_norms_by_group` and
-`make_radnerf_optimizer` in `genefaceplusplus_tpu/training/schedulers.py`).
+`make_radnerf_optimizer` in `genefaceplusplus_tpu/training/schedulers.py`),
+and `OptaxAdam`, the plain `optax.adam` of the a2m and postnet tasks.
 
 The optimizer is `torch.optim.Adam` (eps 1e-15, betas 0.9 / 0.999) with
 one parameter group per label: net x1, grid x10 (the Fourier `B`s), att x5.
@@ -18,12 +19,15 @@ serialises `make_radnerf_optimizer`'s `multi_transform` state:
 '1': {'count'}}}}} (`scale_by_adam`, then `scale_by_schedule`), where `mu`
 and `nu` are the variables tree with every tensor of another label an
 empty dict (optax's `MaskedNode`), and every count is the number of steps.
+`OptaxAdam`'s layout is `optax.adam`'s chain: {'0': {'count', 'mu',
+'nu'}, '1': {}} (`scale_by_adam`, then the constant learning rate's empty
+state).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Iterable, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +69,28 @@ def grad_norms_by_group(named_grads: Iterable[Tuple[str, torch.Tensor]],
     out = {f"grad_norm/{k}": torch.sqrt(v) for k, v in sq.items()}
     out["grad_norm/total"] = torch.sqrt(sum(sq.values()))
     return out
+
+
+def _moments(opt: torch.optim.Optimizer, named) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """{name: (exp_avg, exp_avg_sq)} of `opt`'s tensors (zeros before a step)."""
+    out = {}
+    for name, p in named:
+        st = opt.state.get(p, {})
+        out[name] = (st.get("exp_avg", torch.zeros_like(p)), st.get("exp_avg_sq", torch.zeros_like(p)))
+    return out
+
+
+def _load_moments(opt: torch.optim.Optimizer, named, mu: Mapping[str, np.ndarray],
+                  nu: Mapping[str, np.ndarray], count: int, what: str = ""):
+    """Set each named tensor's Adam moments from `mu`/`nu` ({state-dict key:
+    array}) and every step to `count`; a tensor without moments of its shape
+    raises."""
+    for name, p in named:
+        if name not in mu or name not in nu or tuple(mu[name].shape) != tuple(p.shape):
+            raise KeyError(f"optimizer state: no {what}moments of shape {tuple(p.shape)} for {name!r}")
+        opt.state[p] = {"exp_avg": torch.from_numpy(np.array(mu[name], np.float32)).to(p.device),
+                        "exp_avg_sq": torch.from_numpy(np.array(nu[name], np.float32)).to(p.device),
+                        "step": torch.tensor(float(count), dtype=torch.float32)}
 
 
 class RADNeRFAdam:
@@ -111,10 +137,7 @@ class RADNeRFAdam:
 
     def export_optax(self) -> Dict[str, Any]:
         """The state as flax serialises optax's (module docstring)."""
-        moments = {}
-        for name, p in self.named:
-            st = self.opt.state.get(p, {})
-            moments[name] = (st.get("exp_avg", torch.zeros_like(p)), st.get("exp_avg_sq", torch.zeros_like(p)))
+        moments = _moments(self.opt, self.named)
         count = np.asarray(self.count, np.int32)
         out = {}
         for label in GROUP_MULT:
@@ -129,27 +152,66 @@ class RADNeRFAdam:
     def load_optax(self, opt_state: Mapping[str, Any]):
         """Restore moments and the step count from optax's layout; every
         tensor must find its moments under its own label."""
-        counts = set()
-        for label in GROUP_MULT:
-            inner = opt_state["inner_states"][label]["inner_state"]
-            counts |= {int(inner["0"]["count"]), int(inner["1"]["count"])}
-            mu = flax_tree_leaves(inner["0"]["mu"], self.model)
-            nu = flax_tree_leaves(inner["0"]["nu"], self.model)
-            for name, p in self.named:
-                if _radnerf_group(name) != label:
-                    continue
-                if name not in mu or name not in nu or tuple(mu[name].shape) != tuple(p.shape):
-                    raise KeyError(f"optimizer state: no {label} moments of shape {tuple(p.shape)} "
-                                   f"for {name!r}")
-                self.opt.state[p] = {
-                    "exp_avg": torch.from_numpy(np.array(mu[name], np.float32)).to(p.device),
-                    "exp_avg_sq": torch.from_numpy(np.array(nu[name], np.float32)).to(p.device),
-                    "step": None}
+        inners = {label: opt_state["inner_states"][label]["inner_state"] for label in GROUP_MULT}
+        counts = {int(c) for inner in inners.values() for c in (inner["0"]["count"], inner["1"]["count"])}
         if len(counts) != 1:
             raise ValueError(f"optimizer state: the groups' step counts differ: {sorted(counts)}")
         self.count = counts.pop()
-        for st in self.opt.state.values():
-            st["step"] = torch.tensor(float(self.count), dtype=torch.float32)
+        for label, inner in inners.items():
+            _load_moments(self.opt, [(n, p) for n, p in self.named if _radnerf_group(n) == label],
+                          flax_tree_leaves(inner["0"]["mu"], self.model),
+                          flax_tree_leaves(inner["0"]["nu"], self.model), self.count, f"{label} ")
+
+
+class OptaxAdam:
+    """`optax.adam(lr, b1, b2, eps)` over a module's parameters (not its
+    buffers: BatchNorm's running statistics are flax's `batch_stats`,
+    which the optimizer does not see), as `torch.optim.Adam`.
+
+    `collection` says which tree JAX's `tx.init` saw, so the moments nest as
+    optax's do: "params" for a task that optimises `variables['params']`
+    (the a2m: `mu` is the bare param tree), None for one whose state holds
+    the whole `{'params': ...}` dict (the postnet: `mu` is `{'params':
+    ...}`)."""
+
+    def __init__(self, model: torch.nn.Module, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, collection: Optional[str] = "params"):
+        self.model = model
+        self.collection = collection
+        self.named = list(model.named_parameters())
+        self.opt = torch.optim.Adam([p for _, p in self.named], lr=lr, betas=(b1, b2), eps=eps)
+        self.count = 0
+
+    def zero_grad(self):
+        self.opt.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self):
+        for _, p in self.named:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.opt.step()
+        self.count += 1
+
+    def _tree(self, values) -> Dict[str, Any]:
+        tree = export_flax_tree(self.model, values)
+        return tree[self.collection] if self.collection else tree
+
+    def export_optax(self) -> Dict[str, Any]:
+        """The state as flax serialises `optax.adam`'s (module docstring)."""
+        moments = _moments(self.opt, self.named)
+        return {"0": {"count": np.asarray(self.count, np.int32),
+                      "mu": self._tree({n: m[0] for n, m in moments.items()}),
+                      "nu": self._tree({n: m[1] for n, m in moments.items()})},
+                "1": {}}
+
+    def load_optax(self, opt_state: Mapping[str, Any]):
+        """Restore the moments and the step count from optax's layout; every
+        parameter must find its moments."""
+        inner = opt_state["0"]
+        self.count = int(inner["count"])
+        _load_moments(self.opt, self.named, flax_tree_leaves(inner["mu"], self.model),
+                      flax_tree_leaves(inner["nu"], self.model), self.count)
 
 
 def make_radnerf_optimizer(lr: float = 5e-4, warmup_updates: int = 0, b1: float = 0.9,

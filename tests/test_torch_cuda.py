@@ -697,3 +697,71 @@ def test_torso_step_on_card_matches_cpu(cuda_setup):
     _card_vs_cpu(lambda dev: TorsoNeRFTask(ds, cfg, hp, seed=5, device=dev), prepare,
                  lambda dev: ({"frame_idx": 3},), ["mse_loss", "torso_entropy", "deform_reg", "total_loss"],
                  1e-4, 2e-5, "torso step")
+
+
+def _rel_errors(got, ref):
+    """{name: max |got - ref| / max |ref|} over two dicts of CPU tensors."""
+    return {k: ((got[k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1e-30)).item() for k in ref}
+
+
+@pytest.mark.cuda
+def test_a2m_step_on_card_matches_cpu(cuda_setup):
+    """One A2MTask step of the full-width May a2m (11,840,768 variables) at
+    batch 8 x 64 frames, card vs CPU from the same weights, seeded Adam
+    state, windows and posterior noise, with cuDNN's TF32 flag on: losses
+    rtol 1e-5; the gradients, the updated parameters and the BatchNorm
+    statistics within 1e-5 of each tensor's largest entry (the a2m's
+    convolutions run in full float32 forward and backward)."""
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+    from genefaceplusplus_tpu_torch.training.tasks.a2m_task import A2MTask, A2MTaskConfig
+
+    assert cuda_setup  # skips without a card
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    ds = RADNeRFDataset(synthetic(num_frames=300, H=16, W=16, seed=4))
+    starts = torch.tensor([0, 17, 40, 66, 101, 150, 171, 190])
+    noise = torch.randn((8, 16, 16), generator=torch.Generator().manual_seed(6))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        task = A2MTask(ds, A2MTaskConfig(), seed=5, device=dev)
+        state = task.create_state()
+        state.opt.load_optax(_seeded_optax(state.opt.export_optax(), np.random.RandomState(3)))
+        state, metrics = task.train_step(state, {"starts": starts.to(dev)}, noise=noise)
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+                    {k: v.cpu() for k, v in state.model.state_dict().items() if not k.endswith("tracked")})
+    assert torch.backends.cudnn.allow_tf32
+    (m_c, g_c, p_c), (m_g, g_g, p_g) = out["cpu"], out["cuda"]
+    grads, params = _rel_errors(g_g, g_c), _rel_errors(p_g, p_c)
+    wg, wp = max(grads.items(), key=lambda kv: kv[1]), max(params.items(), key=lambda kv: kv[1])
+    print(f"[a2m step] card vs cpu, cudnn.allow_tf32=True: losses "
+          f"{[(k, abs(m_g[k] - m_c[k]) / abs(m_c[k])) for k in m_c]}; gradients max |d| / max |g| {wg[1]:.3e} "
+          f"({wg[0]}); updated tensors {wp[1]:.3e} ({wp[0]})")
+    for k in m_c:
+        np.testing.assert_allclose(m_g[k], m_c[k], rtol=1e-5, err_msg=k)
+    assert wg[1] <= 1e-5 and wp[1] <= 1e-5, (wg, wp)
+
+
+@pytest.mark.cuda
+def test_perceptual_gradient_on_card_matches_cpu(cuda_setup):
+    """The gradient of the small perceptual loss (the lip and SR steps') on
+    128^2 images, card vs CPU, with cuDNN's TF32 flag on: within 1e-5 of
+    its largest entry, and the loss rtol 1e-5."""
+    from genefaceplusplus_tpu_torch.training.perceptual import PerceptualLoss
+
+    assert cuda_setup  # skips without a card
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    g = torch.Generator().manual_seed(11)
+    pred, gt = torch.rand((2, 128, 128, 3), generator=g), torch.rand((2, 128, 128, 3), generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        loss_fn = PerceptualLoss(seed=0, device=dev)
+        x = pred.to(dev).detach().requires_grad_(True)
+        loss = loss_fn(x, gt.to(dev))
+        loss.backward()
+        out[dev] = (loss.item(), x.grad.cpu())
+    assert torch.backends.cudnn.allow_tf32
+    rel = _rel_errors({"grad": out["cuda"][1]}, {"grad": out["cpu"][1]})["grad"]
+    print(f"[perceptual] card vs cpu, cudnn.allow_tf32=True: loss {out['cuda'][0]:.6e} vs {out['cpu'][0]:.6e}; "
+          f"gradient max |d| / max |g| {rel:.3e}")
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    assert rel <= 1e-5, rel

@@ -135,7 +135,8 @@ def test_port_imports_no_jax_yaml_or_cv2():
         "       'data.audio', 'utils.msgpack', 'utils.ckpt', 'config.config', 'config.yaml_io', 'data.video',\n"
         "       'inference.metrics', 'inference.serving', 'inference.cli', 'training.run',\n"
         "       'training.perceptual', 'training.tasks.sr_task', 'training.tasks.torso_task',\n"
-        "       'training.trainer', 'training.schedulers', 'data.image_io']\n"
+        "       'training.trainer', 'training.schedulers', 'data.image_io', 'models.postnet.models',\n"
+        "       'training.tasks.a2m_task', 'training.tasks.postnet_task']\n"
         "assert all('genefaceplusplus_tpu_torch.' + m in sys.modules for m in new)\n"
         "print('modules', sum(k.startswith('genefaceplusplus_tpu_torch') for k in sys.modules))\n"
     )

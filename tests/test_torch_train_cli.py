@@ -305,11 +305,12 @@ def test_sigterm_checkpoints_and_the_rerun_continues(binary, tmp_path):
 
 
 def test_unported_tasks_and_no_card_raise(binary, tmp_path, monkeypatch):
-    """The a2m and postnet kinds raise naming queue A6; without a card the
-    CLI raises unless --device names one."""
-    for kind in ("a2m", "postnet"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            run.main(_argv(binary, "head", str(tmp_path / kind), task_cls=kind))
+    """What the tasks do not port raises (train-side compaction, the SR's
+    dual discriminator); without a card the CLI raises unless --device
+    names one."""
+    for stage, extra in (("head", {"train_compact_start": 5}), ("sr", {"lambda_dual_fm": 0.1})):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            run.main(_argv(binary, stage, str(tmp_path / stage), **extra))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = _argv(binary, "head", str(tmp_path / "card"))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -246,7 +246,9 @@ def test_a_config_only_dir_keeps_the_seeded_init(dirs, capsys):
 
 
 def test_postnet_dirs_raise(dirs):
-    with pytest.raises(NotImplementedError, match="postnet"):
+    """A postnet dir whose checkpoint restores no tensor of the postnet (an
+    a2m's) raises."""
+    with pytest.raises(ValueError, match="matched no parameters"):
         TInfer.from_work_dirs(postnet_dir=dirs["a2m"], head_model_dir=dirs["trained"], device="cpu")
 
 
@@ -362,7 +364,7 @@ def test_a_clip_past_the_avi_limit_raises_before_rendering(trained, tmp_path, mo
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--postnet_ckpt", "x"], "postnet"), (["--debug"], "panels"), (["--color_topk", "4"], "top-k"),
+    (["--debug"], "panels"), (["--color_topk", "4"], "top-k"),
     (["--compact_frac", "auto"], "compaction"), (["--compact_frac", "0.5"], "compaction"),
     (["--n_devices", "2"], "one card"),
 ])
