@@ -57,8 +57,17 @@ Phases (any failure exits non-zero, and no result line is printed):
               use_fused_field=True on a synthetic 512^2 identity: 20 steps of
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
               validation, a checkpoint and a resume; checked and timed
-  train_cli   one identity (16 synthetic 512^2 frames with torso images, as
-              trainval_dataset.npy) trained through the training CLI, each
+  train_cli   the host image codec (csrc/image_codec.cpp, built here with the
+              host compiler) decodes tests/torch_image_fixtures/ to the sha256
+              of cv2's decodes recorded beside them, and its encoder's bytes
+              for a seeded frame equal cv2.imencode's; then one identity in the
+              binarizer's layout (16 synthetic 512^2 frames: gt as
+              com_imgs/%08d.jpg written by the port's encoder at q95 4:2:0,
+              head and torso as RGBA head_imgs/ and inpaint_torso_imgs/%08d.png;
+              trainval_dataset.npy names the files and holds no image arrays;
+              512^2 JPEG and PNG decode and JPEG encode timed, median of 24,
+              and the frame store's load from the files) trained through the
+              training CLI, each
               stage in a process of its own, 12 steps at the egs/datasets/May
               configs (their widths, 65,536-ray batches, full 256^2 frames):
               lm3d_radnerf (lip steps from step 5), lm3d_radnerf_sr (SR and
@@ -1353,6 +1362,10 @@ TRAIN_CLI_METRICS = {"head": {"lpips_loss", "mse_loss", "weights_entropy_loss"},
                      "sr": {"sr_mse_loss", "lpips_loss", "sr_lpips_loss", "sr_lip_lpips_loss"},
                      "torso": {"torso_entropy", "deform_reg", "mse_loss"}}
 SERVE_TRAINED_FRAMES = 8
+# the binarizer's image files (genefaceplusplus_tpu/data/binarizer.py:121-123):
+# kind -> (directory, extension)
+BINARIZER_IMAGES = {"gt": ("com_imgs", "jpg"), "head": ("head_imgs", "png"), "torso": ("inpaint_torso_imgs", "png")}
+CODEC_REPS = 24  # decodes and encodes timed per reading
 # the trained dirs' float32 frames (the raw composite and the SR frame), card
 # vs CPU: tests/test_torch_cuda.py's FULL_FRAME_MAX and FULL_FRAME_MEAN (the
 # head's float32 products sum in another order on the card; measured 5.1e-4
@@ -1454,10 +1467,93 @@ def run_until_sigterm(argv, work_dir: str, after_step: int, max_steps: int, log_
     return preempted_at
 
 
+def host_cpu() -> str:
+    """The host CPU's model name (or vendor, family and model) and count."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    name = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("vendor_id", "cpu family", "model") if k in fields) or platform.machine()
+    return f"{name} x{os.cpu_count()}"
+
+
+def codec_check():
+    """The host image codec, built on this machine from csrc/image_codec.cpp:
+    tests/torch_image_fixtures/ decode to the sha256 of cv2's decodes
+    recorded in its sha256.json, and the encoder's bytes for its seeded
+    frame to the sha256 of cv2.imencode's at its defaults (q95, 4:2:0)."""
+    import hashlib
+
+    from genefaceplusplus_tpu_torch.data import image_io
+
+    t0 = time.perf_counter()
+    lib = image_io.build_codec()
+    build_s = time.perf_counter() - t0
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_image_fixtures")
+    with open(os.path.join(fixtures, "sha256.json")) as f:
+        want = json.load(f)
+    for name, sha in want["decode"].items():
+        got = image_io.read_image(os.path.join(fixtures, name))
+        check(hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest() == sha,
+              f"fixture {name} decodes to another image than cv2's")
+    rgb = np.load(os.path.join(fixtures, want["encode"]["input"]))
+    check(hashlib.sha256(image_io.jpeg_bytes(rgb)).hexdigest() == want["encode"]["sha256"],
+          "encoder bytes differ from cv2.imencode's at q95 4:2:0")
+    print(f"[train_cli] image codec built in {build_s:.1f} s ({os.path.basename(str(lib))}, "
+          f"{image_io._find_cxx()}): {len(want['decode'])} fixtures decode to cv2's sha256, the encoder's bytes "
+          "equal cv2.imencode's at q95 4:2:0")
+
+
+def decode_readings(ds_dict: dict, dev) -> dict:
+    """Host wall per 512^2 JPEG decode, RGBA PNG decode and JPEG encode
+    (median of CODEC_REPS over the identity's files), and the frame store's
+    load of the train split from the files, per frame."""
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset
+    from genefaceplusplus_tpu_torch.data.image_io import jpeg_bytes, read_image
+    from genefaceplusplus_tpu_torch.training.frame_store import base_device_frames
+
+    samples = ds_dict["train_samples"] + ds_dict["val_samples"]
+
+    def timed(fn, args):
+        ms = []
+        for k in range(CODEC_REPS):
+            t0 = time.perf_counter()
+            fn(args[k % len(args)])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms), min(ms)
+
+    jpgs = [s["gt_img_fname"] for s in samples]
+    pngs = [s["torso_img_fname"] for s in samples]
+    frames = [read_image(p) for p in jpgs[:4]]
+    for p in pngs[:2]:
+        check(read_image(p).shape == (SIZE, SIZE, 4), f"{p}: not RGBA")
+    out = {"jpeg_bytes": os.path.getsize(jpgs[0]), "png_bytes": os.path.getsize(pngs[0])}
+    out["jpeg_decode_ms"], out["jpeg_decode_min"] = timed(read_image, jpgs)
+    out["png_decode_ms"], out["png_decode_min"] = timed(read_image, pngs)
+    out["jpeg_encode_ms"], out["jpeg_encode_min"] = timed(jpeg_bytes, frames)
+    ds = RADNeRFDataset(ds_dict, with_sr=True)  # as training/run.py builds it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store = base_device_frames(ds, dev)
+    torch.cuda.synchronize()
+    out["store_frames"] = len(ds)
+    out["store_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / len(ds)
+    check(tuple(store["gt"].shape) == (len(ds), SIZE // 2, SIZE // 2, 3), "frame store from the files")
+    return out
+
+
 def phase_train_cli(dev):
     import tempfile
 
     from genefaceplusplus_tpu_torch.data.dataset import synthetic
+    from genefaceplusplus_tpu_torch.data.image_io import write_jpeg, write_png
     from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
     from genefaceplusplus_tpu_torch.models.full_renderer import render_full_frame
     from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
@@ -1469,16 +1565,40 @@ def phase_train_cli(dev):
     repo = os.path.dirname(os.path.abspath(__file__))
     root = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
     try:
+        codec_check()
+        # the binarizer's layout: the record names the image files and holds
+        # no image arrays
         ds_dict = synthetic(num_frames=TRAIN_CLI_FRAMES, H=SIZE, W=SIZE, seed=0)
+        processed = os.path.join(root, "processed", "syn")
         rs = np.random.RandomState(1)
         for s in ds_dict["train_samples"] + ds_dict["val_samples"]:
-            torso = rs.rand(SIZE, SIZE, 4).astype(np.float32)
-            torso[..., 3] = torso[..., 3] > 0.5
-            s["torso_img"] = torso
+            torso = np.round(rs.rand(SIZE, SIZE, 4) * 255).astype(np.uint8)
+            torso[..., 3] = (torso[..., 3] > 127) * 255
+            gt = np.round(s.pop("gt_img") * 255).astype(np.uint8)
+            head = np.concatenate([gt, ((rs.rand(SIZE, SIZE, 1) > 0.5) * 255).astype(np.uint8)], -1)
+            for kind, img in (("gt", gt), ("head", head), ("torso", torso)):
+                sub, ext = BINARIZER_IMAGES[kind]
+                path = os.path.join(processed, sub, f"{s['idx']:08d}.{ext}")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                if ext == "jpg":
+                    write_jpeg(path, img)  # q95 4:2:0, cv2.imwrite's defaults
+                else:
+                    write_png(path, img)
+                s[f"{kind}_img_fname"] = path
+        check(not any(k.endswith("_img") for s in ds_dict["train_samples"] for k in s), "record holds images")
         binary = os.path.join(root, "binary")
         os.makedirs(os.path.join(binary, "syn"))
         np.save(os.path.join(binary, "syn", "trainval_dataset.npy"), ds_dict, allow_pickle=True)
+        codec = decode_readings(ds_dict, dev)
         del ds_dict
+        print(f"[train_cli] {card_line()}; host {host_cpu()}; image codec (host wall, median of "
+              f"{CODEC_REPS}): {SIZE}x{SIZE} JPEG decode {codec['jpeg_decode_ms']:.3f} ms (min "
+              f"{codec['jpeg_decode_min']:.3f}), RGBA PNG decode {codec['png_decode_ms']:.3f} ms (min "
+              f"{codec['png_decode_min']:.3f}), JPEG encode q95 4:2:0 {codec['jpeg_encode_ms']:.3f} ms (min "
+              f"{codec['jpeg_encode_min']:.3f}); frame store from the files {codec['store_ms_per_frame']:.3f} ms "
+              f"a frame ({codec['store_frames']} gt frames decoded and resized to {SIZE // 2}^2, then on the card); "
+              f"JPEG {codec['jpeg_bytes']} bytes, PNG {codec['png_bytes']} bytes a frame (noise: entropy "
+              f"decoding's worst case)")
         dirs = {s: os.path.join(root, s) for s in TRAIN_CLI_STAGES}
         common = (f"binary_data_dir={binary},video_id=syn,max_updates={TRAIN_CLI_STEPS},val_check_interval=6,"
                   f"update_extra_interval={TRAIN_CLI_START},tb_log_interval=1")
@@ -1525,7 +1645,8 @@ def phase_train_cli(dev):
                 with open(p, "rb") as f:
                     check(f.read(1)[0] in MSGPACK_MAP_FIRST_BYTES, f"{p} is not flax msgpack")
         lip_steps = sum("lpips_loss" in x for x in _stage_metrics(dirs["head"]))
-        print(f"[train_cli] {TRAIN_CLI_FRAMES} frames of {SIZE}x{SIZE} with torso images; three stages through "
+        print(f"[train_cli] {TRAIN_CLI_FRAMES} frames of {SIZE}x{SIZE} as image files (gt JPEG q95 4:2:0, head and "
+              f"torso RGBA PNG); three stages through "
               f"the training CLI, {TRAIN_CLI_STEPS} steps each, {wall:.1f} s of wall: every loss finite, each "
               f"checkpoint flax msgpack and equal to the live state bit for bit; head: {lip_steps} lip steps "
               f"from step {TRAIN_CLI_START + 1}; sr: SR and perceptual terms from step {TRAIN_CLI_START + 1}, "

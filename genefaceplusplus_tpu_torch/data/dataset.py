@@ -3,24 +3,28 @@ imports jax through `utils/rotation.py` and cv2 for images).
 
 Kept: the binarizer record format, ngp poses (the eval split's smoothed
 camera path included), the normalised landmark conditions, eye-area
-percents, the background, images from the record's in-memory `*_img`
-arrays (at the render size, or with `full_res` at the stored size: the SR
-task's 2x targets), the torso-composited background, the convex-hull face mask (numpy,
-no cv2), `synthetic()`, and `with_sr=True`: the SR models' half-resolution
-render size, with scaled intrinsics and the background and images resized
-bilinearly (`resize_bilinear`, where cv2.INTER_LINEAR samples). Images read
-from files need a decoder and are not ported (ROADMAP queue A).
+percents, the background, images from the files the record names (the
+binarizer's `com_imgs/*.jpg`, `head_imgs/*.png`, `inpaint_torso_imgs/*.png`,
+decoded by `data/image_io.py` as cv2 decodes them) or from its in-memory
+`*_img` arrays, at the render size or with `full_res` at the stored size
+(the SR task's 2x targets), behind JAX's 1 GiB LRU cache; the
+torso-composited background, the convex-hull face mask (numpy, no cv2),
+`synthetic()`, and `with_sr=True`: the SR models' half-resolution render
+size, with scaled intrinsics and the background and images resized
+bilinearly (`resize_bilinear`, where cv2.INTER_LINEAR samples).
 """
 
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from genefaceplusplus_tpu_torch.data.image_io import read_image
 from genefaceplusplus_tpu_torch.utils.rotation import nerf_matrix_to_ngp
 from genefaceplusplus_tpu_torch.utils.smoothing import smooth_camera_sequence
 
@@ -106,7 +110,11 @@ class RADNeRFDataset:
         self.samples: List[Dict] = ds[f"{split}_samples"]
         self.cond_win_size = cond_win_size
         self.smo_win_size = smo_win_size
-        self._img_cache: Dict[tuple, np.ndarray] = {}
+        # decoded images, uint8 at their target size, least recently used
+        # first; evicted past img_cache_mb as in JAX
+        self._img_cache: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+        self._img_cache_bytes = 0
+        self.img_cache_mb = 1024
 
         c2ws = np.stack([s["c2w"] for s in self.samples])
         poses = np.stack([
@@ -151,34 +159,46 @@ class RADNeRFDataset:
         win[~valid] = 0.0
         return win
 
+    def _cache_put(self, key, u8: np.ndarray):
+        self._img_cache[key] = u8
+        self._img_cache_bytes += u8.nbytes
+        cap = self.img_cache_mb * 2 ** 20
+        while self._img_cache_bytes > cap and self._img_cache:
+            _, old = self._img_cache.popitem(last=False)
+            self._img_cache_bytes -= old.nbytes
+
     def load_image(self, i: int, kind: str = "gt", with_alpha: bool = False,
                    full_res: bool = False) -> Optional[np.ndarray]:
         """gt/head/torso image of frame i as float [H, W, 3] in [0, 1] (or
-        [H, W, 4] with `with_alpha` when the stored image has alpha), from
-        the record's `{kind}_img` array, quantised through uint8 exactly as
-        the JAX dataset's image cache does. With `full_res` the image keeps
-        the record's stored size (ds['H'], ds['W']) instead of the render
-        size. None when the record has none."""
+        [H, W, 4] with `with_alpha` when the stored image has alpha). The
+        file the record names as `{kind}_img_fname` wins when it exists
+        (`read_image`: PNG or baseline JPEG, as cv2 decodes them); else the
+        record's `{kind}_img` array; else None. Divided by 255 when its max
+        exceeds 1.5, resized bilinearly when its height is not the target's,
+        quantised through uint8 and kept in the LRU cache (`img_cache_mb`),
+        as the JAX dataset does. With `full_res` the image keeps the
+        record's stored size (ds['H'], ds['W']) instead of the render size."""
         target_h = int(self.ds["H"]) if full_res else self.H
         target_w = int(self.ds["W"]) if full_res else self.W
         key = (i, kind, full_res)
         u8 = self._img_cache.get(key)
-        if u8 is None:
-            arr = self.samples[i].get(f"{kind}_img")
-            if arr is None:
-                fname = self.samples[i].get(f"{kind}_img_fname")
-                if fname is not None and os.path.exists(fname):
-                    raise NotImplementedError(f"{fname}: image files need a decoder (cv2), "
-                                              "which the port does not use; store the images "
-                                              f"in the record as '{kind}_img'")
-                return None
-            img = np.asarray(arr, np.float32)
+        if u8 is not None:
+            self._img_cache.move_to_end(key)
+        else:
+            fname = self.samples[i].get(f"{kind}_img_fname")
+            if fname is not None and os.path.exists(fname):
+                img = read_image(fname).astype(np.float32)
+            else:
+                arr = self.samples[i].get(f"{kind}_img")
+                if arr is None:
+                    return None
+                img = np.asarray(arr, np.float32)
             if img.max() > 1.5:
                 img = img / 255.0
             if img.shape[0] != target_h:
                 img = resize_bilinear(img, target_h, target_w)
             u8 = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
-            self._img_cache[key] = u8
+            self._cache_put(key, u8)
         img = u8.astype(np.float32) / 255.0
         return img if (with_alpha and img.shape[-1] == 4) else img[..., :3]
 

@@ -29,11 +29,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
 import os
 import shutil
-import subprocess
 import weakref
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
@@ -44,6 +42,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from genefaceplusplus_tpu_torch.ops.fastmath import fast_cos, fast_sin, fast_tanh
 from genefaceplusplus_tpu_torch.ops.fourier_encoder import project
+from genefaceplusplus_tpu_torch.utils.build import compile_libraries, keyed_library
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"fused_field": CSRC / "fused_field.cu", "fused_field_bwd": CSRC / "fused_field_bwd.cu",
@@ -511,9 +510,8 @@ def _find_nvcc() -> str:
 def _library_path(name: str) -> Path:
     """build/kernels/lib<name>-<key>.so, keyed by the hash of the source,
     the shared header and the flags (a changed source rebuilds)."""
-    blob = SOURCES[name].read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
-    key = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    return keyed_library(BUILD_DIR, name, [SOURCES[name].read_bytes(), *(h.read_bytes() for h in HEADERS),
+                                           " ".join(NVCC_FLAGS).encode()])
 
 
 def build_kernels(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Path]:
@@ -521,28 +519,10 @@ def build_kernels(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Path]:
     started together. Returns {name: library path}; nvcc's -Xptxas -v report
     sits beside each library as `.log`."""
     out = {name: _library_path(name) for name in names}
-    todo = [name for name in names if not out[name].exists()]
-    if not todo:
+    if all(lib.exists() for lib in out.values()):
         return out
     nvcc = _find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in todo:
-        tmp = out[name].with_name(f"{out[name].stem}.{os.getpid()}.tmp.so")
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed on {SOURCES[name]} (rc {proc.returncode}):\n{stdout}\n{stderr}")
-            continue
-        out[name].with_suffix(".log").write_text(stdout + stderr)
-        os.replace(tmp, out[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
+    compile_libraries({out[name]: [nvcc, *NVCC_FLAGS, str(SOURCES[name])] for name in names}, keep_log=True)
     return out
 
 

@@ -117,14 +117,14 @@ def test_gt_driven_frames_match_jax(pair):
 
 def test_port_imports_no_jax_yaml_or_cv2():
     """Importing every module of the port, and running the inference and
-    training CLIs' --help, loads none of jax, flax, yaml, msgpack, cv2,
+    training CLIs' --help, loads none of jax, flax, yaml, msgpack, cv2, PIL,
     imageio or the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import genefaceplusplus_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in ('jax', 'flax', 'yaml', 'msgpack', 'cv2', 'imageio', 'genefaceplusplus_tpu')\n"
+        "bad = [m for m in ('jax', 'flax', 'yaml', 'msgpack', 'cv2', 'PIL', 'imageio', 'genefaceplusplus_tpu')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
         "new = ['ops.freq_encoder', 'ops.bias_act', 'ops.upfirdn2d', 'models.superresolution',\n"
@@ -136,7 +136,8 @@ def test_port_imports_no_jax_yaml_or_cv2():
         "       'inference.metrics', 'inference.serving', 'inference.cli', 'training.run',\n"
         "       'training.perceptual', 'training.tasks.sr_task', 'training.tasks.torso_task',\n"
         "       'training.trainer', 'training.schedulers', 'data.image_io', 'models.postnet.models',\n"
-        "       'training.tasks.a2m_task', 'training.tasks.postnet_task']\n"
+        "       'training.tasks.a2m_task', 'training.tasks.postnet_task',\n"
+        "       'utils.build']\n"
         "assert all('genefaceplusplus_tpu_torch.' + m in sys.modules for m in new)\n"
         "print('modules', sum(k.startswith('genefaceplusplus_tpu_torch') for k in sys.modules))\n"
     )
@@ -150,7 +151,7 @@ def test_port_imports_no_jax_yaml_or_cv2():
             "    runpy.run_module('genefaceplusplus_tpu_torch.inference.cli', run_name='__main__')\n"
             "except SystemExit:\n"
             "    pass\n"
-            "bad = [m for m in ('jax', 'flax', 'yaml', 'msgpack', 'cv2', 'imageio', 'genefaceplusplus_tpu')\n"
+            "bad = [m for m in ('jax', 'flax', 'yaml', 'msgpack', 'cv2', 'PIL', 'imageio', 'genefaceplusplus_tpu')\n"
             "       if m in sys.modules]\n"
             "assert not bad, bad\n")
     for module, flags in (("inference.cli", ("--drv_aud_features", "--device")),

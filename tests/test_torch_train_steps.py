@@ -373,7 +373,7 @@ def test_load_image_full_res_matches_jax(ds_dict):
     """with_sr datasets: the render-size image and the stored-size one
     (full_res) equal JAX's, exactly (uint8 quantised; the stored 32^2 needs
     no resize, the 16^2 one is bilinear as cv2's, held to 1 level), and a
-    record naming only a file still raises."""
+    record naming a file that is no image raises ValueError naming it."""
     ds_j = j_data.RADNeRFDataset(ds_dict, smo_win_size=3, with_sr=True)
     ds_t = t_data.RADNeRFDataset(ds_dict, smo_win_size=3, with_sr=True)
     for i in (0, 3):
@@ -389,7 +389,7 @@ def test_load_image_full_res_matches_jax(ds_dict):
     path = os.path.join(os.path.dirname(__file__), "test_torch_train_steps.py")
     d["train_samples"][0].pop("gt_img")
     d["train_samples"][0]["gt_img_fname"] = path
-    with pytest.raises(NotImplementedError, match="decoder"):
+    with pytest.raises(ValueError, match="test_torch_train_steps.py: not a PNG or JPEG file"):
         t_data.RADNeRFDataset(d, with_sr=True).load_image(0, "gt", full_res=True)
 
 
