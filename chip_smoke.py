@@ -53,7 +53,27 @@ Phases (any failure exits non-zero, and no result line is printed):
               frame); stream_infer over 8 s in 2 s chunks (no drift, an exact
               resume tail); timed (load, CLI wall, time to first frame, ms a
               frame)
-  train       HeadNeRFTask + Trainer.fit at the same config with
+  serve_long  serve_cli's GeneFaceInfer: infer_once on 56 s of features, 1,400
+              full frames at 512^2 with their audio, an AVI 2.0 (OpenDML) of
+              1.10 GB in two RIFF segments; each rendered frame's sha256 held
+              to the frame read back by data/video.py's read_avi, every sample
+              to pcm16(wav16k), the segments and the dmlh total checked; ms a
+              frame, the writer's and the reader's MB/s
+  convert     a seeded fake of the reference's a2m checkpoint (legacy
+              torch.save, its layout at full width) converted by
+              tools/convert_ckpt.py and loaded on the card by from_work_dirs with
+              serve_cli's torso dir: every a2m tensor equal to the mapping's, the
+              temperature-0 a2m output held to the CPU's, 100 audio-driven frames
+              served from it; timed (convert, load, serve)
+  serve_app   inference/app.py's server on a loopback port over serve_cli's
+              GeneFaceInfer: a raw-socket WebSocket client and a POST /stream
+              (MJPEG) client each receive every frame of the 4 s request at
+              temperature 0, each byte-equal to jpeg_bytes of a direct
+              stream_infer's frame (a mismatch's decoded PSNR is printed
+              before the check fails); GET /metrics parses, GET
+              / is the form, POST /infer returns the AVI; time to first frame and
+              frame cadence over both
+  train      HeadNeRFTask + Trainer.fit at the same config with
               use_fused_field=True on a synthetic 512^2 identity: 20 steps of
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
               validation, a checkpoint and a resume; checked and timed
@@ -97,7 +117,8 @@ Phases (any failure exits non-zero, and no result line is printed):
               timed (ms/step, peak memory, the postnet by CUDA events,
               audio2secc with and without it, ms a frame)
 
-Output: the card's name and power limit first; one JSON line
+Output: the card's name and power limit first; before serve_cli, whether
+an `ffmpeg` binary is on the PATH (shutil.which); one JSON line
 {"kernels": [...]} before the last; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -109,9 +130,11 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -153,6 +176,9 @@ A2M_CARD_MAX = 1e-4
 # output: the bounds of tests/test_torch_audio_drive.py (cond after the
 # stored-std normalisation; lm68 relative to max(1, |value|))
 COND_CARD_MAX, LM68_CARD_REL = 1e-4, 1e-3
+# serve_long: a clip past AVI 1.0's 1 GiB, 56 s of the 512^2 full frame with
+# its audio (1,102,894,194 bytes, two RIFF segments)
+LONG_FRAMES = 1400
 
 N_RAYS, TRAIN_SAMPLES = 65536, 16  # egs/egs_bases/radnerf/base.yaml
 N_TRAIN_POINTS = N_RAYS * TRAIN_SAMPLES
@@ -711,8 +737,6 @@ def voiced_wav(seconds: float, f_start: float, f_end: float, seed: int) -> np.nd
 
 
 def phase_serve_audio(dev):
-    import tempfile
-
     from genefaceplusplus_tpu_torch.data.audio import extract_f0
     from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
     from genefaceplusplus_tpu_torch.inference import pipeline
@@ -881,48 +905,16 @@ def phase_serve_audio(dev):
     return launches
 
 
-def read_avi(path: str):
-    """(frames [T, H, W, 3] RGB uint8, int16 PCM) of an uncompressed AVI, read
-    from its RIFF chunks: 24-bit bottom-up BGR frames ('00db'), PCM audio
-    ('01wb')."""
-    import struct
-
-    with open(path, "rb") as f:
-        data = f.read()
-    check(data[:4] == b"RIFF" and data[8:12] == b"AVI " and struct.unpack("<I", data[4:8])[0] == len(data) - 8,
-          f"{path}: not a RIFF AVI of its own length")
-    frames, pcm, bmp = [], [], []
-
-    def walk(lo, hi):
-        i = lo
-        while i < hi:
-            ck, n = data[i:i + 4], struct.unpack("<I", data[i + 4:i + 8])[0]
-            body = data[i + 8:i + 8 + n]
-            if ck == b"LIST":
-                walk(i + 12, i + 8 + n)
-            elif ck == b"strf" and n == 40:
-                bmp.append(struct.unpack("<IiiHH", body[:16]))
-            elif ck == b"00db":
-                _, w, h, _, bits = bmp[0]
-                check(bits == 24 and h > 0, f"frame format: {bits} bits, height {h}")
-                stride = (w * 3 + 3) // 4 * 4
-                frames.append(np.frombuffer(body, np.uint8).reshape(h, stride)[::-1, :w * 3]
-                              .reshape(h, w, 3)[:, :, ::-1])
-            elif ck == b"01wb":
-                pcm.append(np.frombuffer(body, "<i2"))
-            i += 8 + n + (n & 1)
-
-    walk(12, len(data))
-    return np.stack(frames), (np.concatenate(pcm) if pcm else np.zeros(0, np.int16))
-
-
-def phase_serve_cli(dev):
+def phase_serve_cli(dev, work: str):
+    """serve_cli (module docstring) in `work`; returns (its B1 launches, what
+    serve_long, convert and serve_app reuse: the card's GeneFaceInfer of the
+    work dirs, the torso dir, the 4 s request's features file and its audio)."""
     import contextlib
-    import tempfile
 
     from genefaceplusplus_tpu_torch.config import load_config
     from genefaceplusplus_tpu_torch.data.audio import extract_f0, pcm16
     from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+    from genefaceplusplus_tpu_torch.data.video import read_avi
     from genefaceplusplus_tpu_torch.inference import cli
     from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer, default_inp
     from genefaceplusplus_tpu_torch.inference.serving import stream_infer
@@ -945,157 +937,476 @@ def phase_serve_cli(dev):
         finally:
             os.chdir(cwd)
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    binary, vid = os.path.join(work, "binary"), "May"
+    os.makedirs(os.path.join(binary, vid))
+    np.save(os.path.join(binary, vid, "trainval_dataset.npy"), synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0),
+            allow_pickle=True)
+    a2m_dir, head_dir, torso_dir = (os.path.join(work, d) for d in ("a2m", "head_sr", "torso"))
+    with in_repo():
+        a2m_yaml = load_config("egs/datasets/May/audio2motion_vae.yaml")
+        head_yaml = load_config("egs/datasets/May/lm3d_radnerf_sr.yaml")
+        torso_yaml = load_config("egs/datasets/May/lm3d_radnerf_torso_sr.yaml")
+    t0 = time.perf_counter()
+    save_flax_checkpoint(a2m_dir, 40000, {"state_dict": {"variables": export_flax_params(models["a2m"]),
+                                                         "opt_state": {}}}, config=a2m_yaml)
+    save_flax_checkpoint(head_dir, 250000, {
+        "state_dict": {"params": {"head": export_flax_params(models["head"]), "sr": export_flax_params(models["sr"])},
+                       "opt_state": {}},
+        "extra_state": {"occupancy": occ}}, config=dict(head_yaml, binary_data_dir=binary, video_id=vid))
+    save_flax_checkpoint(torso_dir, 200000, {
+        "state_dict": {"torso_params": export_flax_params(models["torso"]), "opt_state": {}},
+        "extra_state": {"torso_grid": grid}},
+        config=dict(torso_yaml, head_model_dir=head_dir, binary_data_dir=binary, video_id=vid))
+    write_ms = (time.perf_counter() - t0) * 1e3
+    sizes = {d: sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) for d in (a2m_dir, head_dir, torso_dir)}
+    print(f"[serve_cli] wrote three JAX-layout work dirs ({', '.join(f'{os.path.basename(d)} {n / 2 ** 20:.1f} MiB' for d, n in sizes.items())}) "
+          f"in {write_ms:.1f} ms; configs egs/datasets/May/{{audio2motion_vae,lm3d_radnerf_sr,"
+          f"lm3d_radnerf_torso_sr}}.yaml resolved by the port's loader")
+
+    # loading: every tensor as written; grids and crops as a directly built GeneFaceInfer's
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infer = GeneFaceInfer.from_work_dirs(audio2secc_dir=a2m_dir, torso_model_dir=torso_dir, device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    for name, model in (("head", infer.head_model), ("torso", infer.torso_model), ("sr", infer.sr_model),
+                        ("a2m", infer.a2m_model)):
+        got = model.state_dict()
+        check(set(got) == set(written[name]), f"{name}: loaded keys differ from the written ones")
+        bad = [k for k in got if not torch.equal(got[k].cpu(), written[name][k])]
+        check(not bad, f"{name}: {len(bad)} tensors differ from the written ones, e.g. {bad[:3]}")
+    check(infer.head_cfg == cfg and infer.torso_cfg == tcfg, "head or torso config of the work dirs")
+    check(all(infer.a2m_cfg.get(k) == v for k, v in hp.items()), "a2m config of the work dir")
+    ds = RADNeRFDataset(synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0), smo_win_size=cfg.smo_win_size,
+                        with_sr=True)
+    direct = GeneFaceInfer(cfg, written["head"], ds, occ, device=dev, torso_cfg=tcfg,
+                           torso_params=written["torso"], sr_params=written["sr"], torso_occupancy_2d=grid,
+                           a2m_hparams=hp, a2m_params=written["a2m"])
+    check(torch.equal(infer.occupancy, direct.occupancy), "occupancy grid")
+    check(torch.equal(infer.torso_occupancy_2d, direct.torso_occupancy_2d), "torso grid")
+    check((infer.head_crop, infer.torso_crop, infer.sr_crop) == (direct.head_crop, direct.torso_crop,
+                                                                direct.sr_crop), "crops")
+    check((infer.sr_bg is None) == (direct.sr_bg is None)
+          and (infer.sr_bg is None or torch.equal(infer.sr_bg, direct.sr_bg)), "SR background")
+    print(f"[serve_cli] from_work_dirs(a2m, torso): {load_ms:.3f} ms; head, torso, SR and a2m tensors equal to "
+          f"the written ones bit for bit; occupancy, torso grid and crops (head {infer.head_crop}, torso "
+          f"{infer.torso_crop}, sr {infer.sr_crop}) equal to the direct GeneFaceInfer's")
+
+    # the CLI: 4 s of features with their audio -> an AVI
+    rs = np.random.RandomState(200)
+    wav = voiced_wav(AUDIO_SECONDS, 130.0, 190.0, seed=7)
+    feats = {"hubert": rs.randn(HUBERT_FRAMES, 1024).astype(np.float32),
+             "f0": extract_f0(wav, mel_len=HUBERT_FRAMES), "wav16k": wav}
+    fpath = os.path.join(work, "request.npy")
+    np.save(fpath, feats, allow_pickle=True)
+    torch.cuda.synchronize()
+    ff.fused_field.launches = 0  # count only the main path's launches
+    t0 = time.perf_counter()
+    out = cli.main(["--a2m_ckpt", a2m_dir, "--torso_ckpt", torso_dir, "--drv_aud_features", fpath,
+                    "--out_name", os.path.join(work, "out.mp4")])
+    cli_ms = (time.perf_counter() - t0) * 1e3
+    cli_launches = ff.fused_field.launches
+    T = HUBERT_FRAMES // 2
+    check(out == os.path.join(work, "out.avi"), f"the CLI wrote {out}")
+    frames, pcm = read_avi(out)
+    check(frames.shape == (T, 2 * ds.H, 2 * ds.W, 3), f"AVI frames {frames.shape}")
+    check(np.array_equal(pcm, pcm16(wav)), "AVI audio vs pcm16(wav16k)")
+    check(cli_launches == T, f"fused_field launched {cli_launches} times for {T} CLI frames")
+    direct.generator.manual_seed(42)  # the CLI's GeneFaceInfer draws from a fresh generator seeded 42
+    inp = default_inp(drv_aud_features=fpath)
+    t0 = time.perf_counter()
+    ref = np.stack(list(direct.forward_secc2video(direct.forward_audio2secc(direct.prepare_batch_from_inp(inp),
+                                                                            inp), inp)))
+    direct_ms = (time.perf_counter() - t0) * 1e3
+    differ = [i for i in range(T) if not np.array_equal(frames[i], ref[i])]
+    if differ:
+        d = np.abs(frames[differ[0]].astype(np.int16) - ref[differ[0]])
+        print(f"[serve_cli] AVI frames differing from the direct GeneFaceInfer's: {differ[:10]} "
+              f"(frame {differ[0]}: max |d| {d.max()}, {int((d > 0).sum())} values)")
+    check(not differ, "the CLI's frames vs the direct GeneFaceInfer's for the same input and draw")
+    check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "CLI frames do not vary")
+    print(f"[serve_cli] {card_line()}; CLI (features -> {os.path.basename(out)}, "
+          f"{os.path.getsize(out) / 2 ** 20:.1f} MiB): {T} frames of {2 * ds.H}x{2 * ds.W} equal to the direct "
+          f"GeneFaceInfer's bit for bit, PCM equal to pcm16(wav16k) ({len(pcm)} samples), {cli_launches} "
+          f"fused_field launches; wall {cli_ms:.1f} ms (work-dir load, audio2secc, render, AVI); the same request "
+          f"through the direct GeneFaceInfer (audio2secc, render, no file) {direct_ms:.1f} ms, "
+          f"{direct_ms / T:.3f} ms a frame")
+
+    # the stream: 8 s in 2 s chunks, then a resume at the first chunk boundary
+    swav = voiced_wav(STREAM_SECONDS, 110.0, 220.0, seed=9)
+    sinp = {"hubert_full": rs.randn(int(STREAM_SECONDS * 50), 1024).astype(np.float32)}
+    chunk_frames, launched_at = [], []
+    launch = infer.launch_secc2video
+
+    def counted(batch, *a, **kw):
+        chunk_frames.append(int(batch["T"]))
+        out = launch(batch, *a, **kw)
+        launched_at.append(time.perf_counter())
+        return out
+
+    infer.launch_secc2video = counted
+    infer.generator.manual_seed(42)
+    torch.cuda.synchronize()
+    ff.fused_field.launches = 0
+    stamps, full = [], []
+    t0 = time.perf_counter()
+    for f in stream_infer(infer, swav, sinp, chunk_seconds=STREAM_CHUNK_SECONDS):
+        stamps.append(time.perf_counter())
+        full.append(f)
+    n = len(full)
+    k = chunk_frames[0]
+    infer.generator.manual_seed(42)  # replay the draw of the first chunk
+    torch.randn((1, infer.a2m_model.vae.latent_length(k), infer.a2m_model.vae.latent_size),
+                generator=infer.generator, device=dev)
+    resumed = list(stream_infer(infer, swav, dict(sinp, resume_from_frame=k), chunk_seconds=STREAM_CHUNK_SECONDS))
+    stream_launches = ff.fused_field.launches
+    infer.launch_secc2video = launch
+    tail = len(swav) - n * 2 * 320
+    check(0 <= tail < 16000 // 5, f"{n} frames for {len(swav)} samples: {tail} samples unconsumed (drift)")
+    check(len(resumed) == n - k and all(np.array_equal(a, b) for a, b in zip(resumed, full[k:])),
+          f"the stream resumed at frame {k} vs the uninterrupted stream's tail")
+    check(stream_launches == n + len(resumed), f"fused_field launched {stream_launches} times for "
+                                               f"{n + len(resumed)} streamed frames")
+    ttff = (stamps[0] - t0) * 1e3
+    ends = list(np.cumsum(chunk_frames))
+    check(n in ends, f"{n} frames are not whole chunks {chunk_frames}")
+    m = ends.index(n) + 1  # the uninterrupted stream's chunks
+    # a chunk's cycle: from the last chunk's launch to its own (its a2m,
+    # its render launched, the last chunk's frames drained), a frame
+    per_chunk = [(launched_at[i] - launched_at[i - 1]) * 1e3 / chunk_frames[i]
+                 for i in range(1, m) if chunk_frames[i] == k]
+    print(f"[serve_cli] stream_infer over {STREAM_SECONDS} s in {STREAM_CHUNK_SECONDS} s chunks: {n} frames "
+          f"(chunks {chunk_frames[:m]}), {tail} samples unconsumed (< 0.2 s: no drift); resumed at "
+          f"frame {k}: {len(resumed)} frames equal to the uninterrupted tail bit for bit; {stream_launches} "
+          f"fused_field launches for {n + len(resumed)} frames")
+    print(f"[serve_cli] {card_line()}; stream: time to first frame {ttff:.3f} ms (the first chunk of {k} "
+          f"frames rendered, the second launched); ms a frame by chunk cycle, full chunks 2..: "
+          f"{', '.join(f'{x:.3f}' for x in per_chunk)} (median {statistics.median(per_chunk):.3f}); wall "
+          f"{(stamps[-1] - t0) * 1e3:.1f} ms for {n} frames ({(stamps[-1] - t0) * 1e3 / n:.3f} ms a frame)")
+    return cli_launches + stream_launches, {"infer": infer, "torso": torso_dir, "request": fpath, "wav": wav,
+                                            "hp": hp, "work": work}
+
+
+def phase_serve_long(dev, served) -> int:
+    """serve_long (module docstring); returns its B1 launches."""
+    import hashlib
+    import struct
+
+    from genefaceplusplus_tpu_torch.data.audio import pcm16
+    from genefaceplusplus_tpu_torch.data.video import AVI_MAX_BYTES, StreamingVideoWriter, avi_bytes, read_avi
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+
+    infer, work, T = served["infer"], served["work"], LONG_FRAMES
+    H, W = 2 * infer.dataset.H, 2 * infer.dataset.W
+    rs = np.random.RandomState(300)
+    wav = voiced_wav(T / 25.0, 120.0, 200.0, seed=11)
+    fpath = os.path.join(work, "long_request.npy")
+    np.save(fpath, {"hubert": rs.randn(2 * T, 1024).astype(np.float32), "f0": voiced_f0(2 * T), "wav16k": wav},
+            allow_pickle=True)
+    digests = []
+    forward = infer.forward_secc2video
+
+    def hashed(*a, **kw):  # each rendered frame's sha256, as infer_once hands it to the writer
+        for frame in forward(*a, **kw):
+            digests.append(hashlib.sha256(np.ascontiguousarray(frame).tobytes()).digest())
+            yield frame
+
+    infer.forward_secc2video = hashed
     try:
-        binary, vid = os.path.join(work, "binary"), "May"
-        os.makedirs(os.path.join(binary, vid))
-        np.save(os.path.join(binary, vid, "trainval_dataset.npy"), synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0),
-                allow_pickle=True)
-        a2m_dir, head_dir, torso_dir = (os.path.join(work, d) for d in ("a2m", "head_sr", "torso"))
-        with in_repo():
-            a2m_yaml = load_config("egs/datasets/May/audio2motion_vae.yaml")
-            head_yaml = load_config("egs/datasets/May/lm3d_radnerf_sr.yaml")
-            torso_yaml = load_config("egs/datasets/May/lm3d_radnerf_torso_sr.yaml")
-        t0 = time.perf_counter()
-        save_flax_checkpoint(a2m_dir, 40000, {"state_dict": {"variables": export_flax_params(models["a2m"]),
-                                                             "opt_state": {}}}, config=a2m_yaml)
-        save_flax_checkpoint(head_dir, 250000, {
-            "state_dict": {"params": {"head": export_flax_params(models["head"]), "sr": export_flax_params(models["sr"])},
-                           "opt_state": {}},
-            "extra_state": {"occupancy": occ}}, config=dict(head_yaml, binary_data_dir=binary, video_id=vid))
-        save_flax_checkpoint(torso_dir, 200000, {
-            "state_dict": {"torso_params": export_flax_params(models["torso"]), "opt_state": {}},
-            "extra_state": {"torso_grid": grid}},
-            config=dict(torso_yaml, head_model_dir=head_dir, binary_data_dir=binary, video_id=vid))
-        write_ms = (time.perf_counter() - t0) * 1e3
-        sizes = {d: sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) for d in (a2m_dir, head_dir, torso_dir)}
-        print(f"[serve_cli] wrote three JAX-layout work dirs ({', '.join(f'{os.path.basename(d)} {n / 2 ** 20:.1f} MiB' for d, n in sizes.items())}) "
-              f"in {write_ms:.1f} ms; configs egs/datasets/May/{{audio2motion_vae,lm3d_radnerf_sr,"
-              f"lm3d_radnerf_torso_sr}}.yaml resolved by the port's loader")
-
-        # loading: every tensor as written; grids and crops as a directly built GeneFaceInfer's
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        infer = GeneFaceInfer.from_work_dirs(audio2secc_dir=a2m_dir, torso_model_dir=torso_dir, device=dev)
-        torch.cuda.synchronize()
-        load_ms = (time.perf_counter() - t0) * 1e3
-        for name, model in (("head", infer.head_model), ("torso", infer.torso_model), ("sr", infer.sr_model),
-                            ("a2m", infer.a2m_model)):
-            got = model.state_dict()
-            check(set(got) == set(written[name]), f"{name}: loaded keys differ from the written ones")
-            bad = [k for k in got if not torch.equal(got[k].cpu(), written[name][k])]
-            check(not bad, f"{name}: {len(bad)} tensors differ from the written ones, e.g. {bad[:3]}")
-        check(infer.head_cfg == cfg and infer.torso_cfg == tcfg, "head or torso config of the work dirs")
-        check(all(infer.a2m_cfg.get(k) == v for k, v in hp.items()), "a2m config of the work dir")
-        ds = RADNeRFDataset(synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0), smo_win_size=cfg.smo_win_size,
-                            with_sr=True)
-        direct = GeneFaceInfer(cfg, written["head"], ds, occ, device=dev, torso_cfg=tcfg,
-                               torso_params=written["torso"], sr_params=written["sr"], torso_occupancy_2d=grid,
-                               a2m_hparams=hp, a2m_params=written["a2m"])
-        check(torch.equal(infer.occupancy, direct.occupancy), "occupancy grid")
-        check(torch.equal(infer.torso_occupancy_2d, direct.torso_occupancy_2d), "torso grid")
-        check((infer.head_crop, infer.torso_crop, infer.sr_crop) == (direct.head_crop, direct.torso_crop,
-                                                                    direct.sr_crop), "crops")
-        check((infer.sr_bg is None) == (direct.sr_bg is None)
-              and (infer.sr_bg is None or torch.equal(infer.sr_bg, direct.sr_bg)), "SR background")
-        print(f"[serve_cli] from_work_dirs(a2m, torso): {load_ms:.3f} ms; head, torso, SR and a2m tensors equal to "
-              f"the written ones bit for bit; occupancy, torso grid and crops (head {infer.head_crop}, torso "
-              f"{infer.torso_crop}, sr {infer.sr_crop}) equal to the direct GeneFaceInfer's")
-
-        # the CLI: 4 s of features with their audio -> an AVI
-        rs = np.random.RandomState(200)
-        wav = voiced_wav(AUDIO_SECONDS, 130.0, 190.0, seed=7)
-        feats = {"hubert": rs.randn(HUBERT_FRAMES, 1024).astype(np.float32),
-                 "f0": extract_f0(wav, mel_len=HUBERT_FRAMES), "wav16k": wav}
-        fpath = os.path.join(work, "request.npy")
-        np.save(fpath, feats, allow_pickle=True)
         torch.cuda.synchronize()
         ff.fused_field.launches = 0  # count only the main path's launches
         t0 = time.perf_counter()
-        out = cli.main(["--a2m_ckpt", a2m_dir, "--torso_ckpt", torso_dir, "--drv_aud_features", fpath,
-                        "--out_name", os.path.join(work, "out.mp4")])
-        cli_ms = (time.perf_counter() - t0) * 1e3
-        cli_launches = ff.fused_field.launches
-        T = HUBERT_FRAMES // 2
-        check(out == os.path.join(work, "out.avi"), f"the CLI wrote {out}")
-        frames, pcm = read_avi(out)
-        check(frames.shape == (T, 2 * ds.H, 2 * ds.W, 3), f"AVI frames {frames.shape}")
-        check(np.array_equal(pcm, pcm16(wav)), "AVI audio vs pcm16(wav16k)")
-        check(cli_launches == T, f"fused_field launched {cli_launches} times for {T} CLI frames")
-        direct.generator.manual_seed(42)  # the CLI's GeneFaceInfer draws from a fresh generator seeded 42
-        inp = default_inp(drv_aud_features=fpath)
-        t0 = time.perf_counter()
-        ref = np.stack(list(direct.forward_secc2video(direct.forward_audio2secc(direct.prepare_batch_from_inp(inp),
-                                                                                inp), inp)))
-        direct_ms = (time.perf_counter() - t0) * 1e3
-        differ = [i for i in range(T) if not np.array_equal(frames[i], ref[i])]
-        if differ:
-            d = np.abs(frames[differ[0]].astype(np.int16) - ref[differ[0]])
-            print(f"[serve_cli] AVI frames differing from the direct GeneFaceInfer's: {differ[:10]} "
-                  f"(frame {differ[0]}: max |d| {d.max()}, {int((d > 0).sum())} values)")
-        check(not differ, "the CLI's frames vs the direct GeneFaceInfer's for the same input and draw")
-        check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "CLI frames do not vary")
-        print(f"[serve_cli] {card_line()}; CLI (features -> {os.path.basename(out)}, "
-              f"{os.path.getsize(out) / 2 ** 20:.1f} MiB): {T} frames of {2 * ds.H}x{2 * ds.W} equal to the direct "
-              f"GeneFaceInfer's bit for bit, PCM equal to pcm16(wav16k) ({len(pcm)} samples), {cli_launches} "
-              f"fused_field launches; wall {cli_ms:.1f} ms (work-dir load, audio2secc, render, AVI); the same request "
-              f"through the direct GeneFaceInfer (audio2secc, render, no file) {direct_ms:.1f} ms, "
-              f"{direct_ms / T:.3f} ms a frame")
-
-        # the stream: 8 s in 2 s chunks, then a resume at the first chunk boundary
-        swav = voiced_wav(STREAM_SECONDS, 110.0, 220.0, seed=9)
-        sinp = {"hubert_full": rs.randn(int(STREAM_SECONDS * 50), 1024).astype(np.float32)}
-        chunk_frames, launched_at = [], []
-        launch = infer.launch_secc2video
-
-        def counted(batch, *a, **kw):
-            chunk_frames.append(int(batch["T"]))
-            out = launch(batch, *a, **kw)
-            launched_at.append(time.perf_counter())
-            return out
-
-        infer.launch_secc2video = counted
-        infer.generator.manual_seed(42)
-        torch.cuda.synchronize()
-        ff.fused_field.launches = 0
-        stamps, full = [], []
-        t0 = time.perf_counter()
-        for f in stream_infer(infer, swav, sinp, chunk_seconds=STREAM_CHUNK_SECONDS):
-            stamps.append(time.perf_counter())
-            full.append(f)
-        n = len(full)
-        k = chunk_frames[0]
-        infer.generator.manual_seed(42)  # replay the draw of the first chunk
-        torch.randn((1, infer.a2m_model.vae.latent_length(k), infer.a2m_model.vae.latent_size),
-                    generator=infer.generator, device=dev)
-        resumed = list(stream_infer(infer, swav, dict(sinp, resume_from_frame=k), chunk_seconds=STREAM_CHUNK_SECONDS))
-        stream_launches = ff.fused_field.launches
-        infer.launch_secc2video = launch
-        tail = len(swav) - n * 2 * 320
-        check(0 <= tail < 16000 // 5, f"{n} frames for {len(swav)} samples: {tail} samples unconsumed (drift)")
-        check(len(resumed) == n - k and all(np.array_equal(a, b) for a, b in zip(resumed, full[k:])),
-              f"the stream resumed at frame {k} vs the uninterrupted stream's tail")
-        check(stream_launches == n + len(resumed), f"fused_field launched {stream_launches} times for "
-                                                   f"{n + len(resumed)} streamed frames")
-        ttff = (stamps[0] - t0) * 1e3
-        ends = list(np.cumsum(chunk_frames))
-        check(n in ends, f"{n} frames are not whole chunks {chunk_frames}")
-        m = ends.index(n) + 1  # the uninterrupted stream's chunks
-        # a chunk's cycle: from the last chunk's launch to its own (its a2m,
-        # its render launched, the last chunk's frames drained), a frame
-        per_chunk = [(launched_at[i] - launched_at[i - 1]) * 1e3 / chunk_frames[i]
-                     for i in range(1, m) if chunk_frames[i] == k]
-        print(f"[serve_cli] stream_infer over {STREAM_SECONDS} s in {STREAM_CHUNK_SECONDS} s chunks: {n} frames "
-              f"(chunks {chunk_frames[:m]}), {tail} samples unconsumed (< 0.2 s: no drift); resumed at "
-              f"frame {k}: {len(resumed)} frames equal to the uninterrupted tail bit for bit; {stream_launches} "
-              f"fused_field launches for {n + len(resumed)} frames")
-        print(f"[serve_cli] {card_line()}; stream: time to first frame {ttff:.3f} ms (the first chunk of {k} "
-              f"frames rendered, the second launched); ms a frame by chunk cycle, full chunks 2..: "
-              f"{', '.join(f'{x:.3f}' for x in per_chunk)} (median {statistics.median(per_chunk):.3f}); wall "
-              f"{(stamps[-1] - t0) * 1e3:.1f} ms for {n} frames ({(stamps[-1] - t0) * 1e3 / n:.3f} ms a frame)")
+        path = infer.infer_once({"drv_aud_features": fpath, "out_name": os.path.join(work, "long.mp4")})
+        wall = time.perf_counter() - t0
+        launches = ff.fused_field.launches
     finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return cli_launches + stream_launches
+        del infer.forward_secc2video
+    size = os.path.getsize(path)
+    check(len(digests) == T and launches == T, f"{len(digests)} frames rendered, {launches} fused_field launches "
+                                               f"for {T}")
+    check(size == avi_bytes(T, H, W, len(wav)) and size > AVI_MAX_BYTES, f"AVI of {size} bytes")
+    riffs, pos = [], 0  # the RIFF segments, walked by their headers
+    with open(path, "rb") as f:
+        while pos < size:
+            f.seek(pos)
+            ck, n, form = struct.unpack("<4sI4s", f.read(12))
+            check(ck == b"RIFF", f"{ck!r} at {pos}, not a RIFF")
+            riffs.append((form, 8 + n))
+            pos += 8 + n + (n & 1)
+        f.seek(0)
+        head = f.read(1 << 16)
+    dmlh = struct.unpack_from("<I", head, head.index(b"dmlh") + 8)[0]
+    forms = [form for form, _ in riffs]
+    check(pos == size and len(riffs) >= 2 and forms == [b"AVI "] + [b"AVIX"] * (len(riffs) - 1),
+          f"RIFF segments {forms}")
+    check(all(n <= AVI_MAX_BYTES for _, n in riffs), f"a RIFF past {AVI_MAX_BYTES} bytes: {riffs}")
+    check(dmlh == T, f"dmlh total frames {dmlh}")
+    t0 = time.perf_counter()
+    frames, pcm = read_avi(path)
+    read_s = time.perf_counter() - t0
+    os.remove(path)
+    check(frames.shape == (T, H, W, 3), f"read back {frames.shape}")
+    bad = [i for i in range(T) if hashlib.sha256(frames[i].tobytes()).digest() != digests[i]]
+    check(not bad, f"{len(bad)} frames read back differ from the rendered ones, e.g. {bad[:5]}")
+    check(np.array_equal(pcm, pcm16(wav)), "the long clip's PCM vs pcm16(wav16k)")
+    # the writer alone, on the same frames and audio
+    t0 = time.perf_counter()
+    writer = StreamingVideoWriter(os.path.join(work, "again.avi"), audio=wav)
+    for frame in frames:
+        writer.append(frame)
+    again = writer.close()
+    write_s = time.perf_counter() - t0
+    check(os.path.getsize(again) == size, "the writer's second file differs in size")
+    os.remove(again)
+    print(f"[serve_long] infer_once over {T / 25.0:.0f} s of features: {T} frames of {H}x{W}, {launches} "
+          f"fused_field launches, AVI 2.0 of {size:,} bytes in {len(riffs)} RIFF segments "
+          f"({', '.join(f'{form.decode()} {n:,}' for form, n in riffs)}), dmlh {dmlh}; every frame's sha256 and "
+          f"every sample ({len(pcm)}) read back equal")
+    print(f"[serve_long] {card_line()}; infer_once wall {wall * 1e3:.1f} ms ({wall * 1e3 / T:.3f} ms a frame: "
+          f"audio2secc, render, AVI); the writer alone {size / write_s / 1e6:.1f} MB/s ({write_s * 1e3:.1f} ms), "
+          f"read_avi {size / read_s / 1e6:.1f} MB/s ({read_s * 1e3:.1f} ms), host disk under TMPDIR")
+    return launches
+
+
+def phase_convert(dev, served) -> int:
+    """convert (module docstring); returns its B1 launches."""
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer, default_inp
+    from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_batch, a2m_model_from_hparams
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.testing import reference_a2m_state, save_reference_ckpt
+    from genefaceplusplus_tpu_torch.tools import convert_ckpt
+    from genefaceplusplus_tpu_torch.utils import convert_torch_ckpt as cvt
+    from genefaceplusplus_tpu_torch.utils.convert_jax import convert_flax_params
+
+    hp, work = served["hp"], served["work"]
+    src_dir, out_dir = os.path.join(work, "released"), os.path.join(work, "a2m_converted")
+    os.makedirs(src_dir)
+    state = reference_a2m_state(hp, seed=21)
+    src = os.path.join(src_dir, "model_ckpt_steps_400000.ckpt")
+    save_reference_ckpt(src, state)
+    with open(os.path.join(src_dir, "config.yaml"), "w") as f:
+        f.write("use_pitch: true\naudio_in_dim: 1024\n")
+    t0 = time.perf_counter()
+    path = convert_ckpt.main(["--input", src, "--type", "a2m", "--out", out_dir])
+    convert_ms = (time.perf_counter() - t0) * 1e3
+    expected = convert_flax_params(cvt.convert_pitch_contour_vae(state), a2m_model_from_hparams(hp))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infer = GeneFaceInfer.from_work_dirs(audio2secc_dir=out_dir, torso_model_dir=served["torso"], device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    got = infer.a2m_model.state_dict()
+    check(set(got) == set(expected), "the converted a2m's keys")
+    bad = [k for k in got if not torch.equal(got[k].cpu(), expected[k])]
+    check(not bad, f"{len(bad)} a2m tensors loaded on the card differ from the mapping's, e.g. {bad[:3]}")
+
+    inp = default_inp(drv_aud_features=served["request"], temperature=0.0)
+    torch.cuda.synchronize()
+    ff.fused_field.launches = 0  # count only the main path's launches
+    t0 = time.perf_counter()
+    batch = infer.forward_audio2secc(infer.prepare_batch_from_inp(inp), inp)
+    frames = np.stack(list(infer.forward_secc2video(batch, inp)))
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = ff.fused_field.launches
+    T = int(batch["T"])
+    check(launches == T and frames.shape == (T, 2 * infer.dataset.H, 2 * infer.dataset.W, 3),
+          f"{launches} fused_field launches, frames {frames.shape}")
+    check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "frames served from the converted a2m do not vary")
+    cpu_model = a2m_model_from_hparams(hp)
+    cpu_model.load_state_dict(expected)
+    with torch.no_grad():
+        ref, _ = cpu_model.eval()(a2m_batch(batch["hubert"], batch["f0"], inp["mouth_amp"], "cpu"), train=False,
+                                  temperature=0.0)
+    err = float(np.abs(batch["a2m_out"] - ref[0].numpy()).max())
+    check(err <= A2M_CARD_MAX, f"the converted a2m on the card vs the CPU at temperature 0: {err}")
+    n = sum(t.numel() for k, t in expected.items() if not k.endswith("num_batches_tracked"))
+    print(f"[convert] a fake reference a2m checkpoint (legacy torch.save, {len(state)} tensors, {n:,} variables, "
+          f"weight-normed convs folded) -> tools/convert_ckpt.py --type a2m -> {os.path.basename(path)} "
+          f"(flax msgpack, {os.path.getsize(path) / 2 ** 20:.1f} MiB); loaded on the card by from_work_dirs with the "
+          f"serve_cli torso dir: every a2m tensor equal to the mapping's; temperature-0 a2m output on the card vs "
+          f"the CPU max |d| {err:.3e} (<= {A2M_CARD_MAX}); {T} audio-driven frames served, {launches} fused_field "
+          f"launches")
+    print(f"[convert] {card_line()}; convert {convert_ms:.1f} ms (host), from_work_dirs {load_ms:.1f} ms, audio2secc "
+          f"and {T} frames {serve_ms:.1f} ms ({serve_ms / T:.3f} ms a frame)")
+    return launches
+
+
+def _ws_stream(port: int, inp: dict):
+    """A raw-socket WebSocket client: upgrade, one masked JSON text frame,
+    then each binary message until the close frame. Returns (JPEGs, their
+    arrival times, the time the request was sent)."""
+    import base64
+    import struct
+
+    payload = json.dumps(inp).encode()
+    mask = os.urandom(4)
+    n = len(payload)
+    check(n < 65536, "inp too long")
+    frame = (bytes([0x81]) + (bytes([0x80 | n]) if n < 126 else bytes([0x80 | 126]) + struct.pack(">H", n)) + mask
+             + bytes(b ^ mask[i % 4] for i, b in enumerate(payload)))
+    key = base64.b64encode(os.urandom(16)).decode()
+    request = (f"GET /ws HTTP/1.1\r\nHost: localhost\r\nUpgrade: websocket\r\nConnection: Upgrade\r\n"
+               f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n").encode()
+    jpegs, times = [], []
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as sock, sock.makefile("rb") as f:
+        t_sent = time.perf_counter()
+        sock.sendall(request + frame)
+        status = f.readline()
+        check(b" 101 " in status, f"WebSocket upgrade answered {status!r}")
+        while f.readline().strip():
+            pass
+        while True:
+            h = f.read(2)
+            check(len(h) == 2, "the server closed the WebSocket mid-frame")
+            opcode, n = h[0] & 0x0F, h[1] & 0x7F
+            if n == 126:
+                n = struct.unpack(">H", f.read(2))[0]
+            elif n == 127:
+                n = struct.unpack(">Q", f.read(8))[0]
+            data = f.read(n)
+            if opcode == 0x8:
+                return jpegs, times, t_sent
+            check(opcode == 0x2, f"WebSocket message {opcode}: {data[:300]!r}")
+            jpegs.append(data)
+            times.append(time.perf_counter())
+
+
+def _multipart(route: str, fields: dict, files: dict) -> bytes:
+    boundary = "chipSmokeBoundary0x5f3759df"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts += [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"; filename="{name}"\r\n'
+              f"Content-Type: application/octet-stream\r\n\r\n".encode() + data + b"\r\n"
+              for k, (name, data) in files.items()]
+    body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+    return (f"POST {route} HTTP/1.1\r\nHost: localhost\r\nContent-Type: multipart/form-data; boundary={boundary}\r\n"
+            f"Content-Length: {len(body)}\r\n\r\n").encode() + body
+
+
+def _http(port: int, request: bytes):
+    """(status line, headers, body) of one request, read to the close."""
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as sock:
+        sock.sendall(request)
+        chunks = []
+        while True:
+            b = sock.recv(1 << 20)
+            if not b:
+                break
+            chunks.append(b)
+    head, body = b"".join(chunks).split(b"\r\n\r\n", 1)
+    lines = head.decode("latin-1").split("\r\n")
+    return lines[0], dict(line.split(": ", 1) for line in lines[1:]), body
+
+
+def _mjpeg_stream(port: int, request: bytes):
+    """POST /stream: the JPEG parts of the multipart/x-mixed-replace reply
+    as each arrives (a part ends at its JPEG's EOI and the part's CRLF).
+    Returns (JPEGs, their arrival times, the time the request was sent)."""
+    part = b"--frame\r\nContent-Type: image/jpeg\r\n\r\n"
+    buf, jpegs, times, pos = bytearray(), [], [], None
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as sock:
+        t_sent = time.perf_counter()
+        sock.sendall(request)
+        while True:
+            b = sock.recv(1 << 20)
+            if not b:
+                break
+            buf += b
+            if pos is None:
+                if b"\r\n\r\n" not in buf:
+                    continue
+                check(buf.startswith(b"HTTP/1.0 200"), f"POST /stream answered {bytes(buf[:80])!r}")
+                pos = buf.index(b"\r\n\r\n") + 4
+            while len(buf) >= pos + len(part):
+                check(buf[pos:pos + len(part)] == part, f"MJPEG part header at {pos}: {bytes(buf[pos:pos + 60])!r}")
+                end = buf.find(b"\xff\xd9\r\n", pos + len(part))
+                if end < 0:
+                    break
+                jpegs.append(bytes(buf[pos + len(part):end + 2]))
+                times.append(time.perf_counter())
+                pos = end + 4
+    check(pos == len(buf), f"{len(buf) - (pos or 0)} bytes after the last MJPEG part")
+    return jpegs, times, t_sent
+
+
+def phase_serve_app(dev, served) -> int:
+    """serve_app (module docstring); returns its B1 launches."""
+    import threading
+
+    from genefaceplusplus_tpu_torch.data.audio import pcm16
+    from genefaceplusplus_tpu_torch.data.image_io import jpeg_bytes, read_jpeg
+    from genefaceplusplus_tpu_torch.data.video import read_avi
+    from genefaceplusplus_tpu_torch.inference import app
+    from genefaceplusplus_tpu_torch.inference.metrics import METRICS
+    from genefaceplusplus_tpu_torch.inference.serving import stream_infer
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+
+    infer, fpath = served["infer"], served["request"]
+    inp = {"drv_aud_features": fpath, "temperature": 0.0}
+    direct_inp = dict(inp)
+    direct = [jpeg_bytes(f) for f in stream_infer(infer, app._load_stream_audio(direct_inp), direct_inp)]
+    T = len(direct)
+    with open(fpath, "rb") as f:
+        upload = {"feats": ("request.npy", f.read())}
+    server = app.make_server(infer, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        dropped = METRICS.snapshot()["frames"]["dropped"]
+        torch.cuda.synchronize()
+        ff.fused_field.launches = 0  # count only the main path's launches
+        ws, ws_times, ws_sent = _ws_stream(port, dict(inp, push_queue_frames=4 * T))
+        mj, mj_times, mj_sent = _mjpeg_stream(port, _multipart("/stream", {"temperature": "0"}, upload))
+        t0 = time.perf_counter()
+        status, headers, body = _http(port, _multipart("/infer", {"temperature": "0"}, upload))
+        infer_ms = (time.perf_counter() - t0) * 1e3
+        launches = ff.fused_field.launches
+        _, _, metrics = _http(port, b"GET /metrics HTTP/1.1\r\nHost: localhost\r\n\r\n")
+        metrics = json.loads(metrics)
+        _, _, form = _http(port, b"GET / HTTP/1.1\r\nHost: localhost\r\n\r\n")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the app's server thread did not stop")
+    check(form == app.FORM.encode(), "GET / is not the form")
+    check(len(ws) == len(mj) == T, f"{len(ws)} WebSocket and {len(mj)} MJPEG frames for {T}")
+    check(metrics["frames"]["dropped"] == dropped, "the app dropped frames")
+    out = os.path.join(served["work"], "reply.avi")
+    with open(out, "wb") as f:
+        f.write(body)
+    frames, pcm = read_avi(out)
+    os.remove(out)
+    t_once = HUBERT_FRAMES // 2  # infer_once's frames: the whole clip, where the stream trims each chunk
+    check(status == "HTTP/1.0 200 OK" and headers["Content-Type"] == "video/x-msvideo"
+          and frames.shape == (t_once, 2 * infer.dataset.H, 2 * infer.dataset.W, 3)
+          and np.array_equal(pcm, pcm16(served["wav"])), f"POST /infer: {status}, {frames.shape}")
+    check(launches == 2 * T + t_once, f"{launches} fused_field launches for 2 x {T} + {t_once} frames")
+    worst = math.inf
+    for got in (ws, mj):
+        for jpg, ref in zip(got, direct):
+            if jpg != ref:
+                worst = min(worst, psnr(read_jpeg(jpg), read_jpeg(ref), 255.0))
+    equal = [sum(a == b for a, b in zip(got, direct)) for got in (ws, mj)]
+    print(f"[serve_app] inference/app.py on 127.0.0.1:{port} over serve_cli's GeneFaceInfer, {AUDIO_SECONDS:g} s "
+          f"request at temperature 0: WebSocket {len(ws)} and MJPEG {len(mj)} frames, byte-equal to jpeg_bytes of a direct "
+          f"stream_infer's: {equal[0]}/{T} and {equal[1]}/{T}; the others decoded vs the direct ones' decodes: "
+          f"worst PSNR {worst:.2f} dB; POST /infer: an AVI of {len(body):,} bytes, "
+          f"{len(frames)} frames, the PCM; GET /metrics parses ({metrics['streams']['completed']} streams "
+          f"completed, {metrics['frames']['pushed']} frames pushed); {launches} fused_field launches")
+    check(equal == [T, T], f"the app's frames byte-equal to the direct stream's: {equal} of {T}")
+
+    def cadence(times):
+        gaps = np.diff(times) * 1e3
+        return f"median {np.median(gaps):.3f} ms, p90 {np.percentile(gaps, 90):.3f}, max {gaps.max():.3f}"
+
+    print(f"[serve_app] {card_line()}; time to first frame (request sent -> first JPEG received): WebSocket "
+          f"{(ws_times[0] - ws_sent) * 1e3:.3f} ms, MJPEG {(mj_times[0] - mj_sent) * 1e3:.3f} ms; frame cadence "
+          f"WebSocket {cadence(ws_times)}, MJPEG {cadence(mj_times)}; whole stream WebSocket "
+          f"{(ws_times[-1] - ws_sent) * 1e3:.1f} ms, MJPEG {(mj_times[-1] - mj_sent) * 1e3:.1f} ms; POST /infer "
+          f"{infer_ms:.1f} ms")
+    return launches
 
 
 def grad_stats(a, b):
@@ -1258,8 +1569,6 @@ def phase_kernel_bwd(dev):
 
 
 def phase_train(dev):
-    import tempfile
-
     from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
     from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
     from genefaceplusplus_tpu_torch.ops import fused_field as ff
@@ -1550,8 +1859,6 @@ def decode_readings(ds_dict: dict, dev) -> dict:
 
 
 def phase_train_cli(dev):
-    import tempfile
-
     from genefaceplusplus_tpu_torch.data.dataset import synthetic
     from genefaceplusplus_tpu_torch.data.image_io import write_jpeg, write_png
     from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
@@ -1842,8 +2149,6 @@ def profile_train_steps(cfg, ckpt, dev, what: str, steps: int = 5):
 
 
 def phase_train_audio(dev):
-    import tempfile
-
     from genefaceplusplus_tpu_torch.config import load_config, set_hparams
     from genefaceplusplus_tpu_torch.data.dataset import synthetic
     from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer, default_inp
@@ -2074,21 +2379,31 @@ def main() -> int:
     serve_launches = phase_serve(dev)
     full_launches = phase_serve_full(dev)
     audio_launches = phase_serve_audio(dev)
-    cli_launches = phase_serve_cli(dev)
+    print(f"ffmpeg: {shutil.which('ffmpeg')}")
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        cli_launches, served = phase_serve_cli(dev, work)
+        long_launches = phase_serve_long(dev, served)
+        convert_launches = phase_convert(dev, served)
+        app_launches = phase_serve_app(dev, served)
+        del served
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     train_fwd, train_chain, train_wgrad = phase_train(dev)
     trained_launches = phase_train_cli(dev)
     refined_launches = phase_train_audio(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
-          f"{audio_launches} audio-driven serving + {cli_launches} CLI and streaming + {train_fwd} training + "
+          f"{audio_launches} audio-driven serving + {cli_launches} CLI and streaming + {long_launches} long clip + "
+          f"{convert_launches} from the converted a2m + {app_launches} web app + {train_fwd} training + "
           f"{trained_launches} serving from CLI-trained dirs + {refined_launches} serving through the trained "
           f"postnet; fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
         "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:156",
-        "launches": (serve_launches + full_launches + audio_launches + cli_launches + train_fwd + trained_launches
-                     + refined_launches),
+        "launches": (serve_launches + full_launches + audio_launches + cli_launches + long_launches + convert_launches
+                     + app_launches + train_fwd + trained_launches + refined_launches),
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {

@@ -41,7 +41,7 @@ import torch
 from genefaceplusplus_tpu_torch.config import set_hparams
 from genefaceplusplus_tpu_torch.data import audio as audio_lib
 from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset
-from genefaceplusplus_tpu_torch.data.video import AVI_MAX_BYTES, StreamingVideoWriter, avi_bytes, avi_path
+from genefaceplusplus_tpu_torch.data.video import StreamingVideoWriter, avi_bytes, avi_path
 from genefaceplusplus_tpu_torch.data.face3d import Face3DHelper
 from genefaceplusplus_tpu_torch.data.landmarks import (
     INDEX_LM68_FROM_LM478, inject_blink_to_lm68, recompose_lm68_regions)
@@ -590,19 +590,17 @@ class GeneFaceInfer:
         """One request, features to a video file: `prepare_batch_from_inp`,
         `forward_audio2secc`, the frames of `forward_secc2video` written with
         the request's 16 kHz audio (`batch['wav16k']`) as an uncompressed AVI
-        (`<stem>.avi` for an `.mp4` `out_name`). Returns the path written.
-        A clip past AVI 1.0's 1 GiB raises before its first frame."""
+        (`<stem>.avi` for an `.mp4` `out_name`; AVI 2.0, so of any length up
+        to the super-indexes' capacity). Returns the path written. A clip past
+        that capacity raises before its first frame is rendered."""
         inp = default_inp(**inp)
         batch = self.prepare_batch_from_inp(inp)
         batch = self.forward_audio2secc(batch, inp)
         path = avi_path(inp["out_name"])
-        up = 2 if self.sr_model is not None else 1
-        shape = (up * self.dataset.H, up * self.dataset.W)
-        size = avi_bytes(int(batch["T"]), *shape, n_samples=len(batch["wav16k"]))
-        if size > AVI_MAX_BYTES:
-            raise ValueError(f"{batch['T']} frames of {shape} make a {size}-byte AVI, past AVI 1.0's "
-                             f"{AVI_MAX_BYTES} bytes; drive a shorter clip (ROADMAP: OpenDML)")
         writer = StreamingVideoWriter(path, fps=25, audio=batch["wav16k"])
+        up = 2 if self.sr_model is not None else 1
+        avi_bytes(int(batch["T"]), up * self.dataset.H, up * self.dataset.W, len(batch["wav16k"]),
+                  segment_bytes=writer.segment_bytes)  # raises past the capacity
         for frame in self.forward_secc2video(batch, inp):
             writer.append(frame)
         return writer.close()

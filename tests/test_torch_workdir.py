@@ -353,14 +353,27 @@ def test_infer_once_and_the_cli_write_the_frames(trained, dirs, tmp_path, monkey
         assert os.path.getsize(p) == t_video.avi_bytes(T, H, W, len(feats["wav16k"]))
 
 
-def test_a_clip_past_the_avi_limit_raises_before_rendering(trained, tmp_path, monkeypatch):
+def test_a_clip_past_the_segment_size_renders_and_reads_back(trained, tmp_path, monkeypatch):
+    """A clip past the writer's RIFF segment size (here 20 kB, 1 GiB by
+    default) is written as AVI 2.0 in several segments: its frames are the
+    rendered frames and its PCM pcm16(wav16k), bit for bit."""
     _, t_inf = trained
-    path, _ = _features(tmp_path)
-    monkeypatch.setattr(t_pipeline, "AVI_MAX_BYTES", 10_000)
-    monkeypatch.setattr(TInfer, "launch_secc2video", lambda *a, **k: pytest.fail("rendered"))
-    with pytest.raises(ValueError, match="past AVI 1.0"):
-        t_inf.infer_once(default_inp(drv_aud_features=path, out_name=str(tmp_path / "long.avi")))
-    assert not any(f.startswith("long") for f in os.listdir(tmp_path))
+    path, feats = _features(tmp_path)
+    seg = 20_000
+    rendered = []
+    forward = t_inf.forward_secc2video
+    monkeypatch.setattr(t_inf, "forward_secc2video", lambda *a: (rendered.append(f) or f for f in forward(*a)))
+    monkeypatch.setattr(t_pipeline, "StreamingVideoWriter",
+                        functools.partial(t_video.StreamingVideoWriter, segment_bytes=seg))
+    out = t_inf.infer_once(default_inp(drv_aud_features=path, out_name=str(tmp_path / "long.avi")))
+    frames, pcm = t_video.read_avi(out)
+    assert len(rendered) == len(frames) == 12
+    np.testing.assert_array_equal(frames, np.stack(rendered))
+    np.testing.assert_array_equal(pcm, t_audio.pcm16(feats["wav16k"]))
+    assert os.path.getsize(out) == t_video.avi_bytes(12, H, W, len(feats["wav16k"]), segment_bytes=seg)
+    with open(out, "rb") as f:
+        assert f.read().count(b"AVIXLIST") >= 2
+    assert sorted(os.listdir(tmp_path)) == ["feats.npy", "long.avi"]
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -415,16 +428,24 @@ def test_avi_round_trip(tmp_path, T, h, w, n):
     assert os.path.getsize(path) == t_video.avi_bytes(T, h, w, n)
 
 
-def test_avi_names_and_limit(tmp_path, monkeypatch):
+def test_avi_names_and_segments(tmp_path):
     assert t_video.avi_path("a/b.mp4") == "a/b.avi" and t_video.avi_path("c.AVI") == "c.avi"
     with pytest.raises(ValueError, match="uncompressed AVI"):
         t_video.avi_path("x.mkv")
-    # 1,363 frames of 512^2 with their 16 kHz audio fit in AVI 1.0's 1 GiB
-    assert t_video.avi_bytes(1363, 512, 512, 1363 * 640) <= t_video.AVI_MAX_BYTES < \
-        t_video.avi_bytes(1364, 512, 512, 1364 * 640)
-    monkeypatch.setattr(t_video, "AVI_MAX_BYTES", 1500)
-    writer = t_video.StreamingVideoWriter(str(tmp_path / "v.avi"))
-    writer.append(np.zeros((16, 16, 3), np.uint8))
-    with pytest.raises(ValueError, match="AVI 1.0's limit"):
-        writer.append(np.zeros((16, 16, 3), np.uint8))
-    assert os.listdir(tmp_path) == []
+    # the first 1 GiB RIFF holds 1,362 frames of 512^2 with their audio (AVI 1.0 readers read it
+    # alone); 1,400 frames, chip_smoke.py's long clip, take two RIFFs
+    assert t_video.avi_bytes(1362, 512, 512, 1362 * 640) <= t_video.AVI_MAX_BYTES < \
+        t_video.avi_bytes(1363, 512, 512, 1363 * 640)
+    assert t_video.avi_bytes(1400, 512, 512, 1400 * 640) == 1_102_894_194
+    frames = np.random.RandomState(0).randint(0, 256, (16, 16, 16, 3)).astype(np.uint8)
+    writer = t_video.StreamingVideoWriter(str(tmp_path / "v.avi"), segment_bytes=6000)
+    for f in frames:
+        writer.append(f)
+    path = writer.close()
+    np.testing.assert_array_equal(t_video.read_avi(path)[0], frames)
+    with open(path, "rb") as f:
+        assert f.read().count(b"AVIXLIST") >= 2
+    writer = t_video.StreamingVideoWriter(str(tmp_path / "w.avi"), segment_bytes=4000)
+    with pytest.raises(ValueError, match="does not fit"):
+        writer.append(frames[0])
+    assert os.listdir(tmp_path) == ["v.avi"]
