@@ -73,6 +73,25 @@ Phases (any failure exits non-zero, and no result line is printed):
               before the check fails); GET /metrics parses, GET
               / is the form, POST /infer returns the AVI; time to first frame and
               frame cadence over both
+  serve_grid  a head as the reference trains it: testing.reference_head_state's
+              seeded fake of its checkpoint (legacy torch.save, the May head's
+              widths with grid_type tiledgrid: 16 levels x 2 a grid, 13,000 x 4
+              individual codes, grid 128, its density_bitfield the bench's
+              ellipsoid in morton order) converted by tools/convert_ckpt.py
+              --type head (the occupancy equal to the ellipsoid exactly) and
+              loaded on the card by from_work_dirs with serve_cli's a2m: 32
+              GT-driven 512^2 head-only frames, one 4 s request through
+              infer_once (its AVI equal to the direct frames bit for bit) and
+              one through stream_infer; the same head as hashgrid (8 frames);
+              the torso_sr frame with a tiledgrid head and torso (8 frames);
+              one grid-mode marching frame (48 lattice points, 16 samples;
+              the share of rays whose sample masks agree card vs CPU); each
+              held card vs CPU (a band of 128 rows through the head for the
+              512^2 frames, the whole torso_sr frame in float32 SR) to 2e-3
+              max and 1e-4 mean; timed (convert, load, ms a frame beside the
+              Fourier frame of the serve phase, the grid encoders by CUDA
+              events, kernels a frame, peak memory). The grid heads run the
+              float32 field: neither B1 nor B2 is launched
   train      HeadNeRFTask + Trainer.fit at the same config with
               use_fused_field=True on a synthetic 512^2 identity: 20 steps of
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
@@ -481,7 +500,7 @@ def phase_serve(dev):
     print(f"[serve] kernel frame vs plain-field frame: PSNR {p_plain:.2f} dB (>= {PLAIN_FRAME_MIN_PSNR}), "
           f"mean |d| {np.abs(plain.astype(np.int16) - frames_all[0][0]).mean():.5f}")
     check(p_plain >= PLAIN_FRAME_MIN_PSNR, "kernel frame vs plain-field frame")
-    return launches
+    return launches, statistics.median(timed)
 
 
 def stage_split(infer, dev, batch, frames: int) -> dict:
@@ -1084,7 +1103,7 @@ def phase_serve_cli(dev, work: str):
           f"{', '.join(f'{x:.3f}' for x in per_chunk)} (median {statistics.median(per_chunk):.3f}); wall "
           f"{(stamps[-1] - t0) * 1e3:.1f} ms for {n} frames ({(stamps[-1] - t0) * 1e3 / n:.3f} ms a frame)")
     return cli_launches + stream_launches, {"infer": infer, "torso": torso_dir, "request": fpath, "wav": wav,
-                                            "hp": hp, "work": work}
+                                            "hp": hp, "work": work, "a2m": a2m_dir, "binary": binary}
 
 
 def phase_serve_long(dev, served) -> int:
@@ -1229,6 +1248,315 @@ def phase_convert(dev, served) -> int:
     print(f"[convert] {card_line()}; convert {convert_ms:.1f} ms (host), from_work_dirs {load_ms:.1f} ms, audio2secc "
           f"and {T} frames {serve_ms:.1f} ms ({serve_ms / T:.3f} ms a frame)")
     return launches
+
+
+# serve_grid: a head as the reference trains it (tiledgrid, the May head's
+# widths, 13,000 x 4 individual codes, grid 128) converted from the
+# reference's checkpoint layout; frames at 512^2 (head-only) and the
+# torso_sr frame with grid head and torso. Card against CPU: the full
+# frame's bar (tests/test_torch_cuda.py::test_full_frame_on_card_matches_cpu),
+# on a band of rays through the head where the whole 512^2 frame would take
+# the host too long.
+GRID_FRAMES, GRID_SIDE_FRAMES = 32, 8
+GRID_BAND_ROWS = 128
+GRID_CARD_MAX, GRID_CARD_MEAN = 2e-3, 1e-4
+GRID_MARCH = {"march_mode": "grid", "num_coarse": 48, "num_samples": 16}
+
+
+def grid_head_hparams(grid_type: str, sr: bool = False) -> dict:
+    from genefaceplusplus_tpu_torch.models.radnerf import MAY_LM3D_RADNERF, MAY_LM3D_RADNERF_SR
+
+    return dict(MAY_LM3D_RADNERF_SR if sr else dict(MAY_LM3D_RADNERF, with_sr=False), grid_type=grid_type)
+
+
+def timed_frames(infer, ids) -> tuple:
+    """(frames, ms of each frame after the first): GT-driven, one frame a
+    dispatch, each drained to the host before the next starts."""
+    batch = infer.prepare_gt_batch(ids)
+    frames, stamps = [], []
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    for f in infer.forward_secc2video(batch, {"frames_per_dispatch": 1}):
+        frames.append(f)
+        stamps.append(time.perf_counter())
+    return frames, [(b - a) * 1e3 for a, b in zip(stamps[1:-1], stamps[2:])]
+
+
+def p90(xs) -> float:
+    return float(np.percentile(xs, 90))
+
+
+def frame_inputs(infer, dev) -> tuple:
+    """(rays_o, rays_d, cond window, eye area, lm68) of dataset frame 0, on dev."""
+    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+
+    ds = infer.dataset
+    batch = infer.prepare_gt_batch([0])
+    ro, rd = pixel_rays(torch.as_tensor(batch["poses"], device=dev), ds.intrinsics, ds.H, ds.W)
+    win = get_audio_features_batch(torch.as_tensor(batch["cond"], device=dev), torch.arange(1, device=dev),
+                                   infer.head_cfg.smo_win_size)[0]
+    return (ro[0], rd[0], win, torch.as_tensor(batch["eye_area_percent"][:1], device=dev),
+            torch.as_tensor(batch["lm68"][:1], device=dev))
+
+
+def cpu_twin(module):
+    twin = type(module)(module.cfg)
+    twin.load_state_dict({k: v.cpu() for k, v in module.state_dict().items()})
+    return twin.eval()
+
+
+def band_card_vs_cpu(infer, dev, opts, what: str) -> tuple:
+    """The head-only frame of dataset frame 0 on a band of GRID_BAND_ROWS
+    rows through the middle of the frame, rendered by `render_full_frame`
+    with the same rays on the card and on the CPU: (max, mean) |d| of the
+    band's rgb, and its largest weights sum."""
+    from genefaceplusplus_tpu_torch.models.full_renderer import render_full_frame
+
+    ds = infer.dataset
+    r0 = (ds.H - GRID_BAND_ROWS) // 2
+    ro, rd, win, eye, _ = frame_inputs(infer, dev)
+    rows = slice(r0 * ds.W, (r0 + GRID_BAND_ROWS) * ds.W)
+    outs = {}
+    for where, d, model in (("card", dev, infer.head_model), ("cpu", "cpu", cpu_twin(infer.head_model))):
+        with torch.no_grad():
+            out = render_full_frame(model, ro[rows].to(d), rd[rows].to(d), win.to(d), infer.occupancy.to(d),
+                                    infer.bg_color[rows].to(d), opts, (GRID_BAND_ROWS, ds.W),
+                                    eye_area_percent=eye.to(d))
+        outs[where] = (out.rgb_map.cpu(), out.weights_sum.cpu())
+    e = (outs["card"][0] - outs["cpu"][0]).abs()
+    m, a, ws = e.max().item(), e.mean().item(), outs["cpu"][1].max().item()
+    print(f"[serve_grid] {what}: card vs CPU over rows {r0}..{r0 + GRID_BAND_ROWS - 1} ({GRID_BAND_ROWS * ds.W} rays, "
+          f"largest weights sum {ws:.3f}): max |d| {m:.3e} (<= {GRID_CARD_MAX}), mean {a:.3e} (<= {GRID_CARD_MEAN})")
+    check(ws > 0.1, f"{what}: the band misses the head")
+    check(m <= GRID_CARD_MAX and a <= GRID_CARD_MEAN, f"{what}: card vs CPU")
+    return m, a
+
+
+def encoder_device_ms(infer, frames) -> tuple:
+    """CUDA-event ms a frame of the position and ambient grid encoders (hooks
+    on the modules; each span runs from its first kernel's launch to its last
+    one's end, so a host that launches slower than the card runs adds its
+    gaps) over `frames` GT-driven frames, and the frames' own ms."""
+    model = infer.head_model
+    spans = {"position": [], "ambient": []}
+    hooks = []
+    for name, enc in (("position", model.position_embedder), ("ambient", model.ambient_embedder)):
+        def pre(_, __, name=name):
+            spans[name].append([cuda_event()])
+
+        def post(_, __, ___, name=name):
+            spans[name][-1].append(cuda_event())
+        hooks += [enc.register_forward_pre_hook(pre), enc.register_forward_hook(post)]
+    try:
+        torch.cuda.synchronize()
+        start = cuda_event()
+        list(infer.forward_secc2video(infer.prepare_gt_batch(list(range(frames))), {"frames_per_dispatch": 8}))
+        end = cuda_event()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    out = {k: sum(a.elapsed_time(b) for a, b in v) / frames for k, v in spans.items()}
+    return out["position"], out["ambient"], start.elapsed_time(end) / frames
+
+
+def phase_serve_grid(dev, served, fourier_ms: float):
+    """serve_grid (module docstring)."""
+    import dataclasses
+
+    from genefaceplusplus_tpu_torch.config import save_config
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+    from genefaceplusplus_tpu_torch.data.video import read_avi
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer, default_inp
+    from genefaceplusplus_tpu_torch.inference.serving import stream_infer
+    from genefaceplusplus_tpu_torch.models.full_renderer import render_full_frame
+    from genefaceplusplus_tpu_torch.models.radnerf import MAY_LM3D_RADNERF_TORSO_SR, RADNeRF, RADNeRFConfig
+    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoConfig, TorsoField
+    from genefaceplusplus_tpu_torch.models.renderer import make_aabb
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.ops import raymarch
+    from genefaceplusplus_tpu_torch.testing import reference_head_state, save_reference_ckpt
+    from genefaceplusplus_tpu_torch.tools import convert_ckpt
+    from genefaceplusplus_tpu_torch.utils import convert_torch_ckpt as cvt
+    from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint
+    from genefaceplusplus_tpu_torch.utils.convert_jax import convert_flax_params
+
+    work, card = served["work"], card_line()
+    occ = bench_occupancy(GRID)
+    ff.fused_field.launches = 0  # the grid heads run the float32 field: B1 stays idle
+
+    # the reference's head checkpoint, converted and loaded
+    hp = grid_head_hparams("tiledgrid")
+    src_dir, out_dir = os.path.join(work, "released_head"), os.path.join(work, "head_converted")
+    os.makedirs(src_dir)
+    state = reference_head_state(hp, seed=31, occupancy=occ)
+    src = os.path.join(src_dir, "model_ckpt_steps_250000.ckpt")
+    save_reference_ckpt(src, state, global_step=250_000)
+    save_config(dict(hp, binary_data_dir=served["binary"], video_id="May"), src_dir)
+    t0 = time.perf_counter()
+    path = convert_ckpt.main(["--input", src, "--type", "head", "--grid_size", str(GRID), "--out", out_dir])
+    convert_ms = (time.perf_counter() - t0) * 1e3
+    extra = get_last_checkpoint(out_dir)[0]["extra_state"]
+    check(np.array_equal(np.asarray(extra["occupancy"]), occ), "the converted occupancy vs the ellipsoid packed "
+                                                               "into the checkpoint's bitfield")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infer = GeneFaceInfer.from_work_dirs(audio2secc_dir=served["a2m"], head_model_dir=out_dir, device=dev)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    cfg = infer.head_cfg
+    expected = convert_flax_params(cvt.convert_radnerf_grid(state, GRID)["params"], RADNeRF(cfg))
+    got = infer.head_model.state_dict()
+    check(set(got) == set(expected) and all(torch.equal(got[k].cpu(), expected[k]) for k in got),
+          "the converted head's tensors on the card vs the mapping's")
+    check(cfg.grid_type == "tiledgrid" and infer.field_weights is None and infer.sr_model is None,
+          "a grid head serves its float32 field")
+    H, W = infer.dataset.H, infer.dataset.W
+    check((H, W) == (SIZE, SIZE), f"head-only frames at {H}x{W}")
+    n_rows = sum(t.shape[0] for k, t in got.items() if k.endswith("embedder.embeddings"))
+    print(f"[serve_grid] a fake reference head (legacy torch.save, {len(state)} tensors, tiledgrid: grid tables of "
+          f"{n_rows:,} rows, {cfg.individual_embedding_num} x {cfg.individual_embedding_dim} individual codes, grid "
+          f"{cfg.grid_size}; its density_bitfield the bench's ellipsoid in morton order) -> tools/convert_ckpt.py "
+          f"--type head -> {os.path.basename(path)}: occupancy equal to the ellipsoid; from_work_dirs on the card: "
+          f"every head tensor equal to the mapping's; head crop {infer.head_crop}")
+
+    # head-only frames, GT-driven; the grid encoders' device time
+    ids = [i % len(infer.dataset) for i in range(GRID_FRAMES)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    frames, ms_tiled = timed_frames(infer, ids)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    bg_u8 = (np.clip(infer.dataset.bg_img, 0.0, 1.0) * 255.0).astype(np.uint8)
+    check(len(frames) == GRID_FRAMES and all(f.shape == (H, W, 3) and f.dtype == np.uint8 for f in frames),
+          "tiledgrid frames")
+    check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "tiledgrid frames do not vary")
+    head = min((np.abs(f.astype(np.int16) - bg_u8).max(axis=-1) > 8).mean() for f in frames)
+    check(head > 0.02, f"head region missing: {head:.4f} of pixels differ from the background")
+    pos_ms, amb_ms, frame_ms = encoder_device_ms(infer, GRID_SIDE_FRAMES)
+    per_frame, kernels, busy, top = profile_request(infer, infer.prepare_gt_batch(ids[:GRID_SIDE_FRAMES]))
+    band_card_vs_cpu(infer, dev, infer.render_options({}), "tiledgrid head-only")
+
+    # one 4 s audio-driven request through infer_once, then the same through a stream
+    inp = default_inp(drv_aud_features=served["request"], out_name=os.path.join(work, "grid.mp4"))
+    infer.generator.manual_seed(42)
+    t0 = time.perf_counter()
+    avi = infer.infer_once(inp)
+    once_ms = (time.perf_counter() - t0) * 1e3
+    avi_frames, _ = read_avi(avi)
+    os.remove(avi)
+    infer.generator.manual_seed(42)
+    direct = np.stack(list(infer.forward_secc2video(infer.forward_audio2secc(infer.prepare_batch_from_inp(inp), inp),
+                                                    inp)))
+    T = len(direct)
+    differ = [i for i in range(T) if not np.array_equal(avi_frames[i], direct[i])]
+    check(avi_frames.shape == (T, H, W, 3) and not differ, f"infer_once's AVI vs the direct frames: {differ[:10]}")
+    feats = np.load(served["request"], allow_pickle=True).tolist()
+    t0 = time.perf_counter()
+    stamps, streamed = [], []
+    for f in stream_infer(infer, served["wav"], {"hubert_full": feats["hubert"]}, chunk_seconds=STREAM_CHUNK_SECONDS):
+        stamps.append(time.perf_counter())
+        streamed.append(f)
+    tail = len(served["wav"]) - len(streamed) * 2 * 320
+    check(0 <= tail < 16000 // 5 and all(f.shape == (H, W, 3) for f in streamed),
+          f"{len(streamed)} streamed frames for {len(served['wav'])} samples (drift)")
+    check(any(not np.array_equal(streamed[0], f) for f in streamed[1:]), "streamed frames do not vary")
+    print(f"[serve_grid] audio-driven (the serve_cli a2m, 4 s): infer_once {T} frames of {H}x{W} in {once_ms:.1f} ms "
+          f"({once_ms / T:.3f} ms a frame), the AVI read back equal to the direct frames bit for bit; stream_infer "
+          f"({STREAM_CHUNK_SECONDS} s chunks) {len(streamed)} frames, first frame {(stamps[0] - t0) * 1e3:.1f} ms, "
+          f"{(stamps[-1] - t0) * 1e3 / len(streamed):.3f} ms a frame")
+
+    # grid-mode marching: one frame on the card, the masks and a band against the CPU
+    gopts = dataclasses.replace(infer.render_options({}), **GRID_MARCH)
+    ro, rd, win, eye, _ = frame_inputs(infer, dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_full_frame(infer.head_model, ro, rd, win, infer.occupancy, infer.bg_color, gopts, (H, W),
+                                eye_area_percent=eye)
+        torch.cuda.synchronize()
+        march_ms = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(out.rgb_map).all()) and out.weights_sum.max().item() > 0.1, "the grid-mode frame")
+        masks = []
+        for d, o in ((dev, infer.occupancy), ("cpu", infer.occupancy.cpu())):
+            nears, fars = raymarch.near_far_from_aabb(ro.to(d), rd.to(d), make_aabb(cfg.bound, device=d),
+                                                      cfg.min_near)
+            masks.append(raymarch.march_rays(ro.to(d), rd.to(d), nears, fars, o, cfg.bound, gopts.dt_gamma,
+                                             gopts.max_steps, gopts.num_coarse, gopts.num_samples).mask.cpu())
+    agree = (masks[0] == masks[1]).all(dim=1).float().mean().item()
+    print(f"[serve_grid] grid-mode marching ({GRID_MARCH}): one {H}x{W} frame in {march_ms:.1f} ms, "
+          f"{int(masks[0].sum()):,} live samples; sample masks card vs CPU agree on {100.0 * agree:.4f} % of rays")
+    band_card_vs_cpu(infer, dev, gopts, "grid-mode marching")
+
+    # the same head as hashgrid
+    hcfg = RADNeRFConfig.from_hparams(grid_head_hparams("hashgrid"))
+    hstate = reference_head_state(grid_head_hparams("hashgrid"), seed=32, occupancy=occ)
+    hinfer = GeneFaceInfer(hcfg, convert_flax_params(cvt.convert_radnerf_grid(hstate, GRID)["params"], RADNeRF(hcfg)),
+                           infer.dataset, occ, device=dev)
+    hframes, ms_hash = timed_frames(hinfer, ids[:GRID_SIDE_FRAMES])
+    check(len(hframes) == GRID_SIDE_FRAMES and any(not np.array_equal(hframes[0], f) for f in hframes[1:]),
+          "hashgrid frames")
+    band_card_vs_cpu(hinfer, dev, hinfer.render_options({}), "hashgrid head-only")
+    del hinfer
+
+    # the torso_sr frame: a tiledgrid head in the SR config (256^2 raw), a tiledgrid torso, bf16 SR
+    scfg = RADNeRFConfig.from_hparams(grid_head_hparams("tiledgrid", sr=True))
+    sstate = reference_head_state(grid_head_hparams("tiledgrid", sr=True), seed=33, occupancy=occ)
+    tcfg = TorsoConfig.from_hparams(dict(MAY_LM3D_RADNERF_TORSO_SR, grid_type="tiledgrid"))
+    torso = TorsoField(tcfg, generator=torch.Generator().manual_seed(34))
+    with torch.no_grad():
+        torso.torso_embedder.embeddings.mul_(1000.0)  # a trained table's scale, not the init's 1e-4
+    sr = Superresolution(3, 256, generator=torch.Generator().manual_seed(35))
+    sds = RADNeRFDataset(synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0), smo_win_size=scfg.smo_win_size,
+                         with_sr=True)
+    sinfer = GeneFaceInfer(scfg, convert_flax_params(cvt.convert_radnerf_grid(sstate, GRID)["params"], RADNeRF(scfg)),
+                           sds, occ, device=dev, torso_cfg=tcfg, torso_params=torso.state_dict(),
+                           sr_params=sr.state_dict(), torso_occupancy_2d=bench_torso_grid(tcfg.grid_size))
+    sframes, ms_sr = timed_frames(sinfer, ids[:GRID_SIDE_FRAMES])
+    check(len(sframes) == GRID_SIDE_FRAMES and all(f.shape == (2 * sds.H, 2 * sds.W, 3) for f in sframes)
+          and any(not np.array_equal(sframes[0], f) for f in sframes[1:]), "grid torso_sr frames")
+    ro, rd, win, eye, lm68 = frame_inputs(sinfer, dev)
+    outs = {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        head, tor = (sinfer.head_model, sinfer.torso_model) if where == "card" else (cpu_twin(sinfer.head_model),
+                                                                                      cpu_twin(sinfer.torso_model))
+        sr32 = Superresolution(3, 256).to(d)  # float32, as the CPU runs it
+        sr32.load_state_dict(sinfer.sr_model.state_dict())
+        with torch.no_grad():
+            o = render_full_frame(head, ro.to(d), rd.to(d), win.to(d), sinfer.occupancy.to(d), sinfer.bg_color.to(d),
+                                  sinfer.render_options({}), (sds.H, sds.W), eye_area_percent=eye.to(d),
+                                  torso_model=tor, bg_coords=sinfer.bg_coords.to(d), lm68=lm68.to(d),
+                                  occupancy_2d=sinfer.torso_occupancy_2d.to(d), sr_model=sr32,
+                                  torso_crop=sinfer.torso_crop)
+        outs[where] = {k: getattr(o, k).cpu() for k in ("rgb_map", "torso_alpha", "sr_rgb_map")}
+    errs = {k: ((outs["card"][k] - v).abs().max().item(), (outs["card"][k] - v).abs().mean().item())
+            for k, v in outs["cpu"].items()}
+    print(f"[serve_grid] grid torso_sr frame (raw {sds.H}x{sds.W}, float32 SR), card vs CPU: "
+          + ", ".join(f"{k} max |d| {m:.3e} mean {a:.3e}" for k, (m, a) in errs.items())
+          + f" (frames <= {GRID_CARD_MAX}, {GRID_CARD_MEAN})")
+    for k in ("rgb_map", "sr_rgb_map"):
+        check(errs[k][0] <= GRID_CARD_MAX and errs[k][1] <= GRID_CARD_MEAN, f"grid torso_sr card vs CPU {k}")
+    del sinfer
+
+    launches = ff.fused_field.launches
+    check(launches == 0, f"serve_grid launched the fused field {launches} times")
+    print(f"[serve_grid] {card}; convert {convert_ms:.1f} ms (host), from_work_dirs {load_ms:.1f} ms")
+    print(f"[serve_grid] {card}; ms a frame (host wall, one frame a dispatch, median / p90): tiledgrid head-only "
+          f"{statistics.median(ms_tiled):.3f} / {p90(ms_tiled):.3f} ({GRID_FRAMES} frames), hashgrid head-only "
+          f"{statistics.median(ms_hash):.3f} / {p90(ms_hash):.3f}, grid torso_sr {statistics.median(ms_sr):.3f} / "
+          f"{p90(ms_sr):.3f} ({GRID_SIDE_FRAMES} frames each); the Fourier head-only frame of this call (serve, 8 "
+          f"a dispatch) {fourier_ms:.3f}")
+    print(f"[serve_grid] {card}; the grid encoders by CUDA events, tiledgrid head-only, 8 a dispatch: position "
+          f"{pos_ms:.3f} ms a frame, ambient {amb_ms:.3f}, together {pos_ms + amb_ms:.3f} of the frame's "
+          f"{frame_ms:.3f} ms")
+    if per_frame is None:
+        print(f"[serve_grid] profiler: no device activity recorded; kernels a frame not measured; peak memory "
+              f"{peak:.2f} GiB")
+    else:
+        print(f"[serve_grid] profiler over {GRID_SIDE_FRAMES} tiledgrid frames: {kernels:.1f} kernels a frame, device "
+              f"busy {busy:.3f} ms a frame; peak memory {peak:.2f} GiB (one frame a dispatch)")
+        for name, count, ms in top[:6]:
+            print(f"[serve_grid] profiler top kernel: {ms:.4f} ms a frame in {count:.1f} launches: {name}")
 
 
 def _ws_stream(port: int, inp: dict):
@@ -2376,7 +2704,7 @@ def main() -> int:
     phase_build()
     k = phase_kernel(dev)
     kb, kw = phase_kernel_bwd(dev)
-    serve_launches = phase_serve(dev)
+    serve_launches, fourier_ms = phase_serve(dev)
     full_launches = phase_serve_full(dev)
     audio_launches = phase_serve_audio(dev)
     print(f"ffmpeg: {shutil.which('ffmpeg')}")
@@ -2386,6 +2714,7 @@ def main() -> int:
         long_launches = phase_serve_long(dev, served)
         convert_launches = phase_convert(dev, served)
         app_launches = phase_serve_app(dev, served)
+        phase_serve_grid(dev, served, fourier_ms)
         del served
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2395,9 +2724,11 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
           f"{audio_launches} audio-driven serving + {cli_launches} CLI and streaming + {long_launches} long clip + "
-          f"{convert_launches} from the converted a2m + {app_launches} web app + {train_fwd} training + "
+          f"{convert_launches} from the converted a2m + {app_launches} web app (serve_grid: none, its grid heads "
+          f"run the float32 field) + {train_fwd} training + "
           f"{trained_launches} serving from CLI-trained dirs + {refined_launches} serving through the trained "
-          f"postnet; fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training")
+          f"postnet; fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training "
+          f"(serve_grid launches neither)")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",

@@ -19,8 +19,10 @@ surface on the JAX package's work dirs: `GeneFaceInfer.from_work_dirs`,
 (flax msgpack and YAML read by `utils/msgpack.py` and `config/`, video
 written as an uncompressed AVI by `data/video.py`). The field on both paths is the hand-written
 CUDA forward kernel `csrc/fused_field.cu`; training's backward is
-`csrc/fused_field_bwd.cu` (`ops/fused_field.py`). ROADMAP.md lists what is
-still to port.
+`csrc/fused_field_bwd.cu` (`ops/fused_field.py`). A head trained by the
+reference (tiled or hash grid encoders, `ops/grid_encoder.py`), converted
+by `tools/convert_ckpt.py --type head`, is served with the float32 field.
+ROADMAP.md lists what is still to port.
 """
 
 import torch

@@ -17,7 +17,8 @@ landmarks.
 Either batch (poses [T,4,4], the normalised landmark condition [T,1,204],
 eye areas [T,1], 2D landmarks lm68 [T,68,2]) renders through
 `forward_secc2video` with the production options (probe entry, 10 samples
-per ray, T_thresh 1e-2): the fused field, [the torso field composited
+per ray, T_thresh 1e-2): the fused field (the float32 field for a grid
+head), [the torso field composited
 behind the head, the 2x SR,] `frames_per_dispatch` frames per chunk,
 quantised to uint8 on the device and copied one chunk at a time to the
 host. `launch_secc2video` renders without copying (the frames stay on the
@@ -163,7 +164,11 @@ class GeneFaceInfer:
         self.head_model = RADNeRF(cfg)
         self.head_model.load_state_dict(params)
         self.head_model.to(self.device).eval()
-        self.field_weights = ff.weights_from_params(self.head_model, bound=cfg.bound)
+        # a Fourier head's field runs as the fused kernel (B1); a grid head's
+        # (tiledgrid / hashgrid, as the reference trains them) as the float32
+        # RADNeRF.field, as JAX serves it
+        self.field_weights = (ff.weights_from_params(self.head_model, bound=cfg.bound)
+                              if cfg.grid_type == "fourier" else None)
         self.torso_cfg, self.torso_model = torso_cfg, None
         if torso_cfg is not None:
             if torso_params is None:
@@ -579,7 +584,7 @@ class GeneFaceInfer:
     def forward_secc2video(self, batch: Mapping[str, Any],
                            inp: Optional[Mapping[str, Any]] = None) -> Iterator[np.ndarray]:
         """Yield the batch's frames as uint8 arrays, [2H, 2W, 3] with SR and
-        [H, W, 3] without, rendered through the fused field one chunk at a
+        [H, W, 3] without, rendered through the head field one chunk at a
         time."""
         T = int(batch["T"])
         chunk = max(1, min(int(dict(inp or {}).get("frames_per_dispatch", 8)), T))

@@ -1,11 +1,13 @@
-"""RAD-NeRF head model, Fourier encoders (port of
-`genefaceplusplus_tpu/models/radnerf.py`).
+"""RAD-NeRF head model (port of `genefaceplusplus_tpu/models/radnerf.py`).
 
 cond_prenet (AudioNet) -> optional blink embedding + encoder added to the
 first `eye_blink_dim` channels -> cond_att_net (AudioAttNet) over the smo
-window; field: Fourier position features -> ambient MLP -> tanh ->
-ambient Fourier features -> sigma MLP -> exp, geo -> SH(dir) + geo + ind
-code -> color MLP -> sigmoid.
+window; field: position features -> ambient MLP -> tanh -> ambient
+features -> sigma MLP -> exp, geo -> SH(dir) + geo + ind code -> color MLP
+-> sigmoid. The position and ambient encoders are Fourier features
+(`grid_type` 'fourier', the fused field's) or, as the reference trains
+its heads, tiled or hash grids ('tiledgrid', 'hashgrid': 16 levels x 2,
+`models/grid_modules.py`).
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import torch
 from torch import nn
 
 from genefaceplusplus_tpu_torch.models.cond_encoder import MLP, AudioAttNet, AudioNet, dense
+from genefaceplusplus_tpu_torch.models.grid_modules import GridEncoder
 from genefaceplusplus_tpu_torch.ops.fastmath import fast_tanh
 from genefaceplusplus_tpu_torch.ops.fourier_encoder import FourierEncoder
+from genefaceplusplus_tpu_torch.ops.grid_encoder import GridSpec
 from genefaceplusplus_tpu_torch.ops.sh_encoder import sh_encode
 from genefaceplusplus_tpu_torch.ops.trunc_exp import trunc_exp
 
@@ -39,7 +43,7 @@ class RADNeRFConfig:
     grid_size: int = 128
     min_near: float = 0.05
     density_thresh: float = 10.0
-    # spatial encoder: only 'fourier' is ported
+    # spatial encoder: 'fourier', 'tiledgrid' or 'hashgrid'
     grid_type: str = "fourier"
     grid_interpolation_type: str = "linear"
     log2_hashmap_size: int = 16
@@ -111,6 +115,18 @@ class RADNeRFConfig:
             field_act_dtype=get("field_act_dtype", "float32"),
         )
 
+    def _grid_spec(self, input_dim: int, desired_resolution: float) -> GridSpec:
+        return GridSpec.create(input_dim=input_dim, num_levels=16, level_dim=2, base_resolution=16,
+                               desired_resolution=desired_resolution, log2_hashmap_size=self.log2_hashmap_size,
+                               gridtype="hash" if self.grid_type == "hashgrid" else "tiled",
+                               interpolation=self.grid_interpolation_type)
+
+    def position_grid_spec(self) -> GridSpec:
+        return self._grid_spec(3, self.desired_resolution * self.bound)
+
+    def ambient_grid_spec(self) -> GridSpec:
+        return self._grid_spec(self.ambient_coord_dim, self.desired_resolution)
+
 
 # egs/datasets/May/lm3d_radnerf.yaml resolved through its base configs,
 # restricted to the keys the head stage reads: the non-SR 512^2 head model
@@ -180,10 +196,6 @@ class RADNeRF(nn.Module):
     def __init__(self, cfg: RADNeRFConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         c = self.cfg = cfg
-        if c.grid_type != "fourier":
-            raise NotImplementedError(
-                f"grid_type={c.grid_type!r}: only 'fourier' is ported; the grid "
-                "encoders are ROADMAP queue A item 7 (reference-parity paths)")
         g = generator
         self.cond_prenet = AudioNet(c.cond_in_dim, c.cond_out_dim, win_size=c.cond_win_size, generator=g)
         if c.add_eye_blink_cond:
@@ -196,13 +208,17 @@ class RADNeRF(nn.Module):
                 [dense(half, half, True, g), dense(half, c.eye_blink_dim, True, g)])
         if c.with_att:
             self.cond_att_net = AudioAttNet(c.cond_out_dim, seq_len=c.smo_win_size, generator=g)
-        self.position_embedder = FourierEncoder(
-            3, c.fourier_pos_features, max_scale=c.fourier_pos_max_scale, generator=g)
-        self.ambient_embedder = FourierEncoder(
-            c.ambient_coord_dim, c.fourier_amb_features, max_scale=c.fourier_amb_max_scale, generator=g)
+        if c.grid_type == "fourier":
+            self.position_embedder = FourierEncoder(
+                3, c.fourier_pos_features, max_scale=c.fourier_pos_max_scale, generator=g)
+            self.ambient_embedder = FourierEncoder(
+                c.ambient_coord_dim, c.fourier_amb_features, max_scale=c.fourier_amb_max_scale, generator=g)
+        else:  # any other grid_type is a grid, 'hashgrid' a hashed one, as in JAX
+            self.position_embedder = GridEncoder(c.position_grid_spec(), generator=g)
+            self.ambient_embedder = GridEncoder(c.ambient_grid_spec(), generator=g)
         dt = torch.bfloat16 if c.field_act_dtype == "bfloat16" else None
-        pos_dim = 2 * c.fourier_pos_features
-        amb_dim = 2 * c.fourier_amb_features
+        pos_dim = self.position_embedder.output_dim
+        amb_dim = self.ambient_embedder.output_dim
         self.ambient_net = MLP(pos_dim + c.cond_out_dim, c.ambient_coord_dim,
                                c.hidden_dim_ambient, c.num_layers_ambient, dtype=dt, generator=g)
         self.sigma_net = MLP(pos_dim + amb_dim, 1 + c.geo_feat_dim,

@@ -6,8 +6,9 @@ with the 7 jaw landmarks of lm68 (or the head pose, `cond_mode` 'pose')
 frequency-encoded (degree 4), the torso individual code and, head-aware, an
 encoding of the head's (rgb, weights sum); a deform MLP moves the coords,
 and a canonical MLP on the moved coords' Fourier features gives (alpha,
-color). Only the Fourier canonical encoder is ported; `tiledgrid` raises.
-Module names are JAX's (`torso_canonicial_net` included), so the weight
+color). The canonical encoder is Fourier features (`grid_type` 'fourier')
+or the reference's 2D tiled grid ('tiledgrid': 16 levels x 2, desired
+resolution 2048). Module names are JAX's (`torso_canonicial_net` included), so the weight
 bridge maps them one to one.
 """
 
@@ -20,8 +21,10 @@ import torch
 from torch import nn
 
 from genefaceplusplus_tpu_torch.models.cond_encoder import MLP, dense, leaky_relu
+from genefaceplusplus_tpu_torch.models.grid_modules import GridEncoder
 from genefaceplusplus_tpu_torch.ops.fourier_encoder import FourierEncoder
 from genefaceplusplus_tpu_torch.ops.freq_encoder import freq_encode, freq_output_dim
+from genefaceplusplus_tpu_torch.ops.grid_encoder import GridSpec
 
 # lm68 jaw points used as torso condition (radnerf_torso_sr.py:86)
 JAW_LM_INDICES = (5, 6, 7, 8, 9, 10, 11)
@@ -96,16 +99,17 @@ class TorsoField(nn.Module):
     def __init__(self, cfg: TorsoConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         c = self.cfg = cfg
-        if c.grid_type != "fourier":
-            raise NotImplementedError(
-                f"grid_type={c.grid_type!r}: only 'fourier' is ported; the tiled grid "
-                "encoder is ROADMAP queue A item 7 (reference-parity paths)")
         g = generator
         if c.torso_individual_embedding_dim > 0:
             self.torso_individual_codes = nn.Parameter(0.1 * torch.randn(
                 c.torso_individual_embedding_num, c.torso_individual_embedding_dim, generator=g))
-        self.torso_embedder = FourierEncoder(2, c.fourier_features, max_scale=c.fourier_max_scale,
-                                             generator=g)
+        if c.grid_type == "fourier":
+            self.torso_embedder = FourierEncoder(2, c.fourier_features, max_scale=c.fourier_max_scale,
+                                                 generator=g)
+        else:
+            self.torso_embedder = GridEncoder(GridSpec.create(
+                input_dim=2, num_levels=16, level_dim=2, base_resolution=16, log2_hashmap_size=16,
+                desired_resolution=2048, gridtype="tiled"), generator=g)
         cond_dim = freq_output_dim(2 * len(JAW_LM_INDICES) if c.cond_mode == "lm68" else 6, 4)
         in_dim = freq_output_dim(2, 10) + max(c.torso_individual_embedding_dim, 0) + cond_dim
         if c.torso_head_aware:

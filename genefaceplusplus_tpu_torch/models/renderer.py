@@ -1,8 +1,11 @@
-"""Volume rendering of a ray batch, full-slot interval path (port of
+"""Volume rendering of a ray batch, full-slot (port of
 `genefaceplusplus_tpu/models/renderer.py`).
 
-near/far slab -> (probe prepass) -> interval march -> field on all R*S
-sample slots -> masked composite with T_thresh -> background blend.
+near/far slab -> march -> field on all R*S sample slots -> masked composite
+with T_thresh -> background blend. The march is the interval marcher (with
+the probe prepass where `entry_mode` is 'probe'; the serving default) or,
+with `march_mode` 'grid', the reference's per-cell occupancy test over
+`num_coarse` lattice points a ray.
 """
 
 from __future__ import annotations
@@ -18,15 +21,16 @@ from genefaceplusplus_tpu_torch.ops import raymarch
 
 @dataclasses.dataclass(frozen=True)
 class RenderOptions:
-    """Render hyper-parameters of the interval marcher; the JAX fields and
-    defaults, less those only grid-mode marching reads (not ported,
-    ROADMAP queue A item 7). `color_topk > 0` and `0 < compact_frac < 1` are
-    default-off approximations not ported yet (ROADMAP queue A item 2), and
-    raise."""
+    """Render hyper-parameters: the JAX fields and defaults. `color_topk >
+    0` and `0 < compact_frac < 1` are default-off approximations not ported
+    yet (ROADMAP queue A item 4), and raise."""
 
     max_steps: int = 16  # sets the lattice's dt_min
+    num_coarse: int = 48  # lattice points examined a ray ('grid' mode)
     num_samples: int = 16
+    dt_gamma: float = 0.00390625  # 1/256 ('grid' mode's step growth)
     T_thresh: float = 1e-4
+    march_mode: str = "interval"  # 'interval' | 'grid'
     entry_mode: str = "aabb"
     probe_stride: int = 4
     probe_coarse_factor: int = 4
@@ -60,25 +64,30 @@ def render_rays(field_fn, rays_o, rays_d, occupancy, bound: float, min_near: flo
     condition. `noise` [R] in [0, 1) perturbs the sample lattice (training);
     `image_hw` enables `entry_mode='probe'`."""
     if 0 < opts.color_topk < opts.num_samples:
-        raise NotImplementedError("color_topk is not ported (ROADMAP queue A item 2)")
+        raise NotImplementedError("color_topk is not ported (ROADMAP queue A item 4)")
     if 0.0 < opts.compact_frac < 1.0:
-        raise NotImplementedError("compact_frac is not ported (ROADMAP queue A item 2)")
+        raise NotImplementedError("compact_frac is not ported (ROADMAP queue A item 4)")
     R = rays_o.shape[0]
     S = opts.num_samples
     aabb = make_aabb(bound, device=rays_o.device)
     nears, fars = raymarch.near_far_from_aabb(rays_o, rays_d, aabb, min_near)
 
-    occ_box = raymarch.occupancy_aabb(occupancy, bound)
-    t_entry = t_exit = None
-    if opts.entry_mode == "probe" and image_hw is not None:
-        t_entry, t_exit = raymarch.entry_exit_depth_map(
-            rays_o, rays_d, occupancy, occ_box, bound, image_hw,
-            stride=opts.probe_stride, coarse_factor=opts.probe_coarse_factor,
-            n_probe=opts.n_probe, min_near=min_near)
-    m = raymarch.march_rays_interval(
-        rays_o, rays_d, nears, fars, occ_box, bound=bound, max_steps=opts.max_steps,
-        num_samples=S, noise=noise, min_near=min_near, grid_size=occupancy.shape[0],
-        t_entry=t_entry, t_exit=t_exit)
+    if opts.march_mode == "interval":
+        occ_box = raymarch.occupancy_aabb(occupancy, bound)
+        t_entry = t_exit = None
+        if opts.entry_mode == "probe" and image_hw is not None:
+            t_entry, t_exit = raymarch.entry_exit_depth_map(
+                rays_o, rays_d, occupancy, occ_box, bound, image_hw,
+                stride=opts.probe_stride, coarse_factor=opts.probe_coarse_factor,
+                n_probe=opts.n_probe, min_near=min_near)
+        m = raymarch.march_rays_interval(
+            rays_o, rays_d, nears, fars, occ_box, bound=bound, max_steps=opts.max_steps,
+            num_samples=S, noise=noise, min_near=min_near, grid_size=occupancy.shape[0],
+            t_entry=t_entry, t_exit=t_exit)
+    else:  # JAX takes any other mode for 'grid'
+        m = raymarch.march_rays(rays_o, rays_d, nears, fars, occupancy, bound=bound, dt_gamma=opts.dt_gamma,
+                                max_steps=opts.max_steps, num_coarse=opts.num_coarse, num_samples=S,
+                                noise=noise)
 
     N = R * S
     xyz = m.xyzs.reshape(N, 3)

@@ -1,11 +1,11 @@
-"""Interval ray marching with the probe entry/exit prepass (port of the
-interval path of `genefaceplusplus_tpu/ops/raymarch.py`).
+"""Ray marching (port of `genefaceplusplus_tpu/ops/raymarch.py`).
 
 Ported: `near_far_from_aabb`, `occupancy_lookup`, `occupancy_aabb`,
-`coarsen_occupancy`, `probe_entry_exit`, `entry_exit_depth_map` and
-`march_rays_interval` (with training's `noise`). The grid-mode marcher and
-the entry-only probe are on neither the serving nor the training path
-(ROADMAP queue A, items 2 and 7).
+`coarsen_occupancy`, `probe_entry_exit`, `entry_exit_depth_map`,
+`march_rays_interval` (with training's `noise`) and the grid-mode
+`march_rays` (the reference's per-cell occupancy test: K lattice points a
+ray, the first S occupied ones kept in order by a sort over integer keys).
+The entry-only probe is on no path of the port.
 
 Conversions from JAX: `lax.reduce_window` SAME 3x3 max is
 `max_pool2d(3, 1, padding=1)`; the ones-kernel dilation conv is
@@ -171,3 +171,37 @@ def march_rays_interval(rays_o, rays_d, nears, fars, occ_aabb, bound: float = 1.
     xyz = torch.clamp(xyz, -bound, bound)
     deltas = dt_ray.expand(R, num_samples)
     return MarchResult(xyzs=xyz, deltas=deltas, ts=t_end, mask=mask)
+
+
+def march_rays(rays_o, rays_d, nears, fars, occupancy: torch.Tensor, bound: float = 1.0,
+               dt_gamma: float = 0.0, max_steps: int = 16, num_coarse: int = 48, num_samples: int = 16,
+               noise: Optional[torch.Tensor] = None) -> MarchResult:
+    """Grid mode: step `num_coarse` lattice points a ray from `nears` (t_{i+1}
+    = t_i + clamp(t_i * dt_gamma, dt_min, dt_max)), look each up in the
+    occupancy grid [H, H, H], and keep the first `num_samples` that are
+    occupied and before `fars`, in order. `noise` [R] in [0, 1) shifts t0
+    by one step's fraction (training)."""
+    H = occupancy.shape[0]
+    dt_min, dt_max = step_size(H, 1, max_steps)
+    t = nears
+    if noise is not None:
+        t = t + torch.clamp(t * dt_gamma, dt_min, dt_max) * noise
+    ts, dts = [t], []
+    for _ in range(num_coarse):
+        dt = torch.clamp(t * dt_gamma, dt_min, dt_max)
+        dts.append(dt)
+        t = t + dt
+        ts.append(t)
+    t_start = torch.stack(ts[:-1], dim=-1)  # [R, K]
+    t_end = torch.stack(ts[1:], dim=-1)
+    dt_all = torch.stack(dts, dim=-1)
+    xyz = torch.clamp(rays_o[:, None, :] + t_start[..., None] * rays_d[:, None, :], -bound, bound)
+    valid = occupancy_lookup(occupancy, xyz, bound) & (t_start < fars[:, None])
+    # stable compaction: each occupied point's key is its step, the others'
+    # K; the S smallest keys are the first S occupied points
+    K = num_coarse
+    steps = torch.arange(K, device=rays_o.device).expand_as(valid)
+    order = torch.sort(torch.where(valid, steps, torch.full_like(steps, K)), dim=-1).values[:, :num_samples]
+    sel = torch.clamp(order, 0, K - 1)
+    return MarchResult(xyzs=torch.gather(xyz, 1, sel[..., None].expand(*sel.shape, 3)),
+                       deltas=torch.gather(dt_all, 1, sel), ts=torch.gather(t_end, 1, sel), mask=order < K)

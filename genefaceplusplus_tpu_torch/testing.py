@@ -1,7 +1,7 @@
-"""Seeded stand-ins for checking the port without downloads: a reference
-audio-to-motion checkpoint in the released layout (for the converter) and a
-small CPU `GeneFaceInfer` (for the writer and the app). Used by the tests and
-by `chip_smoke.py`."""
+"""Seeded stand-ins for checking the port without downloads: the
+reference's audio-to-motion and grid-head checkpoints in their released
+layout (for the converter) and a small CPU `GeneFaceInfer` (for the writer
+and the app). Used by the tests and by `chip_smoke.py`."""
 
 from __future__ import annotations
 
@@ -61,6 +61,62 @@ def reference_a2m_state(hp: Mapping, seed: int) -> Dict[str, np.ndarray]:
         conv(f"vae.prior_flow.flows.{2 * i}.pre", flow, latent // 2, 1)
         conv(f"vae.prior_flow.flows.{2 * i}.post", latent // 2, flow, 1)
         wn_stack(f"vae.prior_flow.flows.{2 * i}.enc", flow, 4, 3)
+    return s
+
+
+# the reference's module names of the port's condition encoders and MLPs
+_REFERENCE_NAMES = (("cond_prenet.convs.", lambda i: f"cond_prenet.encoder_conv.{2 * i}"),
+                    ("cond_prenet.dense.", lambda i: f"cond_prenet.encoder_fc1.{2 * i}"),
+                    ("cond_att_net.convs.", lambda i: f"cond_att_net.attentionConvNet.{2 * i}"),
+                    ("cond_att_net.dense.", lambda i: f"cond_att_net.attentionNet.{i}"),
+                    ("ambient_net.dense.", lambda i: f"ambient_net.net.{i}"),
+                    ("sigma_net.dense.", lambda i: f"sigma_net.net.{i}"),
+                    ("color_net.dense.", lambda i: f"color_net.net.{i}"))
+
+
+def reference_head_state(hp: Mapping, seed: int, occupancy: np.ndarray) -> Dict[str, np.ndarray]:
+    """A torch-named RADNeRF state dict in the reference's layout for a grid
+    head (`hp`'s `grid_type` 'tiledgrid' or 'hashgrid', its widths), seeded:
+    the condition encoders (AudioNet `encoder_conv`/`encoder_fc1`,
+    AudioAttNet `attentionConvNet`/`attentionNet`), the blink encoder, the
+    grid tables, the bias-free MLPs (`*.net.i`), the individual codes, and
+    the renderer's buffers: `density_grid` [1, H^3] and `density_bitfield`
+    (the spatial `occupancy` [H, H, H] packed in morton order, LSB first),
+    `aabb_train`, `aabb_infer`, `step_counter` and the tables' `offsets`.
+    Weights are drawn at fan-in scale and the tables at +-0.5, so the field
+    varies in space and with the condition."""
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
+    from genefaceplusplus_tpu_torch.ops import morton
+
+    cfg = RADNeRFConfig.from_hparams(hp)
+    H = cfg.grid_size
+    if np.shape(occupancy) != (H, H, H):
+        raise ValueError(f"occupancy {np.shape(occupancy)} is not the config's grid [{H}, {H}, {H}]")
+    rng = np.random.RandomState(seed)
+    s: Dict[str, np.ndarray] = {}
+    shapes = RADNeRF(cfg, generator=torch.Generator().manual_seed(0)).state_dict()  # the port's names and shapes
+    for key, t in shapes.items():
+        for prefix, name in _REFERENCE_NAMES:
+            if key.startswith(prefix):
+                i, leaf = key[len(prefix):].split(".")
+                key = f"{name(int(i))}.{leaf}"
+        if key.endswith("embeddings") and "individual" not in key:
+            s[key] = rng.uniform(-0.5, 0.5, t.shape).astype(np.float32)
+        elif key.endswith(".bias"):
+            s[key] = (rng.randn(*t.shape) * 0.05).astype(np.float32)
+        elif "embedding" in key:  # the individual codes, the blink embedding
+            s[key] = (rng.randn(*t.shape) * 0.1).astype(np.float32)
+        else:  # an [out, in(, k)] weight
+            s[key] = (rng.randn(*t.shape) / np.sqrt(np.prod(t.shape[1:]))).astype(np.float32)
+    occ = torch.from_numpy(np.asarray(occupancy, bool))[None]
+    density = np.where(occupancy, 20.0, 0.0) + rng.uniform(0.0, 5.0, occupancy.shape)
+    s["density_grid"] = morton.spatial_to_morton(torch.from_numpy(density.astype(np.float32))[None]).numpy()
+    s["density_bitfield"] = morton.occupancy_to_bitfield(occ).numpy()
+    s["aabb_train"] = np.array([-1, -0.5, -1, 1, 0.5, 1], np.float32) * cfg.bound
+    s["aabb_infer"] = s["aabb_train"].copy()
+    s["step_counter"] = np.zeros((16, 2), np.int32)
+    for enc, spec in (("position_embedder", cfg.position_grid_spec()), ("ambient_embedder", cfg.ambient_grid_spec())):
+        s[f"{enc}.offsets"] = np.asarray(spec.offsets, np.int32)
     return s
 
 

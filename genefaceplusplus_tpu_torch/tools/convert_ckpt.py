@@ -11,11 +11,18 @@ Both packages load it:
     python -m genefaceplusplus_tpu_torch.tools.convert_ckpt \\
         --input checkpoints/audio2motion_vae/model_ckpt_steps_400000.ckpt \\
         --type a2m --out checkpoints/audio2motion_vae_converted
+    python -m genefaceplusplus_tpu_torch.tools.convert_ckpt \\
+        --input checkpoints/motion2video_nerf/may_head/model_ckpt_steps_250000.ckpt \\
+        --type head --grid_size 128 --out checkpoints/may_head_converted
     python -m genefaceplusplus_tpu_torch.inference.cli \\
-        --a2m_ckpt checkpoints/audio2motion_vae_converted --torso_ckpt T ...
+        --a2m_ckpt checkpoints/audio2motion_vae_converted \\
+        --head_ckpt checkpoints/may_head_converted ...
 
-`--type head` (the grid-encoder head) and `--type disc` (the EG3D
-discriminator) raise until the port has those modules.
+`--type head` converts a grid head (the reference's `tiledgrid` or
+`hashgrid`): its params, and in `extra_state` the cascade-0 density grid
+and occupancy in spatial order; `config.yaml` gets `grid_type` (default
+`tiledgrid`) and `grid_size` where the source config has none.
+`--type disc` (the EG3D discriminator) raises until the port has it.
 """
 
 from __future__ import annotations
@@ -29,28 +36,34 @@ from genefaceplusplus_tpu_torch.config import yaml_io
 from genefaceplusplus_tpu_torch.utils import convert_torch_ckpt as cvt
 from genefaceplusplus_tpu_torch.utils.ckpt import save_flax_checkpoint
 
-_WAITING = {
-    "head": "the grid-encoder head (convert_radnerf_grid) waits for the grid encoders (ROADMAP queue A, "
-            "reference-parity paths: ops/grid_encoder.py)",
-    "disc": "the EG3D discriminator (convert_eg3d_disc) waits for the discriminators (ROADMAP queue A, "
-            "reference-parity paths: models/eg3d_discriminator.py)",
-}
-
-
-def convert_file(input_path: str, kind: str, out_dir: str, config: Optional[dict] = None) -> str:
+def convert_file(input_path: str, kind: str, out_dir: str, grid_size: int = 128,
+                 config: Optional[dict] = None) -> str:
     """Convert one reference checkpoint into the work dir `out_dir`; returns
     the checkpoint's path."""
-    if kind in _WAITING:
-        raise NotImplementedError(f"--type {kind}: {_WAITING[kind]}")
-    if kind != "a2m":
+    if kind == "disc":
+        raise NotImplementedError("--type disc: the EG3D discriminator (convert_eg3d_disc) waits for the "
+                                  "discriminators (ROADMAP queue A, reference-parity paths: "
+                                  "models/eg3d_discriminator.py)")
+    if kind not in ("a2m", "head"):
         raise ValueError(f"unknown --type {kind!r} (a2m | head | disc)")
     state, step = cvt.load_torch_state_dict(input_path)
     cfg = dict(config or {})
     src_cfg = os.path.join(os.path.dirname(input_path), "config.yaml")
     if os.path.exists(src_cfg):
         cfg = {**(yaml_io.load(src_cfg) or {}), **cfg}
-    path = save_flax_checkpoint(out_dir, step, {"state_dict": cvt.convert_pitch_contour_vae(state)}, config=cfg,
-                                num_ckpt_keep=100)
+    if kind == "a2m":
+        payload = {"state_dict": cvt.convert_pitch_contour_vae(state)}
+    else:
+        out = cvt.convert_radnerf_grid(state, grid_size=grid_size)
+        payload = {"state_dict": {"params": out["params"]}, "extra_state": {}}
+        rs = out["render_state"]
+        if "density_grid" in rs:  # the trainer's working grid: cascade 0, [H, H, H]
+            payload["extra_state"]["density_grid"] = rs["density_grid"][0]
+        if "occupancy" in rs:
+            payload["extra_state"]["occupancy"] = rs["occupancy"]
+        cfg.setdefault("grid_type", "tiledgrid")
+        cfg.setdefault("grid_size", grid_size)
+    path = save_flax_checkpoint(out_dir, step, payload, config=cfg, num_ckpt_keep=100)
     print(f"| converted {len(state)} torch tensors ({kind}) @ step {step} -> {path}")
     return path
 
@@ -60,9 +73,11 @@ def main(argv=None) -> str:
     p.add_argument("--input", required=True, help="the reference's torch .ckpt file")
     p.add_argument("--type", required=True, choices=["a2m", "head", "disc"])
     p.add_argument("--out", required=True, help="the work dir to write")
+    p.add_argument("--grid_size", type=int, default=128, help="the head's density grid size (--type head)")
     p.add_argument("--config", default="", help="a YAML config whose keys override the source dir's config.yaml")
     args = p.parse_args(argv)
-    return convert_file(args.input, args.type, args.out, config=load_config(args.config) if args.config else None)
+    return convert_file(args.input, args.type, args.out, grid_size=args.grid_size,
+                        config=load_config(args.config) if args.config else None)
 
 
 if __name__ == "__main__":

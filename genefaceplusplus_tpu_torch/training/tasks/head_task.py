@@ -12,7 +12,9 @@ window on the frame's lip rect, mse + the perceptual loss on the window,
 with the float32 field; the grid refresh pauses.
 
 Not ported (it raises NotImplementedError when it would run): train-side
-live-sample compaction (ROADMAP).
+live-sample compaction (ROADMAP), and training a grid head (`grid_type`
+other than 'fourier'; the port serves such heads, converted from the
+reference, but trains the Fourier field only: ROADMAP queue A item 3).
 """
 
 from __future__ import annotations
@@ -87,10 +89,20 @@ class HeadTaskConfig:
         )
 
 
+def refuse_grid_training(grid_type: str, what: str):
+    """Raise for a grid field (`grid_type` other than 'fourier'): serving
+    reads grid heads, training does not yet."""
+    if grid_type != "fourier":
+        raise NotImplementedError(
+            f"{what} with grid_type={grid_type!r}: training grid fields is not ported (ROADMAP queue A item 3); "
+            "the port serves a grid head converted by tools/convert_ckpt.py --type head")
+
+
 class HeadNeRFTask:
     def __init__(self, dataset: RADNeRFDataset, model_cfg: RADNeRFConfig,
                  task_cfg: HeadTaskConfig = HeadTaskConfig(), hp: TaskHParams = TaskHParams(),
                  seed: int = 9999, device=None):
+        refuse_grid_training(model_cfg.grid_type, type(self).__name__)
         if task_cfg.train_compact_start > 0:
             raise NotImplementedError("train_compact_start > 0: train-side compaction is not "
                                       "ported (ROADMAP)")

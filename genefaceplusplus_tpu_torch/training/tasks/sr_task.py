@@ -37,7 +37,7 @@ from genefaceplusplus_tpu_torch.training import losses as L
 from genefaceplusplus_tpu_torch.training.perceptual import perceptual_from_task_config
 from genefaceplusplus_tpu_torch.training.radnerf_task import TaskHParams, TrainState, create_train_state
 from genefaceplusplus_tpu_torch.training.schedulers import grad_norms_by_group
-from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig
+from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig, refuse_grid_training
 from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
 
@@ -56,6 +56,7 @@ class SRHeadNeRFTask(HeadNeRFTask):
     def __init__(self, dataset: RADNeRFDataset, model_cfg: RADNeRFConfig,
                  task_cfg: SRTaskConfig = SRTaskConfig(), hp: TaskHParams = TaskHParams(),
                  seed: int = 9999, device=None):
+        refuse_grid_training(model_cfg.grid_type, type(self).__name__)
         if task_cfg.lambda_dual_fm > 0:
             raise NotImplementedError(
                 "lambda_dual_fm > 0: the frozen dual discriminator (JAX "

@@ -18,11 +18,14 @@ carries `batch_stats`).
   * BatchNorm1d weight/bias/running_mean/var -> scale/bias + batch_stats
   * Embedding weight -> Embed embedding
   * Conv2d [out, in, kh, kw]        -> flax HWIO (the VGG towers)
+  * grid-encoder tables copy as they are (the row layout is the same by
+    construction); density_grid / density_bitfield go from morton to
+    spatial order (`ops/morton.py`)
 
-The audio-to-motion model (`convert_pitch_contour_vae`) and the VGG towers
-(`convert_vgg19`, `convert_vggface`) are mapped. The discriminator
-(`convert_eg3d_disc`) and the grid-encoder head (`convert_radnerf_grid`)
-wait for the modules they fill (ROADMAP queue A).
+The audio-to-motion model (`convert_pitch_contour_vae`), the VGG towers
+(`convert_vgg19`, `convert_vggface`) and the grid-encoder head
+(`convert_radnerf_grid`) are mapped. The discriminator
+(`convert_eg3d_disc`) waits for the discriminators (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -219,3 +222,52 @@ def convert_vggface(state: Dict[str, np.ndarray]) -> Dict[str, Any]:
         params[f"Conv_{i}"] = {"kernel": conv2d_to_flax(np.asarray(w)),
                                "bias": np.asarray(b)}
     return {"params": params}
+
+
+def convert_radnerf_grid(state: Dict[str, np.ndarray], grid_size: int = 128) -> Dict[str, Any]:
+    """The reference's RADNeRF (a tiled or hash grid head) torch state dict
+    -> {'params': flax params, 'render_state': {'density_grid' [CAS, H, H,
+    H] float32, 'occupancy' [H, H, H] bool (cascade 0)}} (each where the
+    state has its buffer). The cond_prenet and att-net convs and linears,
+    the blink encoder, the bias-free MLPs and the individual codes map as
+    above, the grid tables verbatim; `aabb_*`, `step_counter` and the
+    tables' `offsets` are derived from the config and ignored."""
+    from genefaceplusplus_tpu_torch.ops import morton
+
+    def mlp(prefix, n):
+        return {f"Dense_{i}": {"kernel": linear_to_flax(state[f"{prefix}.net.{i}.weight"])} for i in range(n)}
+
+    def dense(prefix):
+        return {"kernel": linear_to_flax(state[f"{prefix}.weight"]), "bias": state[f"{prefix}.bias"]}
+
+    def convs(prefix, ids):
+        return {f"Conv_{j}": _conv_entry(state, f"{prefix}.{ci}") for j, ci in enumerate(ids)}
+
+    params: Dict[str, Any] = {
+        "cond_prenet": {**convs("cond_prenet.encoder_conv", (0, 2, 4, 6)),
+                        "Dense_0": dense("cond_prenet.encoder_fc1.0"), "Dense_1": dense("cond_prenet.encoder_fc1.2")},
+        "position_embedder": {"embeddings": state["position_embedder.embeddings"]},
+        "ambient_embedder": {"embeddings": state["ambient_embedder.embeddings"]},
+        "ambient_net": mlp("ambient_net", 3),
+        "sigma_net": mlp("sigma_net", 3),
+        "color_net": mlp("color_net", 2),
+    }
+    if "cond_att_net.attentionConvNet.0.weight" in state:
+        params["cond_att_net"] = {**convs("cond_att_net.attentionConvNet", (0, 2, 4, 6, 8)),
+                                  "Dense_0": dense("cond_att_net.attentionNet.0")}
+    if "individual_embeddings" in state:
+        params["individual_embeddings"] = state["individual_embeddings"]
+    if "blink_embedding.weight" in state:
+        params["blink_embedding"] = {"embedding": state["blink_embedding.weight"]}
+        params["blink_encoder_0"] = dense("blink_encoder.0")
+        params["blink_encoder_1"] = dense("blink_encoder.1")
+
+    render_state: Dict[str, Any] = {}
+    if "density_grid" in state:  # [CAS, H^3] in morton order
+        g = torch.from_numpy(np.ascontiguousarray(state["density_grid"]))
+        render_state["density_grid"] = morton.morton_to_spatial(g, grid_size).numpy()
+    if "density_bitfield" in state:
+        bits = torch.from_numpy(np.asarray(state["density_bitfield"]).astype(np.uint8))
+        cas = bits.numel() * 8 // grid_size ** 3
+        render_state["occupancy"] = morton.bitfield_to_occupancy(bits, cas, grid_size)[0].numpy()
+    return {"params": params, "render_state": render_state}

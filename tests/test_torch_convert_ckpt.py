@@ -13,6 +13,12 @@ and statistics and narrow widths (64 audio features, 32 hidden channels, a flow 
 counts are the reference's, which the converter maps), so its files stay
 near 3 MB. The VGG state dicts are narrow too (the map reads names only).
 
+The grid head is `testing.reference_head_state`'s fake of the reference's
+RADNeRF at narrow widths (grid 16, tables of 2^10 rows a level): its
+condition encoders, grid tables, MLPs, individual codes, and the morton
+`density_grid` and packed `density_bitfield` of an ellipsoid, with the
+vestigial buffers JAX's converter ignores.
+
 Tolerances: the converted work dirs are equal exactly (keys, dtypes, the
 bytes of every array, `global_step`, `config.yaml`); the port's a2m loaded
 from its dir against JAX's at temperature 0: atol 1e-4 (the port's float32
@@ -33,13 +39,17 @@ from genefaceplusplus_tpu.models.audio2motion.vae_model import PitchContourVAEMo
 from genefaceplusplus_tpu_torch.config import set_hparams
 from genefaceplusplus_tpu_torch.inference.pipeline import _restore
 from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
-from genefaceplusplus_tpu_torch.testing import reference_a2m_state, save_reference_ckpt
+from genefaceplusplus_tpu_torch.testing import reference_a2m_state, reference_head_state, save_reference_ckpt
 from genefaceplusplus_tpu_torch.tools import convert_ckpt, convert_vgg
 from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint
 
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
 ATOL = 1e-4
 A2M = {"use_pitch": True, "audio_in_dim": 64, "motion_type": "exp", "a2m_hidden_channels": 32, "a2m_flow_hidden": 16}
+# the reference's head config beside its checkpoint: no grid_type or
+# grid_size, which the converter sets
+HEAD_SRC = {"smo_win_size": 5, "individual_embedding_num": 16, "add_eye_blink_cond": True,
+            "desired_resolution": 64, "log2_hashmap_size": 10, "with_sr": False}
 
 
 def _script(name):
@@ -63,6 +73,26 @@ def released(tmp_path_factory):
     _script("convert_ckpt").convert_file(src, "a2m", jax_dir)
     path = convert_ckpt.main(["--input", src, "--type", "a2m", "--out", port_dir])
     return src, jax_dir, port_dir, path
+
+
+def _ellipsoid(g):
+    xx, yy, zz = np.meshgrid(*([np.linspace(-1, 1, g)] * 3), indexing="ij")
+    return (xx ** 2 + (2.2 * yy) ** 2 + (1.4 * zz) ** 2) < 0.16
+
+
+@pytest.fixture(scope="module")
+def released_head(tmp_path_factory):
+    """A fake reference grid head (H = 16) and both packages' work dirs."""
+    d = tmp_path_factory.mktemp("released_head")
+    src = str(d / "model_ckpt_steps_250000.ckpt")
+    save_reference_ckpt(src, reference_head_state(dict(HEAD_SRC, grid_type="tiledgrid", grid_size=16), seed=1,
+                                                  occupancy=_ellipsoid(16)), global_step=250_000)
+    with open(d / "config.yaml", "w") as f:
+        f.write("".join(f"{k}: {str(v).lower() if isinstance(v, bool) else v}\n" for k, v in HEAD_SRC.items()))
+    jax_dir, port_dir = str(d / "jax"), str(d / "port")
+    _script("convert_ckpt").convert_file(src, "head", jax_dir, grid_size=16)
+    convert_ckpt.main(["--input", src, "--type", "head", "--grid_size", "16", "--out", port_dir])
+    return src, jax_dir, port_dir
 
 
 def _flat(tree, prefix=()):
@@ -94,6 +124,28 @@ def test_the_converted_work_dir_is_jaxs(released):
         with open(os.path.join(d, "config.yaml")) as f:
             cfgs.append(yaml.safe_load(f))
     assert cfgs[0] == cfgs[1] == A2M
+
+
+def test_the_converted_head_is_jaxs(released_head):
+    """--type head: JAX's tree leaf for leaf (params, the density grid and
+    occupancy in spatial order, the step), its config.yaml, and the
+    occupancy equal to the ellipsoid packed into the source's bitfield."""
+    _, jax_dir, port_dir = released_head
+    name = "model_ckpt_steps_250000.ckpt"
+    assert sorted(os.listdir(jax_dir)) == sorted(os.listdir(port_dir)) == ["config.yaml", name]
+    j_tree, t_tree = (_flat(_restore_file(os.path.join(d, name))) for d in (jax_dir, port_dir))
+    assert set(j_tree) == set(t_tree) and len(t_tree) > 40
+    for k, a in j_tree.items():
+        b = t_tree[k]
+        assert type(a) is type(b) and np.asarray(a).dtype == np.asarray(b).dtype, k
+        assert np.asarray(a).shape == np.asarray(b).shape and np.asarray(a).tobytes() == np.asarray(b).tobytes(), k
+    assert int(t_tree[("global_step",)]) == 250_000
+    occ = t_tree[("extra_state", "occupancy")]
+    assert occ.dtype == np.bool_ and np.array_equal(occ, _ellipsoid(16))
+    assert t_tree[("extra_state", "density_grid")].shape == (16, 16, 16)
+    assert ("state_dict", "params", "position_embedder", "embeddings") in t_tree
+    cfgs = [yaml.safe_load(open(os.path.join(d, "config.yaml"))) for d in (jax_dir, port_dir)]
+    assert cfgs[0] == cfgs[1] == dict(HEAD_SRC, grid_type="tiledgrid", grid_size=16)
 
 
 def test_config_flag_overrides_the_source_config(released, tmp_path):
@@ -177,7 +229,7 @@ def test_convert_vgg_writes_jaxs_tree(tmp_path, monkeypatch, names, widths, face
     assert open(tmp_path / "jax.msgpack", "rb").read() == open(tmp_path / "port.msgpack", "rb").read()
 
 
-@pytest.mark.parametrize("kind,waits_for", [("head", "grid encoders"), ("disc", "discriminators")])
+@pytest.mark.parametrize("kind,waits_for", [("disc", "discriminators")])
 def test_head_and_disc_raise(released, tmp_path, kind, waits_for):
     with pytest.raises(NotImplementedError, match=waits_for):
         convert_ckpt.main(["--input", released[0], "--type", kind, "--out", str(tmp_path / kind)])

@@ -164,5 +164,12 @@ def test_converter_places_every_leaf_and_fails_loudly():
 
 
 def test_grid_encoders_raise_with_roadmap_pointer():
+    """A grid head builds (the serving path reads the reference's heads,
+    tests/test_torch_grid_field.py); training one raises, naming the
+    ROADMAP item."""
+    from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask
+
+    cfg = TConfig(grid_type="tiledgrid", desired_resolution=64, log2_hashmap_size=10)
+    assert TRADNeRF(cfg).position_embedder.output_dim == 32
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TRADNeRF(TConfig(grid_type="tiledgrid"))
+        HeadNeRFTask(None, cfg)

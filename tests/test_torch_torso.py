@@ -149,5 +149,11 @@ def test_torso_bridge_places_every_leaf_and_fails_loudly():
 
 
 def test_tiledgrid_raises_with_roadmap_pointer():
+    """A tiledgrid torso builds (served, tests/test_torch_grid_field.py);
+    training one raises, naming the ROADMAP item."""
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRFConfig
+    from genefaceplusplus_tpu_torch.training.tasks.torso_task import TorsoNeRFTask
+
+    assert t_torso.TorsoField(t_torso.TorsoConfig(grid_type="tiledgrid")).torso_embedder.output_dim == 32
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_torso.TorsoField(t_torso.TorsoConfig(grid_type="tiledgrid"))
+        TorsoNeRFTask(None, RADNeRFConfig(), {"grid_type": "tiledgrid"})

@@ -6,6 +6,9 @@ The work dirs are written by the JAX package's own `save_checkpoint` and
 dict, 'extra_state': the task's grids}); the head dir that drives frames
 comes from a real JAX `Trainer.fit` of 3 steps. Widths are small (grid
 16, a 32^2 identity, a 2-layer a2m), the fused field's at flagship width.
+A grid head comes from the reference's layout: `testing.reference_head_
+state`'s fake (tiledgrid, tables of 2^10 rows a level) through the port's
+`tools/convert_ckpt.py --type head`.
 
 Tolerances:
 - loading: exact (configs, state dicts against the bridged JAX params,
@@ -15,7 +18,9 @@ Tolerances:
   exactly;
 - frames against JAX's for the same draw: PSNR >= 42 dB and mean |d| <=
   1.5 levels of 255 (tests/test_torch_pipeline.py's bar: the fused field's
-  bf16 against the flax field's float32)."""
+  bf16 against the flax field's float32);
+- the converted grid head's frame (float32 on both sides) and its grid-mode
+  render against JAX's: atol 1e-4 (the port's float32 tolerance)."""
 
 import dataclasses
 import functools
@@ -37,6 +42,8 @@ from genefaceplusplus_tpu.data.dataset import RADNeRFDataset as JDataset
 from genefaceplusplus_tpu.data.dataset import synthetic as j_synthetic
 from genefaceplusplus_tpu.inference import serving as j_serving
 from genefaceplusplus_tpu.inference.pipeline import GeneFaceInfer as JInfer
+from genefaceplusplus_tpu.models import full_renderer as j_fr
+from genefaceplusplus_tpu.models import renderer as j_renderer
 from genefaceplusplus_tpu.models.audio2motion.vae_model import PitchContourVAEModel as JA2M
 from genefaceplusplus_tpu.models.radnerf import RADNeRF as JRADNeRF
 from genefaceplusplus_tpu.models.radnerf import RADNeRFConfig as JConfig
@@ -54,11 +61,16 @@ from genefaceplusplus_tpu_torch.inference import cli
 from genefaceplusplus_tpu_torch.inference import pipeline as t_pipeline
 from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer as TInfer
 from genefaceplusplus_tpu_torch.inference.pipeline import default_inp
+from genefaceplusplus_tpu_torch.models import renderer as t_renderer
 from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF as TRADNeRF
 from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoField as TTorso
 from genefaceplusplus_tpu_torch.models.superresolution import Superresolution as TSR
+from genefaceplusplus_tpu_torch.testing import reference_head_state, save_reference_ckpt
+from genefaceplusplus_tpu_torch.tools import convert_ckpt
+from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
 from genefaceplusplus_tpu_torch.utils.convert_jax import convert_flax_params
+from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
 H = W = 32
 A2M = {"use_pitch": True, "audio_in_dim": 64, "motion_type": "exp", "a2m_hidden_channels": 32,
@@ -268,6 +280,70 @@ def test_trained_head_dir_loads_like_jax(trained):
     np.testing.assert_array_equal(t_inf.occupancy.numpy(), np.asarray(j_inf.occupancy))
     assert t_inf.sr_model is None and t_inf.torso_model is None
     assert t_inf.head_crop == j_inf.head_crop
+
+
+@pytest.fixture(scope="module")
+def grid_head(dirs, tmp_path_factory):
+    """A converted reference tiledgrid head (the config beside the source
+    names no grid_type; the converter sets it) on the 32^2 identity."""
+    d = tmp_path_factory.mktemp("grid_head")
+    src = str(d / "model_ckpt_steps_250000.ckpt")
+    hp = dict(HEAD, desired_resolution=64, log2_hashmap_size=10)
+    save_reference_ckpt(src, reference_head_state(dict(hp, grid_type="tiledgrid"), seed=2,
+                                                  occupancy=_bench_occupancy(16)), global_step=250_000)
+    hp["binary_data_dir"] = os.path.join(os.path.dirname(dirs["a2m"]), "binary")
+    with open(d / "config.yaml", "w") as f:
+        f.write("".join(f"{k}: {str(v).lower() if isinstance(v, bool) else v}\n" for k, v in hp.items()))
+    out = str(d / "converted")
+    convert_ckpt.main(["--input", src, "--type", "head", "--grid_size", "16", "--out", out])
+    return out
+
+
+def test_a_converted_grid_head_serves_as_jax_does(dirs, grid_head):
+    """from_work_dirs on the converted dir loads what JAX's GeneFaceInfer
+    loads, serves the float32 field (no fused weights), and its GT frame
+    and a grid-mode render equal JAX's."""
+    j_inf = _JInfer(audio2secc_dir=dirs["a2m"], head_model_dir=grid_head)
+    t_inf = TInfer.from_work_dirs(audio2secc_dir=dirs["a2m"], head_model_dir=grid_head, device="cpu")
+    assert t_inf.head_cfg.grid_type == "tiledgrid" and t_inf.field_weights is None
+    assert dataclasses.asdict(t_inf.head_cfg) == dataclasses.asdict(j_inf.head_cfg)
+    _state_equal(t_inf.head_model, convert_flax_params(_np(j_inf.head_params), TRADNeRF(t_inf.head_cfg)))
+    np.testing.assert_array_equal(t_inf.occupancy.numpy(), _bench_occupancy(16))
+    np.testing.assert_array_equal(t_inf.occupancy.numpy(), np.asarray(j_inf.occupancy))
+    assert t_inf.head_crop == j_inf.head_crop
+
+    batch = t_inf.prepare_gt_batch([3])
+    ro, rd = (a[0] for a in pixel_rays(torch.from_numpy(batch["poses"]), t_inf.dataset.intrinsics, H, W))
+    win = get_audio_features_batch(torch.from_numpy(batch["cond"]), torch.arange(1), t_inf.head_cfg.smo_win_size)[0]
+    eye = batch["eye_area_percent"][:1]
+    with torch.no_grad():
+        got = t_inf.render_frame(ro, rd, win, torch.from_numpy(eye), None)
+    opts = j_renderer.RenderOptions(num_coarse=48, num_samples=10, T_thresh=1e-2, entry_mode="probe")
+    ref = j_fr.render_full_frame(j_inf.head_model, j_inf.head_params, jnp.asarray(ro.numpy()), jnp.asarray(rd.numpy()),
+                                 jnp.asarray(win.numpy()), j_inf.occupancy, jnp.asarray(j_inf.dataset.bg_img.reshape(-1, 3)), opts, (H, W),
+                                 eye_area_percent=jnp.asarray(eye), head_crop=j_inf.head_crop)
+    for name in ("rgb_map", "weights_sum", "depth_map"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(ref, name)), atol=1e-4, rtol=0,
+                                   err_msg=name)
+    assert float(got.weights_sum.max()) > 0.1
+
+    # grid-mode marching (48 lattice points, 16 samples) through the same field
+    model = t_inf.head_model
+    with torch.no_grad():
+        feat, code = model.cal_cond_feat(win, torch.from_numpy(eye)), model.get_individual_code(0)
+        t_out = t_renderer.render_rays(lambda x, d: model.field(x, d, feat, code), ro, rd, t_inf.occupancy, 1.0, 0.05,
+                                       0.0, t_renderer.RenderOptions(march_mode="grid"))
+    j_feat = jnp.asarray(feat.numpy())
+    j_code = j_inf.head_params["params"]["individual_embeddings"][0]
+    j_out = j_renderer.render_rays(
+        lambda x, d: j_inf.head_model.apply(j_inf.head_params, x, d, j_feat, j_code, method=JRADNeRF.field),
+        jnp.asarray(ro.numpy()), jnp.asarray(rd.numpy()), j_inf.occupancy, 1.0, 0.05, 0.0,
+        j_renderer.RenderOptions(march_mode="grid"))
+    assert t_out.weights.shape == (H * W, 16)
+    for name in ("rgb_map", "weights_sum", "depth_map", "weights"):
+        np.testing.assert_allclose(getattr(t_out, name).numpy(), np.asarray(getattr(j_out, name)), atol=1e-4, rtol=0,
+                                   err_msg=name)
+    assert float(t_out.weights_sum.max()) > 0.1
 
 
 def read_avi(path):
