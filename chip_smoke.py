@@ -117,6 +117,25 @@ Phases (any failure exits non-zero, and no result line is printed):
               stage; then GeneFaceInfer.from_work_dirs on the torso dir serves 8
               frames on the card (8 B1 launches) and its float32 frame is held
               to the CPU's
+  train_grid  grid heads as the reference trains them, on train_cli's
+              identity, through the training CLI at the May widths (tables of
+              903,480 rows, grid 128, 65,536 rays x 16 samples), the stages one
+              after another in one process: a tiledgrid head (lip steps from step 5,
+              grid refreshes, validation), head + SR and a tiledgrid torso over
+              it, and a hashgrid head, 12 steps each; a full-width fake of the
+              reference's tiledgrid head converted by tools/convert_ckpt.py
+              --type head at step 250,000 and fine-tuned 8 steps from a fresh
+              optimizer (lip and full steps alternate); losses finite,
+              checkpoints equal to the live state; the tiledgrid head's step
+              read out (host wall, the grid encoders' forward and backward and
+              the float32 MLPs' device ms by CUDA events, kernels and idle
+              share by torch.profiler, peak memory through GridEncodeFunction
+              and through the plain encoder) and its gradients on the card held
+              to the CPU's (1e-4 of each tensor's largest entry); 8 frames
+              served from the torso dir, each float32 frame held to the CPU's,
+              and the hashgrid and converted heads on a band; ms/step per stage.
+              Neither B1 nor B2 runs: grid heads train and serve with the
+              float32 field, as in JAX
   train_audio an identity's tracks (1,000 motion frames at 25 fps: seeded
               HuBERT, a voiced f0 contour, exp and idexp_lm3d smooth in time)
               as trainval_dataset.npy; the training CLI trains the a2m
@@ -2022,15 +2041,17 @@ def _trees_equal(a, b) -> bool:
 
 
 def train_cli_stage(argv) -> int:
-    """Run by phase_train_cli in a process of its own: the training CLI's
-    `main(argv)` with each train step timed (synchronised), then the newest
-    checkpoint read back and held to the final live state bit for bit;
-    the readings go to chip_smoke_stage.json in the work dir."""
+    """Run by phase_train_cli in a process of its own (and by train_grid,
+    several in one process): the training CLI's `main(argv)` with each train
+    step timed (synchronised), then the newest checkpoint read back and held
+    to the final live state bit for bit; the readings (and the stage's wall
+    and peak memory) go to chip_smoke_stage.json in the work dir."""
     from genefaceplusplus_tpu_torch.training import run
     from genefaceplusplus_tpu_torch.training.trainer import state_to_flax
     from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
     step_ms = []
     build = run.build_task
 
@@ -2050,15 +2071,35 @@ def train_cli_stage(argv) -> int:
         return task
 
     run.build_task = timed_build
-    state = run.main(argv)
+    t0 = time.perf_counter()
+    try:
+        state = run.main(argv)
+    finally:
+        run.build_task = build
+    wall = time.perf_counter() - t0
     work_dir = argv[argv.index("--work_dir") + 1]
     ckpt, path = get_last_checkpoint(work_dir)
     out = {"step_ms": step_ms, "global_step": int(state.global_step), "ckpt": os.path.basename(path),
            "ckpt_equal": _trees_equal(ckpt["state_dict"], state_to_flax(state)),
-           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "wall_s": wall}
     with open(os.path.join(work_dir, "chip_smoke_stage.json"), "w") as f:
         json.dump(out, f)
     return 0
+
+
+def run_cli_stages(argvs, what: str) -> list:
+    """`train_cli_stage` on each of `argvs`, one after another in one
+    process of its own; their readings."""
+    out = subprocess.run([sys.executable, "-c", "import json, sys, chip_smoke; "
+                          "sys.exit(max(chip_smoke.train_cli_stage(a) for a in json.loads(sys.argv[1])))",
+                          json.dumps(argvs)],
+                         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=1200)
+    check(out.returncode == 0, f"{what}: exit {out.returncode}\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    readings = []
+    for argv in argvs:
+        with open(os.path.join(argv[argv.index("--work_dir") + 1], "chip_smoke_stage.json")) as f:
+            readings.append(json.load(f))
+    return readings
 
 
 def _stage_metrics(work_dir: str) -> list:
@@ -2186,9 +2227,40 @@ def decode_readings(ds_dict: dict, dev) -> dict:
     return out
 
 
-def phase_train_cli(dev):
+def binarizer_identity(root: str) -> tuple:
+    """train_cli's identity in the binarizer's layout under `root`: the
+    record names the image files (gt JPEG, head and torso RGBA PNG) and holds
+    no image arrays. Returns (the binary dir, the record)."""
     from genefaceplusplus_tpu_torch.data.dataset import synthetic
     from genefaceplusplus_tpu_torch.data.image_io import write_jpeg, write_png
+
+    ds_dict = synthetic(num_frames=TRAIN_CLI_FRAMES, H=SIZE, W=SIZE, seed=0)
+    processed = os.path.join(root, "processed", "syn")
+    rs = np.random.RandomState(1)
+    for s in ds_dict["train_samples"] + ds_dict["val_samples"]:
+        torso = np.round(rs.rand(SIZE, SIZE, 4) * 255).astype(np.uint8)
+        torso[..., 3] = (torso[..., 3] > 127) * 255
+        gt = np.round(s.pop("gt_img") * 255).astype(np.uint8)
+        head = np.concatenate([gt, ((rs.rand(SIZE, SIZE, 1) > 0.5) * 255).astype(np.uint8)], -1)
+        for kind, img in (("gt", gt), ("head", head), ("torso", torso)):
+            sub, ext = BINARIZER_IMAGES[kind]
+            path = os.path.join(processed, sub, f"{s['idx']:08d}.{ext}")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            if ext == "jpg":
+                write_jpeg(path, img)  # q95 4:2:0, cv2.imwrite's defaults
+            else:
+                write_png(path, img)
+            s[f"{kind}_img_fname"] = path
+    check(not any(k.endswith("_img") for s in ds_dict["train_samples"] for k in s), "record holds images")
+    binary = os.path.join(root, "binary")
+    os.makedirs(os.path.join(binary, "syn"))
+    np.save(os.path.join(binary, "syn", "trainval_dataset.npy"), ds_dict, allow_pickle=True)
+    return binary, ds_dict
+
+
+def phase_train_cli(dev, root: str):
+    """train_cli (module docstring); the identity and the work dirs stay in
+    `root` for train_grid. Returns (fused_field launches, the binary dir)."""
     from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
     from genefaceplusplus_tpu_torch.models.full_renderer import render_full_frame
     from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
@@ -2198,157 +2270,502 @@ def phase_train_cli(dev):
     from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
     repo = os.path.dirname(os.path.abspath(__file__))
-    root = tempfile.mkdtemp(prefix="chip_smoke_train_cli_")
+    codec_check()
+    binary, ds_dict = binarizer_identity(root)
+    codec = decode_readings(ds_dict, dev)
+    del ds_dict
+    print(f"[train_cli] {card_line()}; host {host_cpu()}; image codec (host wall, median of "
+          f"{CODEC_REPS}): {SIZE}x{SIZE} JPEG decode {codec['jpeg_decode_ms']:.3f} ms (min "
+          f"{codec['jpeg_decode_min']:.3f}), RGBA PNG decode {codec['png_decode_ms']:.3f} ms (min "
+          f"{codec['png_decode_min']:.3f}), JPEG encode q95 4:2:0 {codec['jpeg_encode_ms']:.3f} ms (min "
+          f"{codec['jpeg_encode_min']:.3f}); frame store from the files {codec['store_ms_per_frame']:.3f} ms "
+          f"a frame ({codec['store_frames']} gt frames decoded and resized to {SIZE // 2}^2, then on the card); "
+          f"JPEG {codec['jpeg_bytes']} bytes, PNG {codec['png_bytes']} bytes a frame (noise: entropy "
+          f"decoding's worst case)")
+    dirs = {s: os.path.join(root, s) for s in TRAIN_CLI_STAGES}
+    common = (f"binary_data_dir={binary},video_id=syn,max_updates={TRAIN_CLI_STEPS},val_check_interval=6,"
+              f"update_extra_interval={TRAIN_CLI_START},tb_log_interval=1")
+
+    def argv(stage):
+        cfg, extra = TRAIN_CLI_STAGES[stage]
+        if stage == "torso":
+            extra += f",head_model_dir={dirs['sr']}"
+        return ["--config", os.path.join(repo, cfg), "--exp_name", f"chip_smoke_{stage}",
+                "--work_dir", dirs[stage], "--hparams", f"{common},{extra}"]
+
+    def stage(name):
+        return run_cli_stages([argv(name)], f"train_cli {name}")[0]
+
+    t0 = time.perf_counter()
+    res = {"head": stage("head")}
+    # the SR stage: the CLI module itself, SIGTERM once step TRAIN_CLI_START is logged
+    preempted_at = run_until_sigterm(argv("sr"), dirs["sr"], TRAIN_CLI_START, TRAIN_CLI_STEPS,
+                                     os.path.join(root, "sr_sigterm.log"), "train_cli sr")
+    res["sr"] = stage("sr")
+    res["torso"] = stage("torso")
+    wall = time.perf_counter() - t0
+
+    for name, r in res.items():
+        recs = _stage_metrics(dirs[name])
+        steps = [x for x in recs if "total_loss" in x]
+        check([x["step"] for x in steps] == list(range(1, TRAIN_CLI_STEPS + 1)),
+              f"train_cli {name}: steps logged {[x['step'] for x in steps]}")
+        check(all(math.isfinite(v) for x in steps for k, v in x.items() if k.endswith("loss")),
+              f"train_cli {name}: a loss is not finite")
+        keys = set().union(*steps)
+        check(TRAIN_CLI_METRICS[name] <= keys, f"train_cli {name}: metrics {sorted(keys)}")
+        check(any("val_psnr" in x for x in recs), f"train_cli {name}: no validation")
+        check(r["global_step"] == TRAIN_CLI_STEPS and r["ckpt_equal"],
+              f"train_cli {name}: final step {r['global_step']}, checkpoint equals the live state "
+              f"{r['ckpt_equal']}")
+        for p in get_all_ckpts(dirs[name]):
+            with open(p, "rb") as f:
+                check(f.read(1)[0] in MSGPACK_MAP_FIRST_BYTES, f"{p} is not flax msgpack")
+    lip_steps = sum("lpips_loss" in x for x in _stage_metrics(dirs["head"]))
+    print(f"[train_cli] {TRAIN_CLI_FRAMES} frames of {SIZE}x{SIZE} as image files (gt JPEG q95 4:2:0, head and "
+          f"torso RGBA PNG); three stages through "
+          f"the training CLI, {TRAIN_CLI_STEPS} steps each, {wall:.1f} s of wall: every loss finite, each "
+          f"checkpoint flax msgpack and equal to the live state bit for bit; head: {lip_steps} lip steps "
+          f"from step {TRAIN_CLI_START + 1}; sr: SR and perceptual terms from step {TRAIN_CLI_START + 1}, "
+          f"SIGTERM after step {TRAIN_CLI_START}: checkpoint at step {preempted_at}, exit 0, resumed to "
+          f"step {TRAIN_CLI_STEPS}, every step logged once; torso: from the sr dir")
+    for name, r in res.items():
+        # this process's steps; the first includes one-time set-up; the
+        # head's lip steps (a 64^2 window of rays) apart from its full steps
+        first = TRAIN_CLI_STEPS - len(r["step_ms"]) + 1
+        lip = {x["step"] for x in _stage_metrics(dirs[name]) if "lpips_loss" in x} if name == "head" else set()
+        kinds = {"full": [ms for s, ms in enumerate(r["step_ms"], first) if s > first and s not in lip],
+                 "lip": [ms for s, ms in enumerate(r["step_ms"], first) if s > first and s in lip]}
+        print(f"[train_cli] {card_line()}; {name} ms/step (host wall, synchronised, steps {first + 1}.."
+              f"{TRAIN_CLI_STEPS}): " + "; ".join(
+                  f"{k} steps median {statistics.median(v):.3f}, min {min(v):.3f}, max {max(v):.3f}, "
+                  f"n={len(v)}" for k, v in kinds.items() if v)
+              + f"; step {first} (set-up) {r['step_ms'][0]:.3f} ms; peak allocated {r['peak_gib']:.3f} GiB")
+
+    # serving from the trained dirs: the card, B1 counted; then the float32
+    # full frame against the CPU's
+    infer = GeneFaceInfer.from_work_dirs(torso_model_dir=dirs["torso"], device=dev)
+    ids = list(range(SERVE_TRAINED_FRAMES))
+    batch = infer.prepare_gt_batch(ids)
+    torch.cuda.synchronize()
+    ff.fused_field.launches = 0  # count only the main path's launches
+    t0 = time.perf_counter()
+    frames = list(infer.forward_secc2video(batch, {"frames_per_dispatch": SERVE_TRAINED_FRAMES}))
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = ff.fused_field.launches
+    H = infer.dataset.H
+    check(len(frames) == SERVE_TRAINED_FRAMES and all(f.shape == (2 * H, 2 * H, 3) and f.dtype == np.uint8
+                                                      for f in frames), "frames from the trained dirs")
+    check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "frames do not vary")
+    check(launches == SERVE_TRAINED_FRAMES, f"fused_field launched {launches} times for "
+                                            f"{SERVE_TRAINED_FRAMES} frames")
+    cpu = GeneFaceInfer.from_work_dirs(torso_model_dir=dirs["torso"], device="cpu")
+    outs = {}
+    for inf in (cpu, infer):
+        d = inf.device
+        sr32 = Superresolution(3, inf.sr_model.block0.conv0.noise_const.shape[0]).to(d)  # float32
+        sr32.load_state_dict(inf.sr_model.state_dict())
+        with torch.no_grad():
+            ro, rd = pixel_rays(torch.as_tensor(batch["poses"][:1], device=d), inf.dataset.intrinsics, H, H)
+            win = get_audio_features_batch(torch.as_tensor(batch["cond"], device=d),
+                                           torch.arange(1, device=d), inf.head_cfg.smo_win_size)[0]
+            out = render_full_frame(
+                inf.head_model, ro[0], rd[0], win, inf.occupancy, inf.bg_color, inf.render_options({}),
+                (H, H), eye_area_percent=torch.as_tensor(batch["eye_area_percent"][:1], device=d),
+                torso_model=inf.torso_model, bg_coords=inf.bg_coords,
+                lm68=torch.as_tensor(batch["lm68"][:1], device=d), occupancy_2d=inf.torso_occupancy_2d,
+                sr_model=sr32, torso_crop=inf.torso_crop)
+        outs[str(d)] = {k: getattr(out, k).cpu() for k in ("rgb_map", "torso_alpha", "sr_rgb_map")}
+    errs = {}
+    for k, ref in outs["cpu"].items():
+        e = (outs[str(infer.device)][k] - ref).abs()
+        errs[k] = (e.max().item(), e.mean().item())
+    print(f"[train_cli] served from the trained dirs (torso -> sr head): {SERVE_TRAINED_FRAMES} frames of "
+          f"{2 * H}x{2 * H} in {serve_ms:.1f} ms ({serve_ms / SERVE_TRAINED_FRAMES:.3f} ms a frame, first "
+          f"request, host wall), {launches} fused_field launches; float32 frame card vs CPU: "
+          + ", ".join(f"{k} max |d| {m:.3e} mean {a:.3e}" for k, (m, a) in errs.items())
+          + f" (frames <= {TRAINED_CARD_MAX}, {TRAINED_CARD_MEAN})")
+    for k in ("rgb_map", "sr_rgb_map"):
+        m, a = errs[k]
+        check(m <= TRAINED_CARD_MAX and a <= TRAINED_CARD_MEAN, f"trained dirs card vs CPU {k}")
+    return launches, binary
+
+
+# train_grid: grid heads trained on train_cli's identity through the training
+# CLI at the May widths (tables of 903,480 rows a grid, grid 128, 65,536 rays
+# x 16 samples), TRAIN_CLI_STEPS steps each, the stages one after another in
+# one process; a reference head faked at the same widths (testing.reference_head_state),
+# converted by tools/convert_ckpt.py --type head at step CONVERTED_STEP and
+# fine-tuned TRAIN_GRID_FINETUNE steps past it; then the trained dirs served
+# and one head step's gradients on the card held to the CPU's
+TRAIN_GRID_STAGES = {
+    "tiled": ("egs/datasets/May/lm3d_radnerf.yaml", f"grid_type=tiledgrid,finetune_lips_start_iter={TRAIN_CLI_START}"),
+    "sr": ("egs/datasets/May/lm3d_radnerf_sr.yaml", f"grid_type=tiledgrid,lpips_start_iters={TRAIN_CLI_START}"),
+    "torso": ("egs/datasets/May/lm3d_radnerf_torso_sr.yaml", "grid_type=tiledgrid,lambda_torso_deform=0.01"),
+    "hash": ("egs/datasets/May/lm3d_radnerf.yaml", "grid_type=hashgrid"),
+    "converted": ("egs/datasets/May/lm3d_radnerf.yaml", "grid_type=tiledgrid"),
+}
+TRAIN_GRID_METRICS = {"tiled": {"lpips_loss", "mse_loss", "weights_entropy_loss", "ambient_loss"},
+                      "sr": {"sr_mse_loss", "lpips_loss", "sr_lpips_loss", "sr_lip_lpips_loss"},
+                      "torso": {"torso_entropy", "deform_reg", "mse_loss"},
+                      "hash": {"mse_loss", "weights_entropy_loss", "ambient_loss"},
+                      "converted": {"mse_loss", "lpips_loss"}}
+# the converted head resumes past the reference's lip start (200,000), so its
+# fine-tune alternates lip and full steps, as the reference's late steps do
+CONVERTED_STEP, TRAIN_GRID_FINETUNE = 250_000, 8
+TRAIN_GRID_PROFILE_STEPS = 3
+TRAIN_GRID_BAND_ROWS = 32  # the hashgrid and converted heads' band, card vs CPU
+# one head step's gradients, card against CPU, same weights, batch and noise:
+# every tensor to 1e-4 of its largest entry (the card's index_add_ and
+# GEMMs sum in other orders than the CPU's)
+GRID_GRAD_REL = 1e-4
+
+
+def head_band_card_vs_cpu(head, occupancy, ds, dev, what: str) -> tuple:
+    """`band_card_vs_cpu` for a trained head (no GeneFaceInfer): the head-only
+    render of dataset frame 0 on TRAIN_GRID_BAND_ROWS rows through the
+    middle of the frame, card against CPU: (max, mean) |d| of the band's
+    rgb."""
+    from genefaceplusplus_tpu_torch.models.full_renderer import render_full_frame
+    from genefaceplusplus_tpu_torch.models.renderer import RenderOptions
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+
+    rows = min(TRAIN_GRID_BAND_ROWS, ds.H)
+    r0 = (ds.H - rows) // 2
+    ro, rd = pixel_rays(torch.from_numpy(ds.frame_pose(0)[None]), ds.intrinsics, ds.H, ds.W)
+    band = slice(r0 * ds.W, (r0 + rows) * ds.W)
+    win = torch.from_numpy(ds.frame_cond_window(0))
+    bg = torch.from_numpy(np.asarray(ds.bg_img, np.float32).reshape(-1, 3))[band]
+    outs = {}
+    for where, d, model in (("card", dev, head), ("cpu", "cpu", cpu_twin(head))):
+        with torch.no_grad():
+            out = render_full_frame(model, ro[0, band].to(d), rd[0, band].to(d), win.to(d), occupancy.to(d),
+                                    bg.to(d), RenderOptions(), (rows, ds.W),
+                                    eye_area_percent=torch.from_numpy(ds.eye_area_percents[:1]).to(d))
+        outs[where] = (out.rgb_map.cpu(), out.weights_sum.cpu())
+    e = (outs["card"][0] - outs["cpu"][0]).abs()
+    m, a, ws = e.max().item(), e.mean().item(), outs["cpu"][1].max().item()
+    print(f"[train_grid] {what}: card vs CPU over rows {r0}..{r0 + rows - 1} of {ds.H}x{ds.W} ({rows * ds.W} rays, "
+          f"largest weights sum {ws:.3f}): max |d| {m:.3e} (<= {TRAINED_CARD_MAX}), mean {a:.3e} "
+          f"(<= {TRAINED_CARD_MEAN})")
+    check(ws > 0.1, f"{what}: the band misses the head")
+    check(m <= TRAINED_CARD_MAX and a <= TRAINED_CARD_MEAN, f"{what}: card vs CPU")
+    return m, a
+
+
+def grid_step_readings(cfg, ckpt, dev) -> dict:
+    """A tiledgrid head's CLI step on the card from a trained checkpoint:
+    host wall a step; the grid encoders' forward and backward device ms a
+    step (CUDA events around GridEncodeFunction) beside the float32 MLPs'
+    (events in module hooks); kernels a step, device busy and the idle
+    share (profile_device); the step's peak memory through the Function and
+    through the plain encoder (autograd keeps every level's rows, weights
+    and corners), and the two gradients' largest difference."""
+    from genefaceplusplus_tpu_torch.models import grid_modules
+    from genefaceplusplus_tpu_torch.ops.grid_encoder import GridEncodeFunction, grid_encode
+    from genefaceplusplus_tpu_torch.training import run
+    from genefaceplusplus_tpu_torch.training.trainer import load_flax_state
+
+    task = run.build_task(cfg, device=dev)
+    task.load_extra_state(ckpt["extra_state"])
+    state = load_flax_state(task.create_state(), ckpt["state_dict"])
+    n = TRAIN_GRID_PROFILE_STEPS
+
+    def steps(k=n):
+        for _ in range(k):
+            task.train_step(state, task.sample_train_batch())
+        return k
+
+    steps(2)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+
+    spans = {k: [] for k in ("enc_fwd", "enc_bwd", "mlp_fwd", "mlp_bwd")}
+    fwd, bwd = GridEncodeFunction.forward, GridEncodeFunction.backward
+
+    def timed(kind, fn):
+        def run_timed(ctx, *args):
+            start = cuda_event()
+            out = fn(ctx, *args)
+            spans[kind].append((start, cuda_event()))
+            return out
+        return staticmethod(run_timed)
+
+    def opens(kind):
+        def hook(*_):
+            spans[kind].append([cuda_event()])
+        return hook
+
+    def closes(kind):
+        def hook(*_):
+            spans[kind][-1].append(cuda_event())
+        return hook
+
+    hooks = []
+    for mlp in (state.model.ambient_net, state.model.sigma_net, state.model.color_net):
+        hooks += [mlp.register_forward_pre_hook(opens("mlp_fwd")), mlp.register_forward_hook(closes("mlp_fwd")),
+                  mlp.register_full_backward_pre_hook(opens("mlp_bwd")),
+                  mlp.register_full_backward_hook(closes("mlp_bwd"))]
+    GridEncodeFunction.forward, GridEncodeFunction.backward = timed("enc_fwd", fwd), timed("enc_bwd", bwd)
     try:
-        codec_check()
-        # the binarizer's layout: the record names the image files and holds
-        # no image arrays
-        ds_dict = synthetic(num_frames=TRAIN_CLI_FRAMES, H=SIZE, W=SIZE, seed=0)
-        processed = os.path.join(root, "processed", "syn")
-        rs = np.random.RandomState(1)
-        for s in ds_dict["train_samples"] + ds_dict["val_samples"]:
-            torso = np.round(rs.rand(SIZE, SIZE, 4) * 255).astype(np.uint8)
-            torso[..., 3] = (torso[..., 3] > 127) * 255
-            gt = np.round(s.pop("gt_img") * 255).astype(np.uint8)
-            head = np.concatenate([gt, ((rs.rand(SIZE, SIZE, 1) > 0.5) * 255).astype(np.uint8)], -1)
-            for kind, img in (("gt", gt), ("head", head), ("torso", torso)):
-                sub, ext = BINARIZER_IMAGES[kind]
-                path = os.path.join(processed, sub, f"{s['idx']:08d}.{ext}")
-                os.makedirs(os.path.dirname(path), exist_ok=True)
-                if ext == "jpg":
-                    write_jpeg(path, img)  # q95 4:2:0, cv2.imwrite's defaults
-                else:
-                    write_png(path, img)
-                s[f"{kind}_img_fname"] = path
-        check(not any(k.endswith("_img") for s in ds_dict["train_samples"] for k in s), "record holds images")
-        binary = os.path.join(root, "binary")
-        os.makedirs(os.path.join(binary, "syn"))
-        np.save(os.path.join(binary, "syn", "trainval_dataset.npy"), ds_dict, allow_pickle=True)
-        codec = decode_readings(ds_dict, dev)
-        del ds_dict
-        print(f"[train_cli] {card_line()}; host {host_cpu()}; image codec (host wall, median of "
-              f"{CODEC_REPS}): {SIZE}x{SIZE} JPEG decode {codec['jpeg_decode_ms']:.3f} ms (min "
-              f"{codec['jpeg_decode_min']:.3f}), RGBA PNG decode {codec['png_decode_ms']:.3f} ms (min "
-              f"{codec['png_decode_min']:.3f}), JPEG encode q95 4:2:0 {codec['jpeg_encode_ms']:.3f} ms (min "
-              f"{codec['jpeg_encode_min']:.3f}); frame store from the files {codec['store_ms_per_frame']:.3f} ms "
-              f"a frame ({codec['store_frames']} gt frames decoded and resized to {SIZE // 2}^2, then on the card); "
-              f"JPEG {codec['jpeg_bytes']} bytes, PNG {codec['png_bytes']} bytes a frame (noise: entropy "
-              f"decoding's worst case)")
-        dirs = {s: os.path.join(root, s) for s in TRAIN_CLI_STAGES}
-        common = (f"binary_data_dir={binary},video_id=syn,max_updates={TRAIN_CLI_STEPS},val_check_interval=6,"
-                  f"update_extra_interval={TRAIN_CLI_START},tb_log_interval=1")
-
-        def argv(stage):
-            cfg, extra = TRAIN_CLI_STAGES[stage]
-            if stage == "torso":
-                extra += f",head_model_dir={dirs['sr']}"
-            return ["--config", os.path.join(repo, cfg), "--exp_name", f"chip_smoke_{stage}",
-                    "--work_dir", dirs[stage], "--hparams", f"{common},{extra}"]
-
-        def stage(name):
-            out = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
-                                  "sys.exit(chip_smoke.train_cli_stage(sys.argv[1:]))", *argv(name)],
-                                 cwd=repo, capture_output=True, text=True, timeout=900)
-            check(out.returncode == 0, f"train_cli {name}: exit {out.returncode}\n{out.stdout[-3000:]}\n"
-                                       f"{out.stderr[-3000:]}")
-            with open(os.path.join(dirs[name], "chip_smoke_stage.json")) as f:
-                return json.load(f)
-
-        t0 = time.perf_counter()
-        res = {"head": stage("head")}
-        # the SR stage: the CLI module itself, SIGTERM once step TRAIN_CLI_START is logged
-        preempted_at = run_until_sigterm(argv("sr"), dirs["sr"], TRAIN_CLI_START, TRAIN_CLI_STEPS,
-                                         os.path.join(root, "sr_sigterm.log"), "train_cli sr")
-        res["sr"] = stage("sr")
-        res["torso"] = stage("torso")
-        wall = time.perf_counter() - t0
-
-        for name, r in res.items():
-            recs = _stage_metrics(dirs[name])
-            steps = [x for x in recs if "total_loss" in x]
-            check([x["step"] for x in steps] == list(range(1, TRAIN_CLI_STEPS + 1)),
-                  f"train_cli {name}: steps logged {[x['step'] for x in steps]}")
-            check(all(math.isfinite(v) for x in steps for k, v in x.items() if k.endswith("loss")),
-                  f"train_cli {name}: a loss is not finite")
-            keys = set().union(*steps)
-            check(TRAIN_CLI_METRICS[name] <= keys, f"train_cli {name}: metrics {sorted(keys)}")
-            check(any("val_psnr" in x for x in recs), f"train_cli {name}: no validation")
-            check(r["global_step"] == TRAIN_CLI_STEPS and r["ckpt_equal"],
-                  f"train_cli {name}: final step {r['global_step']}, checkpoint equals the live state "
-                  f"{r['ckpt_equal']}")
-            for p in get_all_ckpts(dirs[name]):
-                with open(p, "rb") as f:
-                    check(f.read(1)[0] in MSGPACK_MAP_FIRST_BYTES, f"{p} is not flax msgpack")
-        lip_steps = sum("lpips_loss" in x for x in _stage_metrics(dirs["head"]))
-        print(f"[train_cli] {TRAIN_CLI_FRAMES} frames of {SIZE}x{SIZE} as image files (gt JPEG q95 4:2:0, head and "
-              f"torso RGBA PNG); three stages through "
-              f"the training CLI, {TRAIN_CLI_STEPS} steps each, {wall:.1f} s of wall: every loss finite, each "
-              f"checkpoint flax msgpack and equal to the live state bit for bit; head: {lip_steps} lip steps "
-              f"from step {TRAIN_CLI_START + 1}; sr: SR and perceptual terms from step {TRAIN_CLI_START + 1}, "
-              f"SIGTERM after step {TRAIN_CLI_START}: checkpoint at step {preempted_at}, exit 0, resumed to "
-              f"step {TRAIN_CLI_STEPS}, every step logged once; torso: from the sr dir")
-        for name, r in res.items():
-            # this process's steps; the first includes one-time set-up; the
-            # head's lip steps (a 64^2 window of rays) apart from its full steps
-            first = TRAIN_CLI_STEPS - len(r["step_ms"]) + 1
-            lip = {x["step"] for x in _stage_metrics(dirs[name]) if "lpips_loss" in x} if name == "head" else set()
-            kinds = {"full": [ms for s, ms in enumerate(r["step_ms"], first) if s > first and s not in lip],
-                     "lip": [ms for s, ms in enumerate(r["step_ms"], first) if s > first and s in lip]}
-            print(f"[train_cli] {card_line()}; {name} ms/step (host wall, synchronised, steps {first + 1}.."
-                  f"{TRAIN_CLI_STEPS}): " + "; ".join(
-                      f"{k} steps median {statistics.median(v):.3f}, min {min(v):.3f}, max {max(v):.3f}, "
-                      f"n={len(v)}" for k, v in kinds.items() if v)
-                  + f"; step {first} (set-up) {r['step_ms'][0]:.3f} ms; peak allocated {r['peak_gib']:.3f} GiB")
-
-        # serving from the trained dirs: the card, B1 counted; then the float32
-        # full frame against the CPU's
-        infer = GeneFaceInfer.from_work_dirs(torso_model_dir=dirs["torso"], device=dev)
-        ids = list(range(SERVE_TRAINED_FRAMES))
-        batch = infer.prepare_gt_batch(ids)
+        steps()
         torch.cuda.synchronize()
-        ff.fused_field.launches = 0  # count only the main path's launches
-        t0 = time.perf_counter()
-        frames = list(infer.forward_secc2video(batch, {"frames_per_dispatch": SERVE_TRAINED_FRAMES}))
-        serve_ms = (time.perf_counter() - t0) * 1e3
-        launches = ff.fused_field.launches
-        H = infer.dataset.H
-        check(len(frames) == SERVE_TRAINED_FRAMES and all(f.shape == (2 * H, 2 * H, 3) and f.dtype == np.uint8
-                                                          for f in frames), "frames from the trained dirs")
-        check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "frames do not vary")
-        check(launches == SERVE_TRAINED_FRAMES, f"fused_field launched {launches} times for "
-                                                f"{SERVE_TRAINED_FRAMES} frames")
-        cpu = GeneFaceInfer.from_work_dirs(torso_model_dir=dirs["torso"], device="cpu")
+    finally:
+        GridEncodeFunction.forward, GridEncodeFunction.backward = staticmethod(fwd), staticmethod(bwd)
+        for h in hooks:
+            h.remove()
+    out = {k: sum(a.elapsed_time(b) for a, b in v) / n for k, v in spans.items()}
+    out["wall"] = wall
+    out["acts"], out["kernels"], out["busy"], out["top"] = profile_device(steps)
+    check(out["busy"] is not None, "train_grid: the profiler saw no device activity")
+
+    # peak memory of one step through the Function, then through autograd of
+    # the plain encoder, from the same weights, batch and noise
+    batch = task.sample_train_batch()
+    noise = torch.rand(len(batch["inds"]), generator=torch.Generator().manual_seed(3)).to(dev)
+    weights = {k: v.clone() for k, v in state.model.state_dict().items()}
+    start = (state.global_step, state.lambda_ambient.clone())
+
+    def plain_forward(self, x, bound=1.0):
+        return grid_encode(x, self.embeddings, self.spec, bound=bound)
+
+    grads = {}
+    for how in ("function", "plain"):
+        state.model.load_state_dict(weights)
+        state.global_step, state.lambda_ambient = start[0], start[1].clone()
+        forward = grid_modules.GridEncoder.forward
+        if how == "plain":
+            grid_modules.GridEncoder.forward = plain_forward
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            task.train_step(state, batch, noise=noise)
+            torch.cuda.synchronize()
+        finally:
+            grid_modules.GridEncoder.forward = forward
+        out[f"peak_{how}"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[f"step_{how}"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        grads[how] = {k: p.grad.detach().clone() for k, p in state.model.named_parameters() if p.grad is not None}
+    out["plain_rel"] = max((grads["function"][k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                           for k, g in grads["plain"].items())
+    return out
+
+
+def grid_grads_card_vs_cpu(cfg, ckpt, dev) -> dict:
+    """One tiledgrid head step of the CLI's task on the card and on the CPU
+    from a trained checkpoint, one batch (full rays) and one noise draw: the
+    largest |card - CPU| of each gradient over its largest entry, by part
+    (the grid tables, the MLPs, the condition net, the rest); fails past
+    GRID_GRAD_REL."""
+    from genefaceplusplus_tpu_torch.training import run
+    from genefaceplusplus_tpu_torch.training.trainer import load_flax_state
+
+    grads, batch, noise, losses = {}, None, None, {}
+    for d in ("cpu", dev):
+        task = run.build_task(cfg, device=d)
+        task.load_extra_state(ckpt["extra_state"])
+        state = load_flax_state(task.create_state(), ckpt["state_dict"])
+        if batch is None:
+            batch = task.sample_train_batch(global_step=0)
+            check(not batch["_is_lip"], "train_grid: the gradient check's batch is a lip window")
+            noise = torch.rand(len(batch["inds"]), generator=torch.Generator().manual_seed(5))
+        _, metrics = task.train_step(state, batch, noise=noise.to(d))
+        losses[str(d)] = float(metrics["total_loss"])
+        grads[str(d)] = {k: p.grad.detach().cpu() for k, p in state.model.named_parameters()}
+    parts = {"tables": ("position_embedder", "ambient_embedder"), "mlps": ("ambient_net", "sigma_net", "color_net"),
+             "condition": ("cond_prenet", "cond_att_net", "blink_")}
+    out = {}
+    for k, ref in grads["cpu"].items():
+        scale = ref.abs().max().item()
+        if scale == 0.0:
+            check(grads[str(dev)][k].abs().max().item() == 0.0, f"train_grid: {k}'s gradient is 0 on the CPU only")
+            continue
+        rel = (grads[str(dev)][k] - ref).abs().max().item() / scale
+        part = next((p for p, names in parts.items() if k.startswith(names)), "other")
+        if part not in out or rel > out[part][0]:
+            out[part] = (rel, k)
+    out["loss_rel"] = abs(losses[str(dev)] - losses["cpu"]) / abs(losses["cpu"])
+    out["points"] = len(batch["inds"])
+    return out
+
+
+def phase_train_grid(dev, binary: str, root: str):
+    """train_grid (module docstring), on train_cli's identity in `binary`."""
+    from genefaceplusplus_tpu_torch.config import set_hparams
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
+    from genefaceplusplus_tpu_torch.models.full_renderer import render_full_frame
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRFConfig
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.testing import reference_head_state, save_reference_ckpt
+    from genefaceplusplus_tpu_torch.tools import convert_ckpt
+    from genefaceplusplus_tpu_torch.training.tasks.torso_task import load_head
+    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+    from genefaceplusplus_tpu_torch.utils.ckpt import get_all_ckpts, get_last_checkpoint
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    dirs = {s: os.path.join(root, f"grid_{s}") for s in TRAIN_GRID_STAGES}
+    common = (f"binary_data_dir={binary},video_id=syn,val_check_interval=6,update_extra_interval={TRAIN_CLI_START},"
+              "tb_log_interval=1")
+
+    def hparams(name):
+        cfg, extra = TRAIN_GRID_STAGES[name]
+        steps = CONVERTED_STEP + TRAIN_GRID_FINETUNE if name == "converted" else TRAIN_CLI_STEPS
+        extra += f",head_model_dir={dirs['sr']}" if name == "torso" else ""
+        return os.path.join(repo, cfg), f"{common},max_updates={steps},{extra}"
+
+    def argv(name):
+        cfg, hp = hparams(name)
+        return ["--config", cfg, "--exp_name", f"chip_smoke_grid_{name}", "--work_dir", dirs[name], "--hparams", hp]
+
+    # the reference's head at the May widths, converted (params and grids only)
+    t0 = time.perf_counter()
+    src = os.path.join(root, "reference_head", f"model_ckpt_steps_{CONVERTED_STEP}.ckpt")
+    os.makedirs(os.path.dirname(src))
+    hp = dict(set_hparams(config=hparams("converted")[0], hparams_str=hparams("converted")[1]))
+    save_reference_ckpt(src, reference_head_state(hp, seed=11, occupancy=bench_occupancy(GRID)), global_step=CONVERTED_STEP)
+    convert_ckpt.main(["--input", src, "--type", "head", "--grid_size", str(GRID), "--out", dirs["converted"]])
+    converted = get_last_checkpoint(dirs["converted"])[0]
+    check(set(converted["state_dict"]) == {"params"}, "the converted head holds params only")
+    convert_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    res = dict(zip(TRAIN_GRID_STAGES, run_cli_stages([argv(name) for name in TRAIN_GRID_STAGES], "train_grid")))
+    wall = time.perf_counter() - t0
+    for name, r in res.items():
+        recs = _stage_metrics(dirs[name])
+        steps = [x for x in recs if "total_loss" in x]
+        first = CONVERTED_STEP if name == "converted" else 0
+        total = TRAIN_GRID_FINETUNE if name == "converted" else TRAIN_CLI_STEPS
+        check([x["step"] for x in steps] == list(range(first + 1, first + total + 1)),
+              f"train_grid {name}: steps logged {[x['step'] for x in steps]}")
+        check(all(math.isfinite(v) for x in steps for k, v in x.items() if k.endswith("loss")),
+              f"train_grid {name}: a loss is not finite")
+        keys = set().union(*steps)
+        check(TRAIN_GRID_METRICS[name] <= keys, f"train_grid {name}: metrics {sorted(keys)}")
+        check(any("val_psnr" in x for x in recs), f"train_grid {name}: no validation")
+        check(r["global_step"] == total and r["ckpt_equal"],
+              f"train_grid {name}: final step {r['global_step']}, checkpoint equals the live state {r['ckpt_equal']}")
+        check([os.path.basename(p) for p in get_all_ckpts(dirs[name])] == [f"model_ckpt_steps_{first + total}.ckpt"],
+              f"train_grid {name}: checkpoints {get_all_ckpts(dirs[name])}")
+        if name != "torso":
+            check(any(x.get("grad_norm/grid", 0) > 0 for x in steps), f"train_grid {name}: the tables got no gradient")
+    print(f"[train_grid] five stages through the training CLI at the May widths on train_cli's identity, one "
+          f"after another in one process, {wall:.1f} s of wall (" + ", ".join(
+              f"{name} {r['wall_s']:.1f} s" for name, r in res.items()) + f"): tiledgrid head (lip steps from step {TRAIN_CLI_START + 1}), head + SR, the "
+          f"tiledgrid torso over it, hashgrid head, {TRAIN_CLI_STEPS} steps each; the reference head converted by "
+          f"--type head ({convert_s:.1f} s with its fake) and fine-tuned from step {CONVERTED_STEP} to "
+          f"{CONVERTED_STEP + TRAIN_GRID_FINETUNE} from a fresh optimizer: every loss finite, each checkpoint equal to "
+          f"the live state bit for bit")
+    for name, r in res.items():
+        recs = {x["step"]: x for x in _stage_metrics(dirs[name]) if "total_loss" in x}
+        base = min(recs) - 1
+        kinds = {"full": [], "lip": []}
+        for s, ms in enumerate(r["step_ms"], base + 1):
+            if s > base + 1:
+                kinds["lip" if "lpips_loss" in recs[s] and name in ("tiled", "converted") else "full"].append(ms)
+        print(f"[train_grid] {card_line()}; {name} ms/step (host wall, synchronised, steps {base + 2}.."
+              f"{base + len(r['step_ms'])}): " + "; ".join(
+                  f"{k} steps median {statistics.median(v):.3f}, min {min(v):.3f}, max {max(v):.3f}, n={len(v)}"
+                  for k, v in kinds.items() if v)
+              + f"; step {base + 1} (set-up) {r['step_ms'][0]:.3f} ms; peak allocated {r['peak_gib']:.3f} GiB")
+
+    # the tiledgrid head's step: encoders, MLPs, kernels, memory; then its
+    # gradients on the card against the CPU's
+    cfg = set_hparams(config=hparams("tiled")[0], hparams_str=hparams("tiled")[1], work_dir=dirs["tiled"])
+    cfg = cfg.replace(finetune_lips_start_iter=10 ** 9)  # full steps only
+    ckpt = get_last_checkpoint(dirs["tiled"])[0]
+    parts = {"convert": convert_s, "stages": wall}
+    ff.fused_field.launches = ff.fused_field_bwd_chain.launches = 0  # grid heads run the float32 field
+    t0 = time.perf_counter()
+    rd = grid_step_readings(cfg, ckpt, dev)
+    parts["step readings"] = time.perf_counter() - t0
+    enc = rd["enc_fwd"] + rd["enc_bwd"]
+    print(f"[train_grid] {card_line()}; tiledgrid head step (65,536 rays x 16 samples; {TRAIN_GRID_PROFILE_STEPS} "
+          f"steps after 2 warm): host wall {rd['wall']:.3f} ms a step; by CUDA events a step: the grid encoders "
+          f"forward {rd['enc_fwd']:.3f} ms, backward {rd['enc_bwd']:.3f} ms ({100 * enc / rd['wall']:.1f} % of the "
+          f"wall), the float32 MLPs forward {rd['mlp_fwd']:.3f} ms, backward {rd['mlp_bwd']:.3f} ms; under "
+          f"torch.profiler {rd['kernels']:.1f} kernels ({rd['acts']:.1f} device activities) a step, device busy "
+          f"{rd['busy']:.3f} ms a step: idle {100 * (1 - rd['busy'] / rd['wall']):.1f} %; most device time: "
+          + "; ".join(f"{t:.3f} ms in {c:.0f} launches {name[:48]}" for name, c, t in rd["top"][:5]))
+    print(f"[train_grid] {card_line()}; one step's peak memory: through GridEncodeFunction {rd['peak_function']:.3f} "
+          f"GiB allocated ({rd['step_function']:.3f} GiB above the step's start), through autograd of the plain "
+          f"encoder {rd['peak_plain']:.3f} GiB ({rd['step_plain']:.3f} GiB above); their gradients differ by "
+          f"{rd['plain_rel']:.3e} of a tensor's largest entry at most")
+    check(rd["plain_rel"] <= GRID_GRAD_REL, "train_grid: the Function's gradients against the plain encoder's")
+    t0 = time.perf_counter()
+    g = grid_grads_card_vs_cpu(cfg, ckpt, dev)
+    parts["gradients card vs CPU"] = time.perf_counter() - t0
+    print(f"[train_grid] one tiledgrid head step's gradients, card vs CPU (the trained state, one batch of "
+          f"{g['points']} rays and one noise draw): max |d| / max |g| "
+          + ", ".join(f"{p} {g[p][0]:.3e} ({g[p][1]})" for p in ("tables", "mlps", "condition", "other") if p in g)
+          + f" (<= {GRID_GRAD_REL}); total loss relative {g['loss_rel']:.3e}")
+    for p in ("tables", "mlps", "condition", "other"):
+        check(p not in g or g[p][0] <= GRID_GRAD_REL, f"train_grid: {p} gradients card vs CPU")
+    check(g["loss_rel"] <= 1e-5, "train_grid: the loss card vs CPU")
+
+    # serving the trained dirs: the torso dir (over the SR head) on the card,
+    # each frame's float32 composite and SR frame held to the CPU's; the
+    # hashgrid and the fine-tuned converted heads on a band
+    t0 = time.perf_counter()
+    infer = GeneFaceInfer.from_work_dirs(torso_model_dir=dirs["torso"], device=dev)
+    check(infer.head_cfg.grid_type == "tiledgrid" and infer.torso_cfg.grid_type == "tiledgrid", "grid dirs")
+    ids = list(range(SERVE_TRAINED_FRAMES))
+    batch = infer.prepare_gt_batch(ids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = list(infer.forward_secc2video(batch, {"frames_per_dispatch": SERVE_TRAINED_FRAMES}))
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    H = infer.dataset.H
+    check(len(frames) == len(ids) and all(f.shape == (2 * H, 2 * H, 3) for f in frames), "frames from the grid dirs")
+    cpu = GeneFaceInfer.from_work_dirs(torso_model_dir=dirs["torso"], device="cpu")
+    worst = {}
+    for i in ids:
         outs = {}
         for inf in (cpu, infer):
             d = inf.device
-            sr32 = Superresolution(3, inf.sr_model.block0.conv0.noise_const.shape[0]).to(d)  # float32
+            sr32 = Superresolution(3, inf.sr_model.block0.conv0.noise_const.shape[0]).to(d)
             sr32.load_state_dict(inf.sr_model.state_dict())
             with torch.no_grad():
-                ro, rd = pixel_rays(torch.as_tensor(batch["poses"][:1], device=d), inf.dataset.intrinsics, H, H)
+                ro, rdir = pixel_rays(torch.as_tensor(batch["poses"][i:i + 1], device=d), inf.dataset.intrinsics, H, H)
                 win = get_audio_features_batch(torch.as_tensor(batch["cond"], device=d),
-                                               torch.arange(1, device=d), inf.head_cfg.smo_win_size)[0]
+                                               torch.tensor([i], device=d), inf.head_cfg.smo_win_size)[0]
                 out = render_full_frame(
-                    inf.head_model, ro[0], rd[0], win, inf.occupancy, inf.bg_color, inf.render_options({}),
-                    (H, H), eye_area_percent=torch.as_tensor(batch["eye_area_percent"][:1], device=d),
+                    inf.head_model, ro[0], rdir[0], win, inf.occupancy, inf.bg_color, inf.render_options({}), (H, H),
+                    eye_area_percent=torch.as_tensor(batch["eye_area_percent"][i:i + 1], device=d),
                     torso_model=inf.torso_model, bg_coords=inf.bg_coords,
-                    lm68=torch.as_tensor(batch["lm68"][:1], device=d), occupancy_2d=inf.torso_occupancy_2d,
+                    lm68=torch.as_tensor(batch["lm68"][i:i + 1], device=d), occupancy_2d=inf.torso_occupancy_2d,
                     sr_model=sr32, torso_crop=inf.torso_crop)
-            outs[str(d)] = {k: getattr(out, k).cpu() for k in ("rgb_map", "torso_alpha", "sr_rgb_map")}
-        errs = {}
+            outs[str(d)] = {k: getattr(out, k).cpu() for k in ("rgb_map", "sr_rgb_map")}
         for k, ref in outs["cpu"].items():
             e = (outs[str(infer.device)][k] - ref).abs()
-            errs[k] = (e.max().item(), e.mean().item())
-        print(f"[train_cli] served from the trained dirs (torso -> sr head): {SERVE_TRAINED_FRAMES} frames of "
-              f"{2 * H}x{2 * H} in {serve_ms:.1f} ms ({serve_ms / SERVE_TRAINED_FRAMES:.3f} ms a frame, first "
-              f"request, host wall), {launches} fused_field launches; float32 frame card vs CPU: "
-              + ", ".join(f"{k} max |d| {m:.3e} mean {a:.3e}" for k, (m, a) in errs.items())
-              + f" (frames <= {TRAINED_CARD_MAX}, {TRAINED_CARD_MEAN})")
-        for k in ("rgb_map", "sr_rgb_map"):
-            m, a = errs[k]
-            check(m <= TRAINED_CARD_MAX and a <= TRAINED_CARD_MEAN, f"trained dirs card vs CPU {k}")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return launches
+            m, a = worst.get(k, (0.0, 0.0))
+            worst[k] = (max(m, e.max().item()), max(a, e.mean().item()))
+    print(f"[train_grid] {card_line()}; served from the grid dirs (tiledgrid torso over the tiledgrid SR head): "
+          f"{len(frames)} frames of {2 * H}x{2 * H} in {serve_ms:.1f} ms ({serve_ms / len(frames):.3f} ms a frame, "
+          f"first request, host wall), 0 fused_field launches; each frame's float32 composite and SR frame card vs "
+          f"CPU, worst over the {len(ids)}: " + ", ".join(f"{k} max |d| {m:.3e} mean {a:.3e}" for k, (m, a) in worst.items())
+          + f" (<= {TRAINED_CARD_MAX}, {TRAINED_CARD_MEAN})")
+    for k, (m, a) in worst.items():
+        check(m <= TRAINED_CARD_MAX and a <= TRAINED_CARD_MEAN, f"train_grid: served {k} card vs CPU")
+    parts["serving, frames card vs CPU"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in ("hash", "converted"):
+        head_cfg = RADNeRFConfig.from_hparams(set_hparams(work_dir=dirs[name]))
+        ds = RADNeRFDataset(os.path.join(binary, "syn", "trainval_dataset.npy"), smo_win_size=head_cfg.smo_win_size,
+                            with_sr=True)  # as training/run.py builds it
+        head, occ, _ = load_head(head_cfg, dirs[name], dev)
+        head_band_card_vs_cpu(head, occ, ds, dev, f"the trained {head_cfg.grid_type} head ({name})")
+    parts["bands"] = time.perf_counter() - t0
+    check(ff.fused_field.launches == 0 and ff.fused_field_bwd_chain.launches == 0,
+          "train_grid: a grid head launched the Fourier kernels")
+    print("[train_grid] the phase's parts, host wall: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
 
 
 # train_audio: an identity's tracks of TRAIN_AUDIO_FRAMES motion frames at 25
@@ -2719,7 +3136,12 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     train_fwd, train_chain, train_wgrad = phase_train(dev)
-    trained_launches = phase_train_cli(dev)
+    train_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        trained_launches, binary = phase_train_cli(dev, train_root)
+        phase_train_grid(dev, binary, train_root)
+    finally:
+        shutil.rmtree(train_root, ignore_errors=True)
     refined_launches = phase_train_audio(dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
@@ -2728,7 +3150,7 @@ def main() -> int:
           f"run the float32 field) + {train_fwd} training + "
           f"{trained_launches} serving from CLI-trained dirs + {refined_launches} serving through the trained "
           f"postnet; fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training "
-          f"(serve_grid launches neither)")
+          f"(serve_grid and train_grid launch neither: grid heads run the float32 field)")
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda",
         "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",

@@ -8,13 +8,15 @@ from typing import Optional
 import torch
 from torch import nn
 
-from genefaceplusplus_tpu_torch.ops.grid_encoder import GridSpec, grid_encode
+from genefaceplusplus_tpu_torch.ops.grid_encoder import GridEncodeFunction, GridSpec, grid_encode
 
 
 class GridEncoder(nn.Module):
     """Owns the [n_rows, level_dim] table `embeddings` (JAX's leaf name, so
     the weight bridge carries it as it is), initialised U(-1e-4, 1e-4) from
-    `generator`."""
+    `generator`. With autograd on it encodes through `GridEncodeFunction`
+    (its backward recomputes each level; nothing but the inputs and the
+    table is kept for it); under `no_grad` through `grid_encode`."""
 
     def __init__(self, spec: GridSpec, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -27,4 +29,6 @@ class GridEncoder(nn.Module):
         return self.spec.output_dim
 
     def forward(self, x: torch.Tensor, bound: float = 1.0) -> torch.Tensor:
+        if torch.is_grad_enabled():
+            return GridEncodeFunction.apply(x, self.embeddings, self.spec, bound)
         return grid_encode(x, self.embeddings, self.spec, bound=bound)

@@ -22,8 +22,16 @@ Two departures in form, none in value:
   are summed as in JAX (`grid_encode`'s sum over 2^D). Within a level the
   index arithmetic runs once a point, not once a corner (`_level`).
 
-The backward (a scatter-add into the table, and the inputs' gradient
-through the interpolation weights) is autograd's.
+The backward is `GridEncodeFunction`'s (the reference's CUDA
+`grid_encode_backward` does the same): its forward is `grid_encode` run
+without a graph and saves only the inputs and the table; its backward
+recomputes each level's rows and weights, one level at a time, scatters
+grad x weight into the table's gradient with `index_add_` (rows that
+repeat within a point, from a hash collision or a small level's dense
+index, sum), and returns the inputs' gradient through the weights'
+derivative, zero outside [0, 1] as JAX's `where(oob, 0, w)` gives.
+Autograd through `grid_encode` itself (it keeps every level's rows,
+weights and gathered corners) is the plain version the tests hold it to.
 """
 
 from __future__ import annotations
@@ -101,8 +109,9 @@ def _mul_u32(a: torch.Tensor, b: int) -> torch.Tensor:
     return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _U32
 
 
-def _level(x01: torch.Tensor, spec: GridSpec, lvl: int):
-    """(rows [N, 2^D] int64, weights [N, 2^D] float32) of one level.
+def _level_parts(x01: torch.Tensor, spec: GridSpec, lvl: int):
+    """(rows [N, 2^D] int64, per-dim weights: D tensors [N, 2^D], the
+    unsmoothed fraction t [N, D]) of one level.
 
     Modulo 2^32 a corner's index is a function of the cell's corner and
     its bits: the dense index is the cell's (sum_d pg_d * stride_d) plus
@@ -117,9 +126,8 @@ def _level(x01: torch.Tensor, spec: GridSpec, lvl: int):
     stride_dim = spec.level_resolution(lvl) + (0 if spec.align_corners else 1)
     pos = x01 * spec.level_scale(lvl) + (0.0 if spec.align_corners else 0.5)
     pg = torch.floor(pos)
-    frac = pos - pg
-    if spec.interpolation == "smoothstep":
-        frac = frac * frac * (3.0 - 2.0 * frac)
+    t = pos - pg
+    frac = t * t * (3.0 - 2.0 * t) if spec.interpolation == "smoothstep" else t
     pg = pg.to(torch.int64) & _U32  # the corner's uint32 wrap
     # the dense stride of each dim, 0 once it passes the table; the dense
     # index overflows the table when the whole cube does
@@ -138,11 +146,17 @@ def _level(x01: torch.Tensor, spec: GridSpec, lvl: int):
         corner = (sel.to(torch.int64) * torch.tensor(strides, device=sel.device)).sum(dim=-1)
         idx = (base + corner) & _U32
     rows = idx % size + spec.offsets[lvl]
-    w = None  # prod_d (frac_d or 1 - frac_d), in JAX's order over d
-    for d in range(D):
-        f = frac[:, d:d + 1]
-        wd = torch.where(sel[:, d], f, 1.0 - f)
-        w = wd if w is None else w * wd
+    wds = [torch.where(sel[:, d], frac[:, d:d + 1], 1.0 - frac[:, d:d + 1]) for d in range(D)]
+    return rows, wds, t
+
+
+def _level(x01: torch.Tensor, spec: GridSpec, lvl: int):
+    """(rows [N, 2^D] int64, weights [N, 2^D] float32) of one level: the
+    weights are prod_d (frac_d or 1 - frac_d), in JAX's order over d."""
+    rows, wds, _ = _level_parts(x01, spec, lvl)
+    w = wds[0]
+    for wd in wds[1:]:
+        w = w * wd
     return rows, w
 
 
@@ -169,3 +183,53 @@ def grid_encode(x: torch.Tensor, embeddings: torch.Tensor, spec: GridSpec, bound
         corners = embeddings.index_select(0, rows.reshape(-1)).view(*rows.shape, C)
         out[:, lvl] = (corners * w.to(embeddings.dtype)[..., None]).sum(dim=1)
     return (out.view(N, -1) * keep).reshape(*prefix, spec.output_dim)  # 0 outside the grid
+
+
+class GridEncodeFunction(torch.autograd.Function):
+    """`grid_encode` with a backward that recomputes each level (module
+    docstring): `GridEncodeFunction.apply(x, embeddings, spec, bound)`."""
+
+    @staticmethod
+    def forward(ctx, x, embeddings, spec, bound):
+        ctx.save_for_backward(x, embeddings)
+        ctx.spec, ctx.bound = spec, bound
+        return grid_encode(x, embeddings, spec, bound=bound)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, embeddings = ctx.saved_tensors
+        spec, bound = ctx.spec, ctx.bound
+        D, C, L = spec.input_dim, spec.level_dim, spec.num_levels
+        x01 = ((x.reshape(-1, D) + bound) / (2.0 * bound)).float()
+        keep = ~((x01 < 0.0) | (x01 > 1.0)).any(dim=-1, keepdim=True)
+        g = (grad_out.reshape(-1, L, C) * keep[:, :, None]).to(embeddings.dtype)  # 0 outside the grid
+        sel = _corner_bits(D).to(device=x.device, dtype=torch.bool)
+        need_x, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        g_table = torch.zeros_like(embeddings) if need_table else None
+        g_x01 = torch.zeros_like(x01) if need_x else None
+        for lvl in range(L):
+            rows, wds, t = _level_parts(x01, spec, lvl)
+            g_lvl = g[:, lvl]  # [N, C]
+            if need_table:
+                w = wds[0]
+                for wd in wds[1:]:
+                    w = w * wd
+                g_table.index_add_(0, rows.reshape(-1), (w.to(g.dtype)[..., None] * g_lvl[:, None, :]).reshape(-1, C))
+            if need_x:  # d out / d w_k, then through w_k = prod_d wd_d
+                corners = embeddings.index_select(0, rows.reshape(-1)).view(*rows.shape, C)
+                g_w = (corners * g_lvl[:, None, :]).sum(dim=-1).float()  # [N, 2^D]
+                dfrac = 6.0 * t * (1.0 - t) if spec.interpolation == "smoothstep" else None
+                for d in range(D):
+                    others = None
+                    for e in range(D):
+                        if e != d:
+                            others = wds[e] if others is None else others * wds[e]
+                    signed = torch.where(sel[:, d], g_w, -g_w)
+                    gd = (signed if others is None else signed * others).sum(dim=-1)
+                    if dfrac is not None:
+                        gd = gd * dfrac[:, d]
+                    g_x01[:, d] += gd * spec.level_scale(lvl)
+        g_x = None
+        if need_x:
+            g_x = (g_x01 * keep / (2.0 * bound)).to(x.dtype).reshape(x.shape)
+        return g_x, g_table, None, None

@@ -48,12 +48,9 @@ def build_task(cfg, device=None):
     """The task a resolved config names, with its train (and val) dataset."""
     from genefaceplusplus_tpu_torch.models.radnerf import RADNeRFConfig
     from genefaceplusplus_tpu_torch.training.radnerf_task import TaskHParams
-    from genefaceplusplus_tpu_torch.training.tasks.head_task import (
-        HeadNeRFTask, HeadTaskConfig, refuse_grid_training)
+    from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig
 
     kind = TASK_REGISTRY.get(cfg.get("task_cls", "head"), "head")
-    if kind in ("head", "torso"):  # before the dataset: a grid field fails fast
-        refuse_grid_training(cfg.get("grid_type", "fourier"), f"the {kind} stage")
     ds_path = os.path.join(cfg["binary_data_dir"], cfg["video_id"], "trainval_dataset.npy")
     dataset = _dataset(cfg, ds_path, "train")
     seed = cfg.get("seed", 9999)

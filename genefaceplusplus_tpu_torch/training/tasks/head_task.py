@@ -11,10 +11,14 @@ renders saved as PNG. From `finetune_lips_start_iter` on (with
 window on the frame's lip rect, mse + the perceptual loss on the window,
 with the float32 field; the grid refresh pauses.
 
+A grid head (`grid_type` 'tiledgrid' or 'hashgrid', as the reference
+trains its heads) trains with the float32 field, its tables through
+`GridEncodeFunction`; the fused field (`use_fused_field`, the CUDA
+kernels) is Fourier-only and refuses it. Validation renders a grid head in
+chunks of 16,384 rays, as JAX's does.
+
 Not ported (it raises NotImplementedError when it would run): train-side
-live-sample compaction (ROADMAP), and training a grid head (`grid_type`
-other than 'fourier'; the port serves such heads, converted from the
-reference, but trains the Fourier field only: ROADMAP queue A item 3).
+live-sample compaction (ROADMAP).
 """
 
 from __future__ import annotations
@@ -89,20 +93,16 @@ class HeadTaskConfig:
         )
 
 
-def refuse_grid_training(grid_type: str, what: str):
-    """Raise for a grid field (`grid_type` other than 'fourier'): serving
-    reads grid heads, training does not yet."""
-    if grid_type != "fourier":
-        raise NotImplementedError(
-            f"{what} with grid_type={grid_type!r}: training grid fields is not ported (ROADMAP queue A item 3); "
-            "the port serves a grid head converted by tools/convert_ckpt.py --type head")
-
-
 class HeadNeRFTask:
     def __init__(self, dataset: RADNeRFDataset, model_cfg: RADNeRFConfig,
                  task_cfg: HeadTaskConfig = HeadTaskConfig(), hp: TaskHParams = TaskHParams(),
                  seed: int = 9999, device=None):
-        refuse_grid_training(model_cfg.grid_type, type(self).__name__)
+        if task_cfg.use_fused_field and model_cfg.grid_type != "fourier":
+            # as JAX's Pallas kernel, which asserts its Fourier width
+            # (genefaceplusplus_tpu/ops/pallas/fused_field.py:67)
+            raise ValueError(f"use_fused_field with grid_type={model_cfg.grid_type!r}: the fused field is a "
+                             "Fourier-only kernel (csrc/fused_field.cu); a grid head trains with the float32 "
+                             "field (use_fused_field=False)")
         if task_cfg.train_compact_start > 0:
             raise NotImplementedError("train_compact_start > 0: train-side compaction is not "
                                       "ported (ROADMAP)")
@@ -122,6 +122,8 @@ class HeadNeRFTask:
         self.seed = seed
         self._finetune_lip_flag = False
         self.perceptual = None  # built with the first lip step
+        # rays a validation render takes at once: JAX's 16,384 for a grid head
+        self.val_ray_chunk = 65536 if model_cfg.grid_type == "fourier" else 16384
 
         H = model_cfg.grid_size
         self.density_grid = mark_untrained_grid(
@@ -306,16 +308,18 @@ class HeadNeRFTask:
 
     # ------------------------------------------------------------------
     def validate(self, state: TrainState, max_frames: int = 2, save_dir: str = "",
-                 ray_chunk: int = 65536) -> Dict[str, float]:
+                 ray_chunk: Optional[int] = None) -> Dict[str, float]:
         """Full-image renders of val frames (the f32 model field, no
         perturbation) -> PSNR. Frames render in chunks of `ray_chunk` rays
-        to bound memory; the result does not depend on the chunking. With
+        (`val_ray_chunk` by default) to bound memory; the result does not
+        depend on the chunking. With
         `save_dir` each render is written to
         <save_dir>/validation_results/val_<step>_<i>.png."""
         ds_val = self.val_dataset if self.val_dataset is not None else self.dataset
         model, cfg = self._head(state), self.cfg
         v_opts = dataclasses.replace(self.opts, perturb=False)
         dev = self.device
+        ray_chunk = ray_chunk or self.val_ray_chunk
         psnrs = []
         with torch.no_grad():
             for i in range(min(max_frames, len(ds_val))):

@@ -37,7 +37,7 @@ from genefaceplusplus_tpu_torch.training import losses as L
 from genefaceplusplus_tpu_torch.training.perceptual import perceptual_from_task_config
 from genefaceplusplus_tpu_torch.training.radnerf_task import TaskHParams, TrainState, create_train_state
 from genefaceplusplus_tpu_torch.training.schedulers import grad_norms_by_group
-from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig, refuse_grid_training
+from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig
 from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
 
@@ -56,7 +56,6 @@ class SRHeadNeRFTask(HeadNeRFTask):
     def __init__(self, dataset: RADNeRFDataset, model_cfg: RADNeRFConfig,
                  task_cfg: SRTaskConfig = SRTaskConfig(), hp: TaskHParams = TaskHParams(),
                  seed: int = 9999, device=None):
-        refuse_grid_training(model_cfg.grid_type, type(self).__name__)
         if task_cfg.lambda_dual_fm > 0:
             raise NotImplementedError(
                 "lambda_dual_fm > 0: the frozen dual discriminator (JAX "
@@ -195,10 +194,11 @@ class SRHeadNeRFTask(HeadNeRFTask):
         return state, metrics
 
     def validate(self, state: TrainState, max_frames: int = 2, save_dir: str = "",
-                 ray_chunk: int = 65536) -> Dict[str, float]:
+                 ray_chunk: Optional[int] = None) -> Dict[str, float]:
         """The head's validation (raw val_psnr) and the SR frames against the
         stored full-resolution gt (val_sr_psnr); with `save_dir` the SR
         renders go to validation_results/val_sr_<step>_<i>.png."""
+        ray_chunk = ray_chunk or self.val_ray_chunk
         metrics = super().validate(state, max_frames=max_frames, save_dir=save_dir, ray_chunk=ray_chunk)
         ds = self.val_dataset if self.val_dataset is not None else self.dataset
         head, sr_model = state.model["head"], state.model["sr"]

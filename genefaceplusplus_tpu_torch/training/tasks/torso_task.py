@@ -29,7 +29,6 @@ from genefaceplusplus_tpu_torch.training import frame_store
 from genefaceplusplus_tpu_torch.training import losses as L
 from genefaceplusplus_tpu_torch.training.grid_updater import update_torso_grid
 from genefaceplusplus_tpu_torch.training.schedulers import RADNeRFAdam, grad_norms_by_group, make_radnerf_optimizer
-from genefaceplusplus_tpu_torch.training.tasks.head_task import refuse_grid_training
 from genefaceplusplus_tpu_torch.training.trainer import (
     generator_state, numpy_rng_state, set_generator_state, set_numpy_rng_state)
 from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint, restore_into
@@ -78,8 +77,6 @@ def load_head(head_cfg: RADNeRFConfig, head_dir: str, device) -> tuple:
 class TorsoNeRFTask:
     def __init__(self, dataset: RADNeRFDataset, head_cfg: RADNeRFConfig, cfg, seed: int = 9999,
                  device=None):
-        refuse_grid_training(head_cfg.grid_type, "TorsoNeRFTask's head")
-        refuse_grid_training(TorsoConfig.from_hparams(cfg).grid_type, "TorsoNeRFTask")
         self.dataset = dataset
         self.head_cfg = head_cfg
         self.cfg = cfg

@@ -116,12 +116,19 @@ def state_to_flax(state) -> Dict:
 
 
 def load_flax_state(state, d: Dict):
-    """Restore variables, optimizer moments and counts, the step and
-    lambda_ambient from a JAX TrainState's fields (JAX's or the port's)."""
+    """Restore a JAX TrainState's fields (JAX's or the port's): the
+    variables, every one of them; the optimizer's moments and counts, the
+    step and lambda_ambient where the file holds them. A params-only dir
+    (`tools/convert_ckpt.py --type head`, as JAX's converter writes it)
+    keeps the fresh optimizer, step and lambda_ambient, as JAX's non-strict
+    `restore_into` keeps its template's; the trainer's loop still starts at
+    the checkpoint's global_step."""
     load_flax_tree(state.model, d[state.params_key])
-    state.opt.load_optax(d["opt_state"])
-    state.global_step = int(d["global_step"])
-    if getattr(state, "lambda_ambient", None) is not None:
+    if "opt_state" in d:
+        state.opt.load_optax(d["opt_state"])
+    if "global_step" in d:
+        state.global_step = int(d["global_step"])
+    if getattr(state, "lambda_ambient", None) is not None and "lambda_ambient" in d:
         state.lambda_ambient = torch.tensor(float(d["lambda_ambient"]), dtype=torch.float32,
                                             device=state.lambda_ambient.device)
     return state

@@ -1,7 +1,7 @@
 """Grid fields of the port (`RADNeRF` with `grid_type` 'tiledgrid' and
 'hashgrid', the 'tiledgrid' `TorsoField`) against the JAX package's flax
 modules, with the same weights and numpy-seeded inputs, on the CPU; and
-the training tasks' refusal of grid fields. The weights are a seeded port
+each training task building a grid field and taking a step. The weights are a seeded port
 model's, exported to JAX's tree (`export_flax_params`; the tables scaled
 to +-0.2 so they move the field) and carried back into the port by
 `convert_flax_params`; flax's init is skipped (it runs the 16-level grids
@@ -11,6 +11,9 @@ Small heads (desired resolution 64, tables of 2^10 rows a level, so the
 hash grid hashes; narrow MLPs); the torso at the reference's spec.
 Tolerances: float32 atol 1e-4 (the port's precedent); the export round
 trip exact."""
+
+import math
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,9 +26,12 @@ from genefaceplusplus_tpu.models.radnerf import RADNeRFConfig as JConfig
 from genefaceplusplus_tpu_torch.models import radnerf_torso as t_torso
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF as TRADNeRF
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRFConfig as TConfig
+from genefaceplusplus_tpu_torch.data import dataset as t_data
+from genefaceplusplus_tpu_torch.data.dataset import synthetic
 from genefaceplusplus_tpu_torch.training import run
-from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask
-from genefaceplusplus_tpu_torch.training.tasks.sr_task import SRHeadNeRFTask
+from genefaceplusplus_tpu_torch.training.schedulers import _radnerf_group
+from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig
+from genefaceplusplus_tpu_torch.training.tasks.sr_task import SRHeadNeRFTask, SRTaskConfig
 from genefaceplusplus_tpu_torch.training.tasks.torso_task import TorsoNeRFTask
 from genefaceplusplus_tpu_torch.utils.convert_jax import convert_flax_params, export_flax_params
 
@@ -111,18 +117,52 @@ def test_tiledgrid_torso_matches_jax():
 
 
 GRID = {"grid_type": "tiledgrid"}
+TINY = dict(SMALL, grid_size=16)  # the small head at a 16^3 density grid
+CLI = dict(TINY, binary_data_dir="", video_id="syn", n_rays=64, num_samples=4, lambda_torso_deform=0.01)
+
+
+@pytest.fixture(scope="module")
+def grid_binary(tmp_path_factory):
+    """A 32^2 synthetic identity with torso images, as the binarizer writes it."""
+    root = tmp_path_factory.mktemp("grid_binary")
+    d = synthetic(num_frames=8, H=32, W=32, seed=2)
+    rs = np.random.RandomState(3)
+    for smp in d["train_samples"] + d["val_samples"]:
+        torso = rs.rand(32, 32, 4).astype(np.float32)
+        torso[..., 3] = torso[..., 3] > 0.5
+        smp["torso_img"] = torso
+    os.makedirs(root / "syn")
+    np.save(root / "syn" / "trainval_dataset.npy", d, allow_pickle=True)
+    return str(root)
 
 
 @pytest.mark.parametrize("build", [
-    lambda: HeadNeRFTask(None, TConfig(grid_type="tiledgrid")),
-    lambda: SRHeadNeRFTask(None, TConfig(grid_type="hashgrid")),
-    lambda: TorsoNeRFTask(None, TConfig(grid_type="tiledgrid"), {}),
-    lambda: TorsoNeRFTask(None, TConfig(), GRID),
-    lambda: run.build_task(dict(GRID, binary_data_dir="/nonexistent", video_id="v")),
-    lambda: run.build_task(dict(GRID, task_cls="torso", binary_data_dir="/nonexistent", video_id="v")),
+    lambda ds, b: HeadNeRFTask(ds, TConfig(**TINY, grid_type="tiledgrid"), HeadTaskConfig(n_rays=64, num_samples=4),
+                               device="cpu"),
+    lambda ds, b: SRHeadNeRFTask(ds, TConfig(**TINY, grid_type="hashgrid"),
+                                 SRTaskConfig(num_samples=4, sr_dtype="float32"), device="cpu"),
+    lambda ds, b: TorsoNeRFTask(ds, TConfig(**TINY, grid_type="tiledgrid"), {"grid_size": 16}, device="cpu"),
+    lambda ds, b: TorsoNeRFTask(ds, TConfig(**TINY), dict(GRID, grid_size=16), device="cpu"),
+    lambda ds, b: run.build_task(dict(CLI, **GRID, binary_data_dir=b), device="cpu"),
+    lambda ds, b: run.build_task(dict(CLI, **GRID, task_cls="torso", binary_data_dir=b), device="cpu"),
 ], ids=["head", "sr", "torso-head", "torso", "cli-head", "cli-torso"])
-def test_training_refuses_grid_fields(build):
-    """Serving reads grid heads; training them is not ported yet, and the
-    refusal names the ROADMAP item (before any dataset is read)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 3"):
-        build()
+def test_training_builds_grid_fields(build, grid_binary):
+    """Each task that refused a grid field before this port trained them
+    (the head, head + SR, the torso over a grid head, the tiledgrid torso,
+    and the CLI's head and torso stages) builds it and takes a step on the
+    CPU: the losses are finite; every grid table the step trains (the
+    head's two, or the torso's) is in the grid group and moves; a frozen
+    grid head stays as it was."""
+    ds = t_data.RADNeRFDataset(os.path.join(grid_binary, "syn", "trainval_dataset.npy"), with_sr=True)
+    task = build(ds, grid_binary)
+    state = task.create_state()
+    frozen = getattr(task, "head_model", None)
+    frozen = {} if frozen is None else {n: p.clone() for n, p in frozen.state_dict().items()}
+    tables = {n: p.detach().clone() for n, p in state.model.named_parameters() if n.endswith("embedder.embeddings")}
+    assert all(_radnerf_group(n) == "grid" for n in tables)
+    assert tables or any(n.endswith("embedder.embeddings") for n in frozen)  # a grid somewhere
+    state, metrics = task.train_step(state, task.sample_train_batch(global_step=0))
+    assert math.isfinite(float(metrics["total_loss"]))
+    moved = dict(state.model.named_parameters())
+    assert all(not torch.equal(moved[n].detach(), t) for n, t in tables.items())
+    assert all(torch.equal(task.head_model.state_dict()[n], t) for n, t in frozen.items())

@@ -164,12 +164,14 @@ def test_converter_places_every_leaf_and_fails_loudly():
 
 
 def test_grid_encoders_raise_with_roadmap_pointer():
-    """A grid head builds (the serving path reads the reference's heads,
-    tests/test_torch_grid_field.py); training one raises, naming the
-    ROADMAP item."""
-    from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask
+    """A grid head builds (served, tests/test_torch_grid_field.py; trained,
+    tests/test_torch_grid_train.py). Training it with the fused field
+    raises, naming the Fourier-only kernel; the training of grid heads that
+    this test once found refused (its ROADMAP item, queue A item 3) is
+    done."""
+    from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig
 
     cfg = TConfig(grid_type="tiledgrid", desired_resolution=64, log2_hashmap_size=10)
     assert TRADNeRF(cfg).position_embedder.output_dim == 32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HeadNeRFTask(None, cfg)
+    with pytest.raises(ValueError, match="Fourier-only kernel"):
+        HeadNeRFTask(None, cfg, HeadTaskConfig(use_fused_field=True), device="cpu")

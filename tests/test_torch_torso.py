@@ -149,11 +149,16 @@ def test_torso_bridge_places_every_leaf_and_fails_loudly():
 
 
 def test_tiledgrid_raises_with_roadmap_pointer():
-    """A tiledgrid torso builds (served, tests/test_torch_grid_field.py);
-    training one raises, naming the ROADMAP item."""
+    """A tiledgrid torso builds (served, tests/test_torch_grid_field.py),
+    and the torso task, which once raised for it naming its ROADMAP item
+    (queue A item 3, done), builds it for training: its table trains in
+    the grid group at 10x the learning rate (tests/test_torch_grid_train.py
+    holds the step to JAX's)."""
     from genefaceplusplus_tpu_torch.models.radnerf import RADNeRFConfig
     from genefaceplusplus_tpu_torch.training.tasks.torso_task import TorsoNeRFTask
 
     assert t_torso.TorsoField(t_torso.TorsoConfig(grid_type="tiledgrid")).torso_embedder.output_dim == 32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorsoNeRFTask(None, RADNeRFConfig(), {"grid_type": "tiledgrid"})
+    state = TorsoNeRFTask(None, RADNeRFConfig(grid_size=16), {"grid_type": "tiledgrid"}, device="cpu").create_state()
+    grid = [g for g in state.opt.opt.param_groups if g["label"] == "grid"]
+    assert len(grid) == 1 and grid[0]["mult"] == 10.0
+    assert len(grid[0]["params"]) == 1 and grid[0]["params"][0] is state.model.torso_embedder.embeddings
