@@ -9,19 +9,26 @@ Phases (any failure exits non-zero, and no result line is printed):
   build       compile genefaceplusplus_tpu_torch/csrc/fused_field.cu,
               fused_field_bwd.cu and fused_field_wgrad.cu into build/kernels/
               (three nvcc, in parallel); print each ptxas report (0 spills)
-  kernel      the fused-field forward kernel vs its plain PyTorch version and
+  kernel      the fused-field forward kernel (B1) vs its plain PyTorch version and
               vs the float32 model field, at the 512^2 x 10-sample serving
-              size (2,621,440 points), with seeded weights and inputs; timed
-              in turns with the plain version, against its bound, beside
-              its ptxas report
-  kernel_bwd  the fused-field backward (tile chain + weight-gradient kernel)
-              vs its plain PyTorch version at the training size (65,536 rays
-              x 16 samples = 1,048,576 points), all 14 gradient blocks,
-              twice (bit-identical), on permuted points; the weight-gradient
-              kernel vs its plain version on the chain's operands; the chain,
-              the weight-gradient kernel and the whole backward each timed in
-              turns with its plain version, and bf16 torch.matmul on the
-              same operands beside the weight-gradient kernel
+              size (2,621,440 points), with seeded weights and inputs; its
+              serving outputs held bit for bit to the parent tree's
+              (PARENT_REFERENCE); its train mode's outputs equal to serving's
+              at 2,621,440 and 1,048,576 points, and its activation operands,
+              ReLU masks and sigma gate vs fused_field_train_plain at
+              1,048,576; both modes timed at both sizes in turns with their
+              plain versions, against their bounds, beside the ptxas report
+  kernel_bwd  the fused-field backward (train mode + tile chain + weight-gradient
+              kernel) vs its plain PyTorch version at the training size (65,536
+              rays x 16 samples = 1,048,576 points), all 14 gradient blocks,
+              twice (bit-identical), on permuted points, and against the parent
+              tree's gradients (bit for bit, or how far apart); the chain's
+              gradient operands vs fused_field_chain_plain, and a second chain
+              launch on the same buffer; the weight-gradient kernel vs its
+              plain version on the operands; the chain (from a prepared
+              buffer), the weight-gradient kernel and the whole backward each
+              timed in turns with its plain version, and bf16 torch.matmul on
+              the same operands beside the weight-gradient kernel
   serve       GeneFaceInfer at the May lm3d_radnerf head config (full width,
               random weights from a seed) on a synthetic 512^2 identity with the
               bench's head-sized occupancy: GT-driven requests through
@@ -95,7 +102,9 @@ Phases (any failure exits non-zero, and no result line is printed):
   train      HeadNeRFTask + Trainer.fit at the same config with
               use_fused_field=True on a synthetic 512^2 identity: 20 steps of
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
-              validation, a checkpoint and a resume; checked and timed
+              validation, a checkpoint and a resume; one train-mode forward,
+              one chain and one weight-gradient launch a step; checked, ms a
+              step and peak memory
   train_cli   the host image codec (csrc/image_codec.cpp, built here with the
               host compiler) decodes tests/torch_image_fixtures/ to the sha256
               of cv2's decodes recorded beside them, and its encoder's bytes
@@ -154,6 +163,10 @@ Phases (any failure exits non-zero, and no result line is printed):
               rerun on the CPU from the card's a2m output through the postnet;
               timed (ms/step, peak memory, the postnet by CUDA events,
               audio2secc with and without it, ms a frame)
+
+`python3 chip_smoke.py --reference PATH` writes PARENT_REFERENCE's contents
+for the tree it sits in (run it from a copy of an older tree to compare
+with that tree).
 
 Output: the card's name and power limit first; before serve_cli, whether
 an `ffmpeg` binary is on the PATH (shutil.which); one JSON line
@@ -238,6 +251,18 @@ BWD_ALL = (0.995, 0.04, 0.15)
 FWD_CLEAN = 3e-5
 BWD_CLEAN = (0.9999, 0.005, 0.03)
 BWD_PERMUTED_MAX_REL = 1e-4  # kernel on permuted points vs kernel: float32 summation order only
+# the chain's and the train mode's operands vs their plain versions
+# (tests/test_torch_cuda.py::test_chain_operands_match_plain): on the clean
+# points whose five ReLU masks agree (at least CHAIN_MASKS_AGREE of them),
+# every operand within CHAIN_MAX_REL of its largest entry
+CHAIN_MASKS_AGREE, CHAIN_MAX_REL = 0.99, 1e-2
+# B1's serving outputs at the kernel phase's inputs (sha256 of sigma, rgb,
+# amb as float32 bytes) and B2's 14 gradient blocks at the kernel_bwd
+# phase's (their live regions, and the sha256 of the padded blocks), as the
+# port computed them before B1 had a train mode: commit 222a275 on an
+# NVIDIA H100 80GB HBM3, written by `python3 chip_smoke.py --reference
+# PATH` run from a copy of that tree
+PARENT_REFERENCE = "tests/torch_fixtures/field_reference_222a275.npz"
 
 # bounds: the function's bf16 multiply-adds a point, at their live widths
 # (no padding a kernel adds), at the H100's dense bf16 peak, against the
@@ -254,10 +279,16 @@ FWD_MACS = sum(k * n for k, n in FWD_PRODUCTS)  # 150,400
 # product but SH's rows of col_w1, and of amb_B (64 -> 3)
 BWD_MACS = FWD_MACS + (FWD_MACS + 3 * 128 + 3 * 64) + (FWD_MACS - 16 * 128 + 64 * AMB_OUT)  # 449,920
 FWD_BYTES, BWD_BYTES = 52, 52  # xyz, dirs in + sigma, rgb, amb out; xyz, dirs, three output grads in
-# B2's tile chain alone: the forward recomputed and the input gradients, and
-# the bf16 weight-gradient operands it must write (2,168 a point, as stored)
-CHAIN_MACS = FWD_MACS + (FWD_MACS - 16 * 128 + 64 * AMB_OUT)  # 298,944
-CHAIN_BYTES = BWD_BYTES + 2 * 2168
+# B1's train mode: B1's products, against B1's point traffic plus what it
+# writes for the backward: the activation operands (1,184 bf16 a point),
+# the five hidden layers' ReLU masks (80 bytes) and the sigma gate (1 byte)
+TRAIN_BYTES = FWD_BYTES + 2 * 1184 + 80 + 1
+# B2's tile chain alone: the input gradients only (the forward is the train
+# mode's), against the gradient operands it writes (984 bf16 a point), the
+# masks and gate it reads and its point data (xyz, sigma, rgb, amb and the
+# three output gradients in: 68 bytes)
+CHAIN_MACS = FWD_MACS - 16 * 128 + 64 * AMB_OUT  # 148,544
+CHAIN_BYTES = 2 * 984 + 80 + 1 + 68
 # the weight-gradient kernel: the weight gradients of the eight products and
 # of pos_B and amb_B, against its operands read once at their live widths
 # (2,141 bf16 a point; the buffer stores 2,168 with padding)
@@ -380,7 +411,9 @@ def phase_build():
         check(not any(spills), f"{name} spills registers")
 
 
-def phase_kernel(dev):
+def kernel_inputs(dev):
+    """The kernel phase's seeded model, weights and N_POINTS points: (model,
+    w, xyz, dirs, cond_feat, ind, amb_bias, col_bias)."""
     from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
     from genefaceplusplus_tpu_torch.ops import fused_field as ff
 
@@ -396,6 +429,117 @@ def phase_kernel(dev):
         cond_feat = model.cal_cond_feat(cond, torch.full((1, 1), 0.3, device=dev))
         ind = model.get_individual_code(0)
         ab, cb = ff.bias_rows(cond_feat, ind, w)
+    return model, w, xyz, dirs, cond_feat, ind, ab, cb
+
+
+def bwd_inputs(dev):
+    """The kernel_bwd phase's seeded weights, N_TRAIN_POINTS points and
+    output gradients: (xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb,
+    g_amb), fused_field_backward's arguments."""
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+
+    cfg = head_config()
+    model = RADNeRF(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    w = ff.weights_from_params(model, bound=cfg.bound)
+    g = torch.Generator(device=dev).manual_seed(2)
+    n = N_TRAIN_POINTS
+    xyz = torch.rand((n, 3), generator=g, device=dev) * 2.0 - 1.0
+    dirs = torch.randn((n, 3), generator=g, device=dev)
+    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
+    g_sigma = torch.randn((n,), generator=g, device=dev) * 1e-2
+    g_rgb = torch.randn((n, 3), generator=g, device=dev) * 1e-2
+    g_amb = torch.randn((n, 3), generator=g, device=dev) * 1e-2
+    cond = torch.randn((cfg.smo_win_size, cfg.cond_win_size, cfg.cond_in_dim), generator=g, device=dev)
+    with torch.no_grad():
+        cond_feat = model.cal_cond_feat(cond, torch.full((1, 1), 0.3, device=dev))
+        ab, cb = ff.bias_rows(cond_feat, model.get_individual_code(0), w)
+    return xyz, dirs, ab, cb, w, g_sigma, g_rgb, g_amb
+
+
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order (float32, on the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def write_reference(dev, path: str):
+    """PARENT_REFERENCE's contents for this tree: the digest of B1's serving
+    outputs at kernel_inputs, B2's gradient blocks at bwd_inputs (live
+    regions, float32) and their digest."""
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+
+    with torch.no_grad():
+        _, w, xyz, dirs, _, _, ab, cb = kernel_inputs(dev)
+        out = {"fused_field": np.array(digest(ff.fused_field(xyz, dirs, ab, cb, w)))}
+        del xyz, dirs
+        grads = ff.fused_field_backward(*bwd_inputs(dev))
+    out["fused_field_backward"] = np.array(digest(grads))
+    for (name, _, (r, c)), g in zip(ff.GRAD_BLOCKS, grads):
+        out[name] = g[:r, :c].cpu().numpy()
+    np.savez_compressed(path, **out)
+    print(json.dumps({k: str(out[k]) for k in ("fused_field", "fused_field_backward")}))
+
+
+def parent_reference() -> dict:
+    with np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), PARENT_REFERENCE)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def operand_witness(kernel_ops: dict, plain_ops: dict, names, clean, kernel_relu, plain_relu) -> tuple:
+    """tests/test_torch_cuda.py::test_chain_operands_match_plain's witness:
+    on the clean points whose five ReLU masks (bool [n, 5, 128]) agree in
+    the kernel's and the plain run, each named operand's largest |kernel -
+    plain| over its largest plain entry. Returns (clean points, agreeing
+    points, {name: rel}, {name: share of clean entries that differ}, the
+    largest |kernel - plain| there over all the operands)."""
+    agree = clean & (kernel_relu == plain_relu).flatten(1).all(-1)
+    n_clean, n_agree = int(clean.sum()), int(agree.sum())
+    worst, share, worst_abs = {}, {}, 0.0
+    for name in names:
+        a, b = kernel_ops[name].float(), plain_ops[name].float()
+        check(bool(torch.isfinite(a).all()), f"non-finite operand {name}")
+        share[name] = (a != b)[clean].float().mean().item() if n_clean else 0.0
+        if n_agree:
+            d = (a - b).abs()[agree].max().item()
+            worst[name] = d / max(b.abs().max().item(), 1e-30)
+            worst_abs = max(worst_abs, d)
+    return n_clean, n_agree, worst, share, worst_abs
+
+
+def clean_points(fk, fp):
+    """Points whose forward outputs from the kernel agree with the plain
+    forward's to FWD_CLEAN (log sigma, rgb, ambient)."""
+    moved = torch.stack([(fk[0].log() - fp[0].log()).abs(), (fk[1] - fp[1]).abs().amax(-1),
+                         (fk[2] - fp[2]).abs().amax(-1)], -1).amax(-1)
+    return moved <= FWD_CLEAN
+
+
+def timed_in_turns(run_kernel, run_plain, rounds: int) -> tuple:
+    """(kernel ms, plain ms) lists, in turns: plain, kernel, kernel, plain."""
+    for fn in (run_plain, run_kernel):
+        cuda_ms(fn, 2)  # warm-up
+    t_k, t_p = [], []
+    for _ in range(rounds):
+        t_p += cuda_ms(run_plain, 1)
+        t_k += cuda_ms(run_kernel, 2)
+        t_p += cuda_ms(run_plain, 1)
+    return t_k, t_p
+
+
+def med(xs) -> str:
+    return f"median {statistics.median(xs):.4f} ms (min {min(xs):.4f}, max {max(xs):.4f}, n={len(xs)})"
+
+
+def phase_kernel(dev):
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+
+    model, w, xyz, dirs, cond_feat, ind, ab, cb = kernel_inputs(dev)
+    with torch.no_grad():
         kern = ff.fused_field(xyz, dirs, ab, cb, w)
         plain = ff.fused_field_plain(xyz, dirs, ab, cb, w)
         torch.cuda.synchronize()
@@ -426,32 +570,69 @@ def phase_kernel(dev):
             check(corr > FIELD_MIN_CORR, f"kernel vs f32 field {name} correlation")
         del ref
 
-        def run_kernel():
-            ff.fused_field(xyz, dirs, ab, cb, w)
+        # serving, bit for bit as before the train mode existed
+        now = digest(kern)
+        parent = str(parent_reference()["fused_field"])
+        print(f"[kernel] serving outputs sha256 {now}; before the train mode ({parent}): "
+              f"{'bit-identical' if now == parent else 'DIFFERENT'}")
+        check(now == parent, "B1's serving outputs differ from the parent tree's")
 
-        def run_plain():
-            ff.fused_field_plain(xyz, dirs, ab, cb, w)
+        # the train mode: the serving outputs bit for bit, at both sizes
+        fwd = ff.fused_field_forward_train(xyz, dirs, ab, cb, w)
+        check(all(torch.equal(a, b) for a, b in zip(fwd[:3], kern)),
+              f"train-mode outputs differ from serving at {N_POINTS} points")
+        del fwd
+        n = N_TRAIN_POINTS
+        xs, ds = xyz[:n].contiguous(), dirs[:n].contiguous()
+        fwd = ff.fused_field_forward_train(xs, ds, ab, cb, w)
+        check(all(torch.equal(a, b[:n]) for a, b in zip(fwd[:3], kern)),
+              f"train-mode outputs differ from serving at {n} points")
+        # its operands, masks and gate vs fused_field_train_plain
+        plain_fwd = ff.fused_field_train_plain(xs, ds, ab, cb, w)
+        k_ops = ff.unpack_operands(fwd.ops, n)
+        k_relu = ff.unpack_relu_masks(fwd.relu, n)
+        clean = clean_points(fwd[:3], plain_fwd[:3])
+        n_clean, n_agree, worst, share, worst_abs = operand_witness(
+            k_ops, plain_fwd.ops, ff.OPERAND_WRITERS["fused_field"], clean, k_relu, plain_fwd.relu)
+        gate_agree = (fwd.gate.bool() == plain_fwd.gate).float().mean().item()
+        mask_share = (k_relu == plain_fwd.relu).float().mean().item()
+        padded = ff.unpack_operands(fwd.ops, ff.operand_points(n))
+        tail_zero = all(not padded[k][n:].float().any() for k in ff.OPERAND_WRITERS["fused_field"])
+        print(f"[kernel] train mode at {n} points: outputs equal serving's at {N_POINTS} and {n} points; "
+              f"{n_clean} clean points, {n_agree} with the plain version's ReLU masks; share of mask bits equal "
+              f"{mask_share:.6f}, of gates equal {gate_agree:.6f}; max |kernel - plain| / max |plain| there: "
+              + ", ".join(f"{k_}={v:.2e}" for k_, v in worst.items())
+              + "; share of clean entries that differ: " + ", ".join(f"{k_}={v:.4f}" for k_, v in share.items()))
+        check(n_agree >= CHAIN_MASKS_AGREE * n_clean and all(v <= CHAIN_MAX_REL for v in worst.values()),
+              "train-mode operands vs plain")
+        check(torch.equal(k_ops["xyzb"].float(), plain_fwd.ops["xyzb"]), "train-mode bf16(xyz)")
+        check(tail_zero, "train-mode operands past n are not zero")
+        del fwd, plain_fwd, k_ops, k_relu, padded
 
-        for fn in (run_plain, run_kernel):
-            cuda_ms(fn, 2)  # warm-up
-        t_k, t_p = [], []
-        for _ in range(4):  # in turns: plain, kernel, kernel, plain
-            t_p += cuda_ms(run_plain, 1)
-            t_k += cuda_ms(run_kernel, 2)
-            t_p += cuda_ms(run_plain, 1)
-    ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
-    bound_ms, bound_by = kernel_bound(N_POINTS, FWD_MACS, FWD_BYTES)
+        sizes = {N_POINTS: (xyz, dirs), n: (xs, ds)}
+        times = {}
+        for size, (x, d) in sizes.items():
+            times[("serve", size)] = timed_in_turns(lambda: ff.fused_field(x, d, ab, cb, w),
+                                                    lambda: ff.fused_field_plain(x, d, ab, cb, w), 4)
+            times[("train", size)] = timed_in_turns(lambda: ff.fused_field_forward_train(x, d, ab, cb, w),
+                                                    lambda: ff.fused_field_train_plain(x, d, ab, cb, w), 3)
     tile, step, smem = ff.fwd_config(ff._library("fused_field"))
     print(f"[kernel] {card_line()}; ptxas: " + "; ".join(
         x for x in ptxas_report(ff.build_kernels(["fused_field"])["fused_field"]) if "Compiling" not in x)
           + f"; {smem} bytes of dynamic shared memory a block; {tile} points a consumer tile, {step} a block step")
-    print(f"[kernel] time at {N_POINTS} points: kernel median {ms:.4f} ms "
-          f"(min {min(t_k):.4f}, max {max(t_k):.4f}, n={len(t_k)}); plain median "
-          f"{plain_ms:.4f} ms (min {min(t_p):.4f}, max {max(t_p):.4f}, n={len(t_p)})")
-    print(f"[kernel] {2.0 * FWD_MACS * N_POINTS / ms / 1e9:.1f} TFLOP/s; bound {bound_ms:.4f} ms "
-          f"({bound_by}): {100.0 * bound_ms / ms:.1f} % of the bound")
-    return {"max_abs_err": max(e["rgb"][0], e["amb"][0]), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    rows = {}
+    for (mode, size), (t_k, t_p) in times.items():
+        ms, plain_ms = statistics.median(t_k), statistics.median(t_p)
+        bound_ms, bound_by = kernel_bound(size, FWD_MACS, FWD_BYTES if mode == "serve" else TRAIN_BYTES)
+        print(f"[kernel] {mode} mode at {size} points: kernel {med(t_k)}; plain {med(t_p)}; "
+              f"{2.0 * FWD_MACS * size / ms / 1e9:.1f} TFLOP/s; bound {bound_ms:.4f} ms ({bound_by}; operations "
+              f"{kernel_bound(size, FWD_MACS, 0)[0]:.4f} ms): {100.0 * bound_ms / ms:.1f} % of the bound")
+        rows[(mode, size)] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    extra = rows[("train", n)]["ms"] - rows[("serve", n)]["ms"]
+    print(f"[kernel] train mode's extra over serving at {n} points: {extra:.4f} ms")
+    serve = {"max_abs_err": max(e["rgb"][0], e["amb"][0]), **rows[("serve", N_POINTS)]}
+    train = {"max_abs_err": worst_abs, **rows[("train", n)], "extra_ms": extra}
+    return serve, train
 
 
 def phase_serve(dev):
@@ -1773,9 +1954,7 @@ def backward_vs_plain(xyz, dirs, ab, cb, w, g_sigma, g_rgb, g_amb):
     from genefaceplusplus_tpu_torch.ops import fused_field as ff
 
     fk, fp = ff.fused_field(xyz, dirs, ab, cb, w), ff.fused_field_plain(xyz, dirs, ab, cb, w)
-    moved = torch.stack([(fk[0].log() - fp[0].log()).abs(), (fk[1] - fp[1]).abs().amax(-1),
-                         (fk[2] - fp[2]).abs().amax(-1)], -1).amax(-1)
-    clean = (moved <= FWD_CLEAN).nonzero().flatten()
+    clean = clean_points(fk, fp).nonzero().flatten()
     out = {}
     for key, sel in (("all", slice(None)), ("clean", clean)):
         x, d, gs, gr, ga = (t[sel].contiguous() for t in (xyz, dirs, g_sigma, g_rgb, g_amb))
@@ -1795,26 +1974,15 @@ def bwd_failures(stats) -> list:
     return bad
 
 
-def phase_kernel_bwd(dev):
-    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
+def phase_kernel_bwd(dev, train_extra_ms: float):
     from genefaceplusplus_tpu_torch.ops import fused_field as ff
 
-    cfg = head_config()
-    model = RADNeRF(cfg, generator=torch.Generator().manual_seed(0)).to(dev)
-    w = ff.weights_from_params(model, bound=cfg.bound)
-    g = torch.Generator(device=dev).manual_seed(2)
-    n = N_TRAIN_POINTS
-    xyz = torch.rand((n, 3), generator=g, device=dev) * 2.0 - 1.0
-    dirs = torch.randn((n, 3), generator=g, device=dev)
-    dirs = dirs / dirs.norm(dim=-1, keepdim=True)
-    g_sigma = torch.randn((n,), generator=g, device=dev) * 1e-2
-    g_rgb = torch.randn((n, 3), generator=g, device=dev) * 1e-2
-    g_amb = torch.randn((n, 3), generator=g, device=dev) * 1e-2
-    cond = torch.randn((cfg.smo_win_size, cfg.cond_win_size, cfg.cond_in_dim), generator=g, device=dev)
+    args = bwd_inputs(dev)
+    xyz, dirs, ab, cb, w, g_sigma, g_rgb, g_amb = args
+    grads = (g_sigma, g_rgb, g_amb)
+    n = xyz.shape[0]
+    g = torch.Generator(device=dev).manual_seed(3)
     with torch.no_grad():
-        cond_feat = model.cal_cond_feat(cond, torch.full((1, 1), 0.3, device=dev))
-        ab, cb = ff.bias_rows(cond_feat, model.get_individual_code(0), w)
-        args = (xyz, dirs, ab, cb, w, g_sigma, g_rgb, g_amb)
         kern = ff.fused_field_backward(*args)
         again = ff.fused_field_backward(*args)
         perm = torch.randperm(n, generator=g, device=dev)
@@ -1839,22 +2007,52 @@ def phase_kernel_bwd(dev):
     check(not bad, f"backward kernel vs plain: {bad}")
     print(f"[kernel_bwd] two launches: bit-identical gradients; permuted points: every block within "
           f"{BWD_PERMUTED_MAX_REL} of its largest entry")
+    ref = parent_reference()
+    now, parent = digest(kern), str(ref["fused_field_backward"])
+    print(f"[kernel_bwd] gradients sha256 {now}; the chain that recomputed the forward ({parent}): "
+          f"{'bit-identical' if now == parent else 'different'}")
+    if now != parent:
+        apart = []
+        for (name, _, (r, c)), k in zip(ff.GRAD_BLOCKS, kern):
+            cos, ratio, rel = grad_stats(k[:r, :c], torch.from_numpy(ref[name]).to(dev))
+            apart.append(f"{name} cos {cos:.8f} |r-1| {abs(ratio - 1.0):.2e} max|d|/max {rel:.3e}")
+        print("[kernel_bwd] against the chain that recomputed the forward: " + "; ".join(apart))
     del kern, again, permuted, plain
 
     with torch.no_grad():
-        # the weight-gradient kernel alone, on the chain's operands
-        ops = ff.fused_field_bwd_chain(*args)
+        # the train mode's buffers, then the chain alone on them
+        fwd = ff.fused_field_forward_train(xyz, dirs, ab, cb, w)
+        ops = ff.fused_field_bwd_chain(xyz, fwd, w, *grads)
+        plain_fwd = ff.fused_field_train_plain(xyz, dirs, ab, cb, w)
+        plain_grads = ff.fused_field_chain_plain(xyz, plain_fwd, w, *grads)
         unpacked = ff.unpack_operands(ops, n)
+        clean = clean_points(fwd[:3], plain_fwd[:3])
+        n_c, n_agree, rel, share, chain_abs = operand_witness(unpacked, plain_grads, ff.OPERAND_WRITERS["fused_field_bwd"],
+                                                   clean, ff.unpack_relu_masks(fwd.relu, n), plain_fwd.relu)
+        padded = ff.unpack_operands(ops, ff.operand_points(n))
+        check(all(not padded[k][n:].float().any() for k, _ in ff.WGRAD_OPERANDS), "operands past n are not zero")
+        del padded
+        print(f"[kernel_bwd] chain's gradient operands vs fused_field_chain_plain: {n_c} clean points, {n_agree} "
+              f"with the plain version's ReLU masks; max |chain - plain| / max |plain| there: "
+              + ", ".join(f"{k_}={v:.2e}" for k_, v in rel.items())
+              + "; share of clean entries that differ: " + ", ".join(f"{k_}={v:.4f}" for k_, v in share.items()))
+        check(n_agree >= CHAIN_MASKS_AGREE * n_c and all(v <= CHAIN_MAX_REL for v in rel.values()),
+              "chain operands vs plain")
+        again = ff.fused_field_bwd_chain(xyz, fwd, w, *grads).clone()
+        check(torch.equal(again, ops), "the chain's operands differ between two launches on one buffer")
+        del again, plain_grads
+
+        # the weight-gradient kernel alone, on the operands
         wk, wp = ff.fused_field_wgrad(ops, n), ff.fused_field_wgrad_plain(unpacked)
         torch.cuda.synchronize()
         wgrad_err, wgrad_rel = 0.0, 0.0
         for (name, _, _), a, b in zip(ff.GRAD_BLOCKS, wk, wp):
             check(bool(torch.isfinite(a).all()), f"non-finite weight gradient {name}")
             d = (a - b).abs().max().item()
-            rel = d / max(b.abs().max().item(), 1e-30)
-            wgrad_err, wgrad_rel = max(wgrad_err, d), max(wgrad_rel, rel)
-            check(rel <= WGRAD_MAX_REL, f"weight-gradient kernel vs plain {name}: {rel:.3e}")
-        print(f"[kernel_bwd] weight-gradient kernel vs plain on the chain's operands: every block within "
+            r = d / max(b.abs().max().item(), 1e-30)
+            wgrad_err, wgrad_rel = max(wgrad_err, d), max(wgrad_rel, r)
+            check(r <= WGRAD_MAX_REL, f"weight-gradient kernel vs plain {name}: {r:.3e}")
+        print(f"[kernel_bwd] weight-gradient kernel vs plain on the operands: every block within "
               f"{wgrad_rel:.3e} of its largest entry (<= {WGRAD_MAX_REL}); operand buffer "
               f"{ops.numel() * 2 / 2 ** 30:.3f} GiB")
         del wk, wp
@@ -1871,46 +2069,40 @@ def phase_kernel_bwd(dev):
                     u["xyzb"].t() @ u["gproj"], u["ga1"].float().sum(0), gc1.float().sum(0))
 
         timings = {
-            "chain": (lambda: ff.fused_field_bwd_chain(*args),
-                      lambda: ff.pack_operands(ff.fused_field_bwd_operands_plain(*args))),
+            "chain": (lambda: ff.fused_field_bwd_chain(xyz, fwd, w, *grads),
+                      lambda: ff.fused_field_chain_plain(xyz, plain_fwd, w, *grads)),
             "wgrad": (lambda: ff.fused_field_wgrad(ops, n), lambda: ff.fused_field_wgrad_plain(unpacked)),
             "backward": (lambda: ff.fused_field_backward(*args), lambda: ff.fused_field_backward_plain(*args)),
         }
-        times = {}
-        for key, (run_kernel, run_plain) in timings.items():
-            for fn in (run_plain, run_kernel):
-                cuda_ms(fn, 2)  # warm-up
-            t_k, t_p = [], []
-            for _ in range(3):  # in turns: plain, kernel, kernel, plain
-                t_p += cuda_ms(run_plain, 1)
-                t_k += cuda_ms(run_kernel, 2)
-                t_p += cuda_ms(run_plain, 1)
-            times[key] = (t_k, t_p)
+        times = {key: timed_in_turns(run_kernel, run_plain, 3) for key, (run_kernel, run_plain) in timings.items()}
         cuda_ms(run_library, 2)
         t_lib = []
         for _ in range(3):  # in turns with the kernel
             t_lib += cuda_ms(run_library, 1)
             times["wgrad"][0].extend(cuda_ms(timings["wgrad"][0], 1))
-        del ops, unpacked, X, gc1, u
-    print(f"[kernel_bwd] {card_line()}; times at {n} points, medians in turns with the plain versions:")
+        del ops, unpacked, X, gc1, u, fwd, plain_fwd
+    print(f"[kernel_bwd] {card_line()}; ptxas: " + "; ".join(
+        x for x in ptxas_report(ff.build_kernels(["fused_field_bwd"])["fused_field_bwd"]) if "Compiling" not in x))
+    print(f"[kernel_bwd] times at {n} points, medians in turns with the plain versions:")
     for key, (t_k, t_p) in times.items():
-        print(f"[kernel_bwd] {key}: kernel {statistics.median(t_k):.4f} ms (min {min(t_k):.4f}, max "
-              f"{max(t_k):.4f}, n={len(t_k)}); plain {statistics.median(t_p):.4f} ms (min {min(t_p):.4f}, "
-              f"max {max(t_p):.4f}, n={len(t_p)})")
+        print(f"[kernel_bwd] {key}: kernel {med(t_k)}; plain {med(t_p)}")
     ms, plain_ms = statistics.median(times["backward"][0]), statistics.median(times["backward"][1])
     bound_ms, bound_by = kernel_bound(n, BWD_MACS, BWD_BYTES, 4 * ff.PACKED_SIZE)
     w_ms, w_plain_ms = statistics.median(times["wgrad"][0]), statistics.median(times["wgrad"][1])
     w_bound_ms, w_bound_by = kernel_bound(n, WGRAD_MACS, WGRAD_BYTES, 4 * ff.PACKED_SIZE)
     library_ms = statistics.median(t_lib)
-    print(f"[kernel_bwd] backward bound {bound_ms:.4f} ms ({bound_by}): {100.0 * bound_ms / ms:.1f} % of the bound")
-    c_ms = statistics.median(times["chain"][0])
-    c_bound_ms, c_bound_by = kernel_bound(n, CHAIN_MACS, CHAIN_BYTES, 4 * ff.PACKED_SIZE)
+    c_ms, c_plain_ms = statistics.median(times["chain"][0]), statistics.median(times["chain"][1])
+    c_bound_ms, c_bound_by = kernel_bound(n, CHAIN_MACS, CHAIN_BYTES)
+    print(f"[kernel_bwd] backward (train mode + chain + weight gradients) bound {bound_ms:.4f} ms ({bound_by}): "
+          f"{100.0 * bound_ms / ms:.1f} % of the bound; B2 as the train mode's extra over serving "
+          f"({train_extra_ms:.4f} ms) + chain + weight gradients: {train_extra_ms + c_ms + w_ms:.4f} ms")
     print(f"[kernel_bwd] chain bound {c_bound_ms:.4f} ms ({c_bound_by}; operations "
           f"{kernel_bound(n, CHAIN_MACS, 0)[0]:.4f} ms): {100.0 * c_bound_ms / c_ms:.1f} % of the bound")
     print(f"[kernel_bwd] weight-gradient kernel bound {w_bound_ms:.4f} ms ({w_bound_by}): "
           f"{100.0 * w_bound_ms / w_ms:.1f} % of the bound; bf16 torch.matmul on the same operands "
-          f"{library_ms:.4f} ms (min {min(t_lib):.4f}, max {max(t_lib):.4f}, n={len(t_lib)})")
-    return ({"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+          f"{med(t_lib)}")
+    return ({"max_abs_err": chain_abs, "ms": c_ms, "plain_ms": c_plain_ms, "bound_ms": c_bound_ms,
+             "bound_by": c_bound_by, "backward_ms": ms, "backward_max_abs_err": worst},
             {"max_abs_err": wgrad_err, "ms": w_ms, "plain_ms": w_plain_ms, "bound_ms": w_bound_ms,
              "bound_by": w_bound_by, "library_ms": library_ms})
 
@@ -1954,20 +2146,21 @@ def phase_train(dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         ff.fused_field.launches = ff.fused_field_bwd_chain.launches = ff.fused_field_wgrad.launches = 0
-        ff.fused_field_backward.launches = 0  # the backward wrapper's calls (it launches nothing itself)
+        ff.fused_field_forward_train.launches = 0  # B1's train-mode launches (fused_field.launches counts both modes)
+        ff.fused_field_backward.launches = 0  # backward passes (chain + weight gradients; it launches nothing itself)
         trainer = Trainer(task, work_dir, max_updates=TRAIN_STEPS, val_check_interval=1000,
                           tb_log_interval=10, update_extra_interval=task_cfg.update_extra_interval)
         state = trainer.fit()
         torch.cuda.synchronize()
         fwd, chain, wgrad = ff.fused_field.launches, ff.fused_field_bwd_chain.launches, ff.fused_field_wgrad.launches
-        bwd_calls = ff.fused_field_backward.launches
+        fwd_train, bwd_calls = ff.fused_field_forward_train.launches, ff.fused_field_backward.launches
         peak = torch.cuda.max_memory_allocated(dev)
 
         check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
               f"train losses not all finite: {losses}")
-        check(fwd == TRAIN_STEPS and chain == TRAIN_STEPS and wgrad == TRAIN_STEPS,
-              f"{fwd} forward, {chain} backward-chain and {wgrad} weight-gradient kernel launches for "
-              f"{TRAIN_STEPS} train steps")
+        check(fwd == TRAIN_STEPS and fwd_train == TRAIN_STEPS and chain == TRAIN_STEPS and wgrad == TRAIN_STEPS,
+              f"{fwd} forward ({fwd_train} in train mode), {chain} backward-chain and {wgrad} weight-gradient "
+              f"kernel launches for {TRAIN_STEPS} train steps")
         check(bwd_calls == TRAIN_STEPS, f"{bwd_calls} fused_field_backward calls for {TRAIN_STEPS} train steps")
         moved = {k: (v - init[k]).abs().max().item() for k, v in state.model.named_parameters()}
         for k in ("position_embedder.B", "ambient_embedder.B"):
@@ -1987,8 +2180,8 @@ def phase_train(dev):
         shutil.rmtree(work_dir, ignore_errors=True)
     timed = step_ms[1:]  # the first step includes one-time set-up
     print(f"[train] {TRAIN_STEPS} steps: losses finite ({losses[0]:.5f} -> {losses[-1]:.5f}); "
-          f"{fwd} forward, {chain} backward-chain and {wgrad} weight-gradient kernel launches in "
-          f"{bwd_calls} fused_field_backward calls (one each per step); occupancy "
+          f"{fwd} forward (all {fwd_train} in train mode), {chain} backward-chain and {wgrad} weight-gradient "
+          f"kernel launches in {bwd_calls} backward passes (one each per step); occupancy "
           f"{occ[0][0][0].float().mean().item():.4f} -> {occ[0][1][0].float().mean().item():.4f} -> "
           f"{occ[1][1][0].float().mean().item():.4f} across the refreshes at steps 0 and 16; all field "
           f"parameters moved (position B by {moved['position_embedder.B']:.3e}, ambient B by "
@@ -1997,7 +2190,7 @@ def phase_train(dev):
     print(f"[train] train step (host wall, synchronised, steps 2..{TRAIN_STEPS}): median "
           f"{statistics.median(timed):.3f} ms, min {min(timed):.3f}, max {max(timed):.3f}, n={len(timed)}; "
           f"first step {step_ms[0]:.3f} ms; peak allocated {peak / 2 ** 30:.3f} GiB")
-    return fwd, chain, wgrad
+    return fwd_train, chain, wgrad
 
 
 # ---- train_cli: one identity trained through the training CLI -------------
@@ -3117,10 +3310,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    if sys.argv[1:2] == ["--reference"]:  # PARENT_REFERENCE's contents for this tree
+        write_reference(dev, sys.argv[2])
+        return 0
     t0 = time.perf_counter()
     phase_build()
-    k = phase_kernel(dev)
-    kb, kw = phase_kernel_bwd(dev)
+    k, kt = phase_kernel(dev)
+    kb, kw = phase_kernel_bwd(dev, kt["extra_ms"])
     serve_launches, fourier_ms = phase_serve(dev)
     full_launches = phase_serve_full(dev)
     audio_launches = phase_serve_audio(dev)
@@ -3147,29 +3343,32 @@ def main() -> int:
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
           f"{audio_launches} audio-driven serving + {cli_launches} CLI and streaming + {long_launches} long clip + "
           f"{convert_launches} from the converted a2m + {app_launches} web app (serve_grid: none, its grid heads "
-          f"run the float32 field) + {train_fwd} training + "
-          f"{trained_launches} serving from CLI-trained dirs + {refined_launches} serving through the trained "
-          f"postnet; fused_field_bwd_chain: {train_chain} training; fused_field_wgrad: {train_wgrad} training "
-          f"(serve_grid and train_grid launch neither: grid heads run the float32 field)")
+          f"run the float32 field) + {trained_launches} serving from CLI-trained dirs + {refined_launches} serving "
+          f"through the trained postnet; in train mode: {train_fwd} training; fused_field_bwd_chain: {train_chain} "
+          f"training; fused_field_wgrad: {train_wgrad} training (serve_grid and train_grid launch none: grid "
+          f"heads run the float32 field)")
+    source = "genefaceplusplus_tpu_torch/csrc/"
+    pallas = "genefaceplusplus_tpu/ops/pallas/fused_field.py:"
     print(json.dumps({"kernels": [{
-        "name": "fused_field", "route": "cuda",
-        "source": "genefaceplusplus_tpu_torch/csrc/fused_field.cu",
-        "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:156",
+        "name": "fused_field", "route": "cuda", "source": source + "fused_field.cu", "replaces": pallas + "156",
         "launches": (serve_launches + full_launches + audio_launches + cli_launches + long_launches + convert_launches
-                     + app_launches + train_fwd + trained_launches + refined_launches),
+                     + app_launches + trained_launches + refined_launches),
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {
-        # B2: launches of its source's kernel (the chain); times of the whole backward
-        "name": "fused_field_backward", "route": "cuda",
-        "source": "genefaceplusplus_tpu_torch/csrc/fused_field_bwd.cu",
-        "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:278",
+        # B1's train mode takes over _bwd_kernel's forward recompute
+        "name": "fused_field_train", "route": "cuda", "source": source + "fused_field.cu", "replaces": pallas + "298",
+        "launches": train_fwd, "max_abs_err": kt["max_abs_err"], "ms": kt["ms"],
+        "plain_ms": kt["plain_ms"], "bound_ms": kt["bound_ms"], "bound_by": kt["bound_by"],
+        "library_ms": None}, {
+        # B2's chain: _bwd_kernel's input gradients
+        "name": "fused_field_bwd_chain", "route": "cuda", "source": source + "fused_field_bwd.cu",
+        "replaces": pallas + "333",
         "launches": train_chain, "max_abs_err": kb["max_abs_err"], "ms": kb["ms"],
         "plain_ms": kb["plain_ms"], "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
         "library_ms": None}, {  # no single PyTorch call computes the fused field or its backward
-        "name": "fused_field_wgrad", "route": "cuda",
-        "source": "genefaceplusplus_tpu_torch/csrc/fused_field_wgrad.cu",
-        "replaces": "genefaceplusplus_tpu/ops/pallas/fused_field.py:347",
+        "name": "fused_field_wgrad", "route": "cuda", "source": source + "fused_field_wgrad.cu",
+        "replaces": pallas + "347",
         "launches": train_wgrad, "max_abs_err": kw["max_abs_err"], "ms": kw["ms"],
         "plain_ms": kw["plain_ms"], "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
         "library_ms": kw["library_ms"]}]}))

@@ -38,6 +38,39 @@
 //   flight; setmaxnreg moves the producers' registers to the consumers.
 // Measured on an H100 (PERF.md): about half of the bound; what is left is
 // mostly the position features, which three warps only just keep ahead of.
+//
+// Two instantiations (template TRAIN). Serving (TRAIN = false) writes the
+// three outputs only. The train mode also writes what the backward needs,
+// so that the backward's chain (fused_field_bwd.cu) does not recompute the
+// forward:
+// - The activation half of the weight-gradient operands
+//   (fused_field_common.cuh, TRAIN_OPERANDS: pos_feat, amb_feat, the five
+//   hidden layers, [geo | SH], bf16 amb_pos and xyz; 1,184 bf16 a point) in
+//   the operand buffer's K-major layout, whose 64-point tiles are the
+//   consumers' tiles. No staging tile: shared memory is full (the block
+//   uses 219,520 of 232,448 bytes). A bf16 pair of an A fragment (or of
+//   hidden-layer registers) of one 8-feature block is an m8n8 matrix, rows
+//   8 points, columns 2 features a lane; movmatrix.trans turns it into 2
+//   points of one feature a lane, and the warp's 32 4-byte stores fill one
+//   contiguous 128-byte core matrix of the operand (8 features x 8 points),
+//   since a warp's 16 rows are exactly one k16 step of the operand.
+//   pos_feat, which sits in shared memory in the A layout, goes out through
+//   ldmatrix.trans the same way, before its ring slot is released.
+// - The ReLU masks of the five hidden layers (80 bytes a point; the chain
+//   reads these instead of re-reading 1,280 bytes of activations), each
+//   lane one 32-bit word of its row quad (fused_field_common.cuh,
+//   relu_word): a bit is set where the bf16 activation is non-zero, which
+//   is where the f32 pre-activation is positive but below 2^-134.
+// - The sigma gate: one byte a point, 1 where the logit is in (-15, 15).
+// Rows past n are written as zeros; a consumer tile that lies wholly past
+// n (the last block step's) writes nothing. A layer's stores go out once
+// the next products, which read the same registers, have completed and
+// before the registers are overwritten. Issued before those products, the
+// consumers spilled (ptxas batched the 32 movmatrix of a layer ahead of
+// their stores while the registers stayed live as the products' A
+// operand); so did xyz loaded for its operand at the top of the tile
+// (hence pinned loads at its end). ptxas -v must report no spill for
+// either instantiation (chip_smoke.py's build phase checks).
 // Rounding points are the Pallas kernel's: bf16 at pos_feat, each post-ReLU
 // hidden layer, amb_feat, geo and SH16; the Fourier phases as the f32 FMA
 // chain; rintf inside fast_sin; expf(clip(+-15)) for sigma; sigmoid by true
@@ -53,6 +86,7 @@
 #include "sm90.cuh"
 
 using gfpp::bf16;
+using gfpp::OP_ROWS;
 using gfpp::fast_cos;
 using gfpp::fast_sin;
 using gfpp::fast_tanh;
@@ -237,6 +271,118 @@ __device__ __forceinline__ void to_fragments(const float (&d)[64], const float* 
     }
 }
 
+// The ReLU mask words of this lane's rows g (mg) and g + 8 (mh) from a
+// layer's bf16 activations (A fragments, after ReLU): column 8 j + 2 t + e
+// is bit 2 j + e (relu_word, relu_bit). A bf16 is non-zero exactly where
+// the f32 pre-activation is positive, but below 2^-134.
+__device__ __forceinline__ void relu_masks(const uint32_t (&h)[8][4], uint32_t& mg, uint32_t& mh) {
+  mg = 0u;
+  mh = 0u;
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int bit = 2 * (2 * s + (i >> 1));
+      const uint32_t m = ((h[s][i] & 0x7FFFu) ? 1u << bit : 0u) | ((h[s][i] & 0x7FFF0000u) ? 2u << bit : 0u);
+      if (i & 1)
+        mh |= m;
+      else
+        mg |= m;
+    }
+}
+
+// ---- the train mode's stores ----
+// Where this warp's lane writes core matrix 0 of operand O in the k16 step
+// of its 16 rows: the operand's tile at `base`, step `warp`, then 4 bytes a
+// lane (feature g, points 2 t, 2 t + 1 of the core matrix). Core matrix c
+// (feature group j, point half h: c = 2 j + h) is 32 words further on.
+template <int O>
+__device__ __forceinline__ uint32_t* tile_dst(bf16* ops, int npad, int base, int warp, int lane) {
+  static_assert(gfpp::listed(O, gfpp::TRAIN_OPERANDS), "the forward's train mode writes the activation operands");
+  constexpr int R = OP_ROWS[O];
+  return reinterpret_cast<uint32_t*>(ops + static_cast<size_t>(npad) * gfpp::op_first_row(O) +
+                                     static_cast<size_t>(base) * R + warp * R * 16) + lane;
+}
+
+// the 8 x 8 fragment x (this lane: row g or g + 8, 2 features) as the core
+// matrix at dst (tile_dst + 32 c), zero if the lane's row is past n
+__device__ __forceinline__ void store_fragment(uint32_t* dst, uint32_t x, bool live_row) {
+  *dst = movmatrix_trans(live_row ? x : 0u);
+}
+
+// a 128-feature layer held as A fragments (h[s][i]: feature block 2 s + i / 2,
+// rows g + 8 (i % 2)) as core matrices 4 s + i of operand O
+template <int O>
+__device__ __forceinline__ void store_layer(bf16* ops, int npad, int base, int warp, int lane,
+                                            const uint32_t (&h)[8][4], bool live_g, bool live_h) {
+  uint32_t* dst = tile_dst<O>(ops, npad, base, warp, lane);
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) store_fragment(dst + 32 * (4 * s + i), h[s][i], (i & 1) ? live_h : live_g);
+}
+
+// an 8-row operand whose features 0..2 are a 3-wide value (apos, xyzb): the
+// fragments of rows g (fg) and g + 8 (fh), this lane's columns 2 t, 2 t + 1
+// (lane t = 0: features 0, 1; t = 1: feature 2 and a zero; t > 1: zeros)
+template <int O>
+__device__ __forceinline__ void store_three(bf16* ops, int npad, int base, int warp, int lane, uint32_t fg,
+                                            uint32_t fh, bool live_g, bool live_h) {
+  uint32_t* dst = tile_dst<O>(ops, npad, base, warp, lane);
+  store_fragment(dst, fg, live_g);
+  store_fragment(dst + 32, fh, live_h);
+}
+
+// a load the compiler keeps where it is written (not hoisted to the top of
+// the tile, where its value would stay live across every product)
+__device__ __forceinline__ float pinned_load(const float* p) {
+  float v;
+  asm volatile("ld.global.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// the tile's pos_feat (A layout in shared memory at `pos`) as operands x0..x3:
+// this warp's 16 rows, all 256 features. ldmatrix.trans of matrices m =
+// 0..3 at k16 step q: point group 2 warp + m / 2, feature group 2 q + m % 2;
+// lane's register m then holds feature 16 q + 8 (m % 2) + g of points
+// 16 warp + 8 (m / 2) + 2 t, + 1
+template <int O>
+__device__ __forceinline__ void store_pos_block(bf16* ops, int npad, int n, int base, int warp, int lane,
+                                                uint32_t pos) {
+  constexpr int b = O - gfpp::OP_X0;  // 64 features an operand: k16 steps 4 b .. 4 b + 3 of pos_feat
+  static_assert(b >= 0 && b < 4 && gfpp::OP_X3 == gfpp::OP_X0 + 3, "x0..x3");
+  uint32_t* dst = tile_dst<O>(ops, npad, base, warp, lane);
+  const int p = base + 16 * warp + 2 * (lane & 3);  // this lane's first point of the first point half
+#pragma unroll
+  for (int q = 4 * b; q < 4 * b + 4; ++q) {
+    uint32_t r[4];
+    ldmatrix_x4_trans(r, pos + q * 2048 + warp * 512 + lane * 16);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int pm = p + 8 * (m >> 1);
+      const uint32_t v = pm >= n ? 0u : pm + 1 >= n ? (r[m] & 0xFFFFu) : r[m];
+      dst[32 * (4 * (q & 3) + 2 * (m & 1) + (m >> 1))] = v;  // core (feature group in the operand, point half)
+    }
+  }
+}
+
+__device__ __forceinline__ void store_pos_feat(bf16* ops, int npad, int n, int base, int warp, int lane,
+                                               uint32_t pos) {
+  store_pos_block<gfpp::OP_X0>(ops, npad, n, base, warp, lane, pos);
+  store_pos_block<gfpp::OP_X1>(ops, npad, n, base, warp, lane, pos);
+  store_pos_block<gfpp::OP_X2>(ops, npad, n, base, warp, lane, pos);
+  store_pos_block<gfpp::OP_X3>(ops, npad, n, base, warp, lane, pos);
+}
+
+// layer l's ReLU mask words of this lane's rows (zero past n)
+__device__ __forceinline__ void store_mask(uint32_t* relu, int npad, int l, int row_g, int row_h, int n, int t,
+                                           uint32_t mg, uint32_t mh) {
+  uint32_t* dst = relu + (static_cast<size_t>(l) * npad + row_g) * gfpp::RELU_WORDS + t;
+  dst[0] = row_g < n ? mg : 0u;
+  dst[8 * gfpp::RELU_WORDS] = row_h < n ? mh : 0u;  // row_h = row_g + 8
+}
+
+template <bool TRAIN>
 __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
     const float* __restrict__ xyz,             // [n, 3]
     const float* __restrict__ dirs,            // [n, 3]
@@ -248,7 +394,11 @@ __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
     const float* __restrict__ col_bias,        // [128] bf16(ind) . col_w1[144:160], as f32
     float* __restrict__ sigma_out,             // [n]
     float* __restrict__ rgb_out,               // [n, 3]
-    float* __restrict__ amb_out) {             // [n, 3]
+    float* __restrict__ amb_out,               // [n, 3]
+    bf16* __restrict__ ops,                    // TRAIN: the operand buffer (TRAIN_OPERANDS' rows)
+    int npad,                                  // TRAIN: points an operand holds, n rounded up to TM
+    uint32_t* __restrict__ relu,               // TRAIN: [RELU_LAYERS, npad, RELU_WORDS] ReLU masks
+    unsigned char* __restrict__ gate) {        // TRAIN: [n] 1 where the sigma logit is in (-15, 15)
   extern __shared__ __align__(1024) unsigned char smem[];
   float* P = reinterpret_cast<float*>(smem + OFF_PARAM);  // pos_B rows 0..2 | amb_B rows 0..2 | biases
   float* AB = P + 384;
@@ -325,6 +475,10 @@ __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
         if (row_g < n) dg[i] = dirs[3 * row_g + i];
         if (row_h < n) dh[i] = dirs[3 * row_h + i];
       }
+      // TRAIN: the tile is in the operand buffer (it starts before n); rows
+      // of it past n are written as zeros
+      const bool stores = TRAIN && base < n, live_g = row_g < n, live_h = row_h < n;
+      uint32_t mg, mh;
       mbar_wait(&pos_full[pb], (j / NPOS) & 1);
 
       // 1. ambient MLP; the condition enters through amb_bias
@@ -336,10 +490,20 @@ __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
       fence_regs(acc);
       to_fragments<true, true>(acc, BIAS_AMB, h, t);
       layer<1>(ring, [&](int k, uint32_t b) { wgmma_m64n128k16_rs(acc, h[k], desc(b), k > 0); });
+      if (stores) {
+        relu_masks(h, mg, mh);
+        store_layer<gfpp::OP_A1>(ops, npad, base, warp, lane, h, live_g, live_h);
+        store_mask(relu, npad, 0, row_g, row_h, n, t, mg, mh);
+      }
       fence_regs(acc);
       to_fragments<false, true>(acc, nullptr, h, t);
       float a8[4];
       layer<2>(ring, [&](int k, uint32_t b) { wgmma_m64n8k16_rs(a8, h[k], desc(b), k > 0); });
+      if (stores) {
+        relu_masks(h, mg, mh);
+        store_layer<gfpp::OP_A2>(ops, npad, base, warp, lane, h, live_g, live_h);
+        store_mask(relu, npad, 1, row_g, row_h, n, t, mg, mh);
+      }
       fence_regs(a8);
 
       // 2. ambient coordinate (f32): columns 0, 1 sit in lane t = 0, column
@@ -347,6 +511,10 @@ __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
       {
         const float tg0 = fast_tanh(a8[0]), tg1 = fast_tanh(a8[1]);
         const float th0 = fast_tanh(a8[2]), th1 = fast_tanh(a8[3]);
+        if (stores)  // bf16(amb_pos): lane t = 0 holds columns 0, 1, lane t = 1 column 2
+          store_three<gfpp::OP_APOS>(ops, npad, base, warp, lane,
+                                     t == 0 ? pack_bf16(tg0, tg1) : t == 1 ? pack_bf16(tg0, 0.0f) : 0u,
+                                     t == 0 ? pack_bf16(th0, th1) : t == 1 ? pack_bf16(th0, 0.0f) : 0u, live_g, live_h);
         if (t == 0) {
           if (row_g < n) {
             amb_out[3 * row_g] = tg0;
@@ -388,11 +556,20 @@ __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
           }
         });
         static_assert(Layer<3>::chunk == 4, "chunks 0..3 are the pos_feat k steps");
+        if (stores) {  // amb_feat's products are done
+          store_layer<gfpp::OP_XA>(ops, npad, base, warp, lane, af, live_g, live_h);
+          store_pos_feat(ops, npad, n, base, warp, lane, pos_addr);
+        }
       }
       if (lane == 0) mbar_arrive(&pos_empty[pb]);  // done with pos_feat
       fence_regs(acc);
       to_fragments<false, true>(acc, nullptr, h, t);
       layer<4>(ring, [&](int k, uint32_t b) { wgmma_m64n128k16_rs(acc, h[k], desc(b), k > 0); });
+      if (stores) {
+        relu_masks(h, mg, mh);
+        store_layer<gfpp::OP_S1>(ops, npad, base, warp, lane, h, live_g, live_h);
+        store_mask(relu, npad, 2, row_g, row_h, n, t, mg, mh);
+      }
       fence_regs(acc);
       to_fragments<false, true>(acc, nullptr, h, t);
       float s8[4];
@@ -415,6 +592,11 @@ __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
             }
         }
       });
+      if (stores) {
+        relu_masks(h, mg, mh);
+        store_layer<gfpp::OP_S2>(ops, npad, base, warp, lane, h, live_g, live_h);
+        store_mask(relu, npad, 3, row_g, row_h, n, t, mg, mh);
+      }
       fence_regs(acc);
       fence_regs(s8);
 
@@ -422,6 +604,10 @@ __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
       if (t == 0) {
         if (row_g < n) sigma_out[row_g] = expf(fminf(fmaxf(s8[0], -15.0f), 15.0f));
         if (row_h < n) sigma_out[row_h] = expf(fminf(fmaxf(s8[2], -15.0f), 15.0f));
+        if (stores) {
+          if (live_g) gate[row_g] = s8[0] > -15.0f && s8[0] < 15.0f;
+          if (live_h) gate[row_h] = s8[2] > -15.0f && s8[2] < 15.0f;
+        }
       }
       to_fragments<false, false>(acc, nullptr, h, t);
 
@@ -432,10 +618,21 @@ __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
         else
           wgmma_m64n128k16_rs(acc, h[k > 0 ? k - 1 : 0], desc(b), 1);
       });
+      if (stores) {  // g = [geo 128 | SH 16]: SH's fragments are core matrices 32..35
+        store_layer<gfpp::OP_G>(ops, npad, base, warp, lane, h, live_g, live_h);
+        uint32_t* dst = tile_dst<gfpp::OP_G>(ops, npad, base, warp, lane) + 32 * 32;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) store_fragment(dst + 32 * i, sh[i], (i & 1) ? live_h : live_g);
+      }
       fence_regs(acc);
       to_fragments<true, true>(acc, BIAS_COL, h, t);
       float c8[4];
       layer<7>(ring, [&](int k, uint32_t b) { wgmma_m64n8k16_rs(c8, h[k], desc(b), k > 0); });
+      if (stores) {
+        relu_masks(h, mg, mh);
+        store_layer<gfpp::OP_C1>(ops, npad, base, warp, lane, h, live_g, live_h);
+        store_mask(relu, npad, 4, row_g, row_h, n, t, mg, mh);
+      }
       fence_regs(c8);
       if (t == 0) {
         if (row_g < n) {
@@ -450,27 +647,34 @@ __global__ void __launch_bounds__(NTHREAD, 1) fused_field_kernel(
         if (row_g < n) rgb_out[3 * row_g + 2] = 1.0f / (1.0f + expf(-c8[0]));
         if (row_h < n) rgb_out[3 * row_h + 2] = 1.0f / (1.0f + expf(-c8[2]));
       }
+      if (stores) {  // bf16(xyz), where the registers are free: lane t loads columns 2 t, 2 t + 1 (< 3)
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (t < 2) {
+          if (live_g) v[0] = pinned_load(xyz + 3 * row_g + 2 * t);
+          if (live_g && t == 0) v[1] = pinned_load(xyz + 3 * row_g + 1);
+          if (live_h) v[2] = pinned_load(xyz + 3 * row_h + 2 * t);
+          if (live_h && t == 0) v[3] = pinned_load(xyz + 3 * row_h + 1);
+        }
+        store_three<gfpp::OP_XYZB>(ops, npad, base, warp, lane, t < 2 ? pack_bf16(v[0], v[1]) : 0u,
+                                   t < 2 ? pack_bf16(v[2], v[3]) : 0u, live_g, live_h);
+      }
     }
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `packed` is pack_field_weights' stream (16-byte aligned, SPEC's layout).
-int gfpp_fused_field_forward(const void* xyz, const void* dirs, int n, const void* packed,
-                             const void* pos_B, const void* amb_B, const void* amb_bias,
-                             const void* col_bias, void* sigma, void* rgb, void* amb, void* stream) {
+// One launch of an instantiation on `stream`; returns cudaGetLastError().
+template <bool TRAIN>
+int launch(const void* xyz, const void* dirs, int n, const void* packed, const void* pos_B, const void* amb_B,
+           const void* amb_bias, const void* col_bias, void* sigma, void* rgb, void* amb, void* ops, int npad,
+           void* relu, void* gate, void* stream) {
   if (n <= 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(fused_field_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(fused_field_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   // setmaxnreg's register moves assume the launch bound's full allocation
   // (ptxas gives it to a kernel that uses setmaxnreg); refuse, not hang
   cudaFuncAttributes attr;
-  if ((err = cudaFuncGetAttributes(&attr, fused_field_kernel)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaFuncGetAttributes(&attr, fused_field_kernel<TRAIN>)) != cudaSuccess) return static_cast<int>(err);
   if (attr.numRegs != LAUNCH_REGS) return static_cast<int>(cudaErrorInvalidConfiguration);
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return static_cast<int>(err);
@@ -478,13 +682,49 @@ int gfpp_fused_field_forward(const void* xyz, const void* dirs, int n, const voi
     return static_cast<int>(err);
   const int nsuper = (n + NCONS * TM - 1) / (NCONS * TM);
   const unsigned grid = static_cast<unsigned>(nsuper < sms ? nsuper : sms);
-  fused_field_kernel<<<grid, NTHREAD, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  fused_field_kernel<TRAIN><<<grid, NTHREAD, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xyz), static_cast<const float*>(dirs), n,
       static_cast<const unsigned char*>(packed), static_cast<const float*>(pos_B),
       static_cast<const float*>(amb_B), static_cast<const float*>(amb_bias),
       static_cast<const float*>(col_bias), static_cast<float*>(sigma), static_cast<float*>(rgb),
-      static_cast<float*>(amb));
+      static_cast<float*>(amb), static_cast<bf16*>(ops), npad, static_cast<uint32_t*>(relu),
+      static_cast<unsigned char*>(gate));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Serving: launches on `stream` and returns cudaGetLastError() (0 on
+// success). `packed` is pack_field_weights' stream (16-byte aligned,
+// SPEC's layout).
+int gfpp_fused_field_forward(const void* xyz, const void* dirs, int n, const void* packed,
+                             const void* pos_B, const void* amb_B, const void* amb_bias,
+                             const void* col_bias, void* sigma, void* rgb, void* amb, void* stream) {
+  return launch<false>(xyz, dirs, n, packed, pos_B, amb_B, amb_bias, col_bias, sigma, rgb, amb, nullptr, 0,
+                       nullptr, nullptr, stream);
+}
+
+// The train mode: the same outputs, and the backward's activation operands
+// into `ops` (npad * OPERAND_ROWS bf16, npad = n rounded up to the 64-point
+// tile; TRAIN_OPERANDS' rows only), the ReLU masks into `relu`
+// (RELU_LAYERS * npad * RELU_WORDS uint32) and the sigma gate into `gate`
+// (n bytes).
+int gfpp_fused_field_forward_train(const void* xyz, const void* dirs, int n, const void* packed,
+                                   const void* pos_B, const void* amb_B, const void* amb_bias,
+                                   const void* col_bias, void* sigma, void* rgb, void* amb, void* ops, int npad,
+                                   void* relu, void* gate, void* stream) {
+  if (n > 0 && npad != (n + TM - 1) / TM * TM) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(xyz, dirs, n, packed, pos_B, amb_B, amb_bias, col_bias, sigma, rgb, amb, ops, npad, relu,
+                      gate, stream);
+}
+
+// The operands the train mode writes (TRAIN_OPERANDS, as Operand indices)
+// into `out`; returns their number.
+int gfpp_fused_field_train_operands(int* out, int cap) {
+  for (int i = 0; i < gfpp::N_TRAIN_OPERANDS && i < cap; ++i) out[i] = gfpp::TRAIN_OPERANDS[i];
+  return gfpp::N_TRAIN_OPERANDS;
 }
 
 // The weight stream's layout as the kernel reads it: row l of `spec` gets

@@ -1,9 +1,10 @@
 // Device functions of the fused head-field kernels: the fast sin/cos/tanh
 // of ops/fastmath.py and the SH16 basis of the Pallas kernel (all
-// kernels), the backward chain's tile products on the tensor cores
-// (fused_field_bwd.cu; WMMA m16n16k16, bf16 inputs, f32 sums), and the
-// table of the weight-gradient operands the chain hands to
-// fused_field_wgrad.cu.
+// kernels), the backward chain's input-gradient tile products on the
+// tensor cores (fused_field_bwd.cu; WMMA m16n16k16, bf16 inputs, f32
+// sums), the table of the weight-gradient operands that the forward's
+// train mode and the chain hand to fused_field_wgrad.cu, and the layout of
+// the ReLU masks the train mode hands to the chain.
 //
 // Every product walks k in ascending 16-steps into one accumulator per
 // output fragment, whichever warp owns the fragment, so a block of 4 warps
@@ -72,35 +73,6 @@ __device__ __forceinline__ void sh16(const float* d, bf16* out) {
   for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16_rn(v[i]);
 }
 
-// C[0:TM, 0:N] = A[0:TM, 0:K] . W[0:K, 0:N]: A bf16 in shared memory (row
-// stride LDA), W bf16 row-major in global memory (row stride LDW), C f32 in
-// shared memory (row stride LDC). Warp w computes the 16-column strips w,
-// w+NW, ... for all TM rows, so each W fragment is loaded once and used
-// TM/16 times.
-template <int TM, int NW, int K, int N, int LDA, int LDW, int LDC>
-__device__ __forceinline__ void tile_matmul(const bf16* A, const bf16* __restrict__ W, float* C) {
-  const int warp = threadIdx.x >> 5;
-  for (int nt = warp; nt < N / 16; nt += NW) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TM / 16];
-#pragma unroll
-    for (int m = 0; m < TM / 16; ++m) wmma::fill_fragment(acc[m], 0.0f);
-#pragma unroll 2
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(b, W + k * LDW + nt * 16, LDW);
-#pragma unroll
-      for (int m = 0; m < TM / 16; ++m) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + m * 16 * LDA + k, LDA);
-        wmma::mma_sync(acc[m], a, b, acc[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < TM / 16; ++m)
-      wmma::store_matrix_sync(C + m * 16 * LDC + nt * 16, acc[m], LDC, wmma::mem_row_major);
-  }
-}
-
 // C[0:TM, 0:N] = A1[0:TM, 0:K] . W1^T (+ A2[0:TM, 0:K] . W2^T when A2 is
 // given; row strides LDA and LDA2): the input-gradient product of a layer
 // y = x . W. W is the layer's
@@ -138,14 +110,18 @@ __device__ __forceinline__ void tile_matmul_wt(const bf16* A1, const bf16* __res
   }
 }
 
-// The backward's weight-gradient operands: fused_field_bwd.cu (the tile
-// chain) writes them, fused_field_wgrad.cu sums their products over all
-// points. Each is [n points, rows] bf16, zero past n, in one buffer in this
-// order (ops/fused_field.py, WGRAD_OPERANDS), operand o at npad * first row
-// of o values, npad = n rounded up to the chain's 64-point tile. Within an
-// operand the points are K of a wgmma operand: K-major in sm90.cuh's
-// layout, k16 step s (points 16 s .. 16 s + 15) a block of rows * 16
-// values, so a run of k steps is one contiguous bulk copy.
+// The backward's weight-gradient operands, which fused_field_wgrad.cu sums
+// over all points. Two kernels write them: the forward's train mode
+// (fused_field.cu, TRAIN_OPERANDS: the activations, 1,184 rows) and the
+// backward's chain (fused_field_bwd.cu, CHAIN_OPERANDS: the gradients, 984
+// rows); ops/fused_field.py's OPERAND_WRITERS is the same split, compared
+// when each library loads. Each operand is [n points, rows] bf16, zero past
+// n, in one buffer in this order (ops/fused_field.py, WGRAD_OPERANDS),
+// operand o at npad * first row of o values, npad = n rounded up to the
+// 64-point tile. Within an operand the points are K of a wgmma operand:
+// K-major in sm90.cuh's layout, k16 step s (points 16 s .. 16 s + 15) a
+// block of rows * 16 values, so a run of k steps is one contiguous bulk
+// copy.
 enum Operand {
   OP_X0, OP_X1, OP_X2, OP_X3,  // pos_feat, 64 features each
   OP_XA,                       // amb_feat
@@ -170,5 +146,45 @@ __host__ __device__ constexpr int op_first_row(int o) {
 
 constexpr int OPERAND_ROWS = op_first_row(N_OPERANDS);  // 2,168 bf16 a point
 static_assert(OPERAND_ROWS == 2168, "operand table");
+
+// which kernel writes which operand (each exactly once)
+constexpr int TRAIN_OPERANDS[] = {OP_X0, OP_X1, OP_X2, OP_X3, OP_XA, OP_A1, OP_A2,
+                                  OP_S1, OP_S2, OP_C1, OP_G, OP_APOS, OP_XYZB};
+constexpr int CHAIN_OPERANDS[] = {OP_GC1A, OP_GC1B, OP_GAPROJ, OP_GPROJ, OP_GS1, OP_GA1,
+                                  OP_GA2, OP_GS2, OP_GSIG, OP_GRGB, OP_GAMB};
+constexpr int N_TRAIN_OPERANDS = sizeof(TRAIN_OPERANDS) / sizeof(int);
+constexpr int N_CHAIN_OPERANDS = sizeof(CHAIN_OPERANDS) / sizeof(int);
+
+template <int N>
+__host__ __device__ constexpr bool listed(int o, const int (&list)[N]) {
+  for (int i = 0; i < N; ++i)
+    if (list[i] == o) return true;
+  return false;
+}
+
+template <int N>
+__host__ __device__ constexpr int listed_rows(const int (&list)[N]) {
+  int r = 0;
+  for (int i = 0; i < N; ++i) r += OP_ROWS[list[i]];
+  return r;
+}
+
+__host__ __device__ constexpr bool owned_once() {
+  for (int o = 0; o < N_OPERANDS; ++o)
+    if (listed(o, TRAIN_OPERANDS) == listed(o, CHAIN_OPERANDS)) return false;
+  return true;
+}
+static_assert(owned_once() && N_TRAIN_OPERANDS + N_CHAIN_OPERANDS == N_OPERANDS, "operand writers");
+static_assert(listed_rows(TRAIN_OPERANDS) == 1184 && listed_rows(CHAIN_OPERANDS) == 984, "operand writers");
+
+// The ReLU masks of the five hidden layers (a1, a2, s1, s2, c1), written by
+// the forward's train mode and read by the chain instead of the
+// activations: uint32 words relu[(l * npad + p) * 4 + t] for layer l and
+// point p, 80 bytes a point (zero past n). Bit 2 j + e of word t is
+// (bf16 activation > 0) of feature 8 j + 2 t + e: the four words of a
+// point are the four lanes of a wgmma accumulator's row quad.
+constexpr int RELU_LAYERS = 5, RELU_WORDS = 4;
+__host__ __device__ constexpr int relu_word(int f) { return (f >> 1) & 3; }
+__host__ __device__ constexpr int relu_bit(int f) { return 2 * (f >> 3) + (f & 1); }
 
 }  // namespace gfpp

@@ -122,6 +122,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// ---- 8x8 b16 matrices across a warp ----
+// A fragment register (lane l: row l / 4, columns 2 (l % 4) .. + 1) of the
+// 8x8 matrix the warp holds -> the same register of its transpose
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// four 8x8 matrices from shared memory, transposed: lanes 8 m .. 8 m + 7
+// give the addresses of matrix m's eight 16-byte rows; r[m] is then the
+// fragment register of matrix m's transpose
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // D[64, 128] (+)= A[64, 16] . B[16, 128]; A and B from shared memory (descriptors)
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
   asm volatile(

@@ -12,13 +12,19 @@ same places as the kernel, the same per-frame bias rows. The kernel reads
 its weights as one stream packed in the Hopper matrix-product layout
 (`pack_field_weights`, cached per `FieldWeights`).
 
-`fused_field_backward` is its backward, in two kernels on the card: the
-tile chain `csrc/fused_field_bwd.cu` writes the bf16 operands of every
-weight-gradient product, and `csrc/fused_field_wgrad.cu` sums their
-products over all points. On the CPU it is `fused_field_backward_plain`
-(the Pallas backward's explicit math, with its rounding points), which is
-the chain's plain version followed by the weight-gradient kernel's. `fused_field_train` ties the two into
-a `torch.autograd.Function`, the counterpart of the JAX custom VJP.
+`fused_field_forward_train` is the forward kernel's train mode: the same
+outputs, and what the backward reads besides them (the activation half of
+the weight-gradient operands, the ReLU masks, the sigma gate); its plain
+version is `fused_field_train_plain`. The backward then runs two kernels
+on the card: the tile chain `csrc/fused_field_bwd.cu` (plain version
+`fused_field_chain_plain`) writes the gradient half of the operands
+without recomputing the forward, and `csrc/fused_field_wgrad.cu` sums the
+operands' products over all points (`fused_field_wgrad_plain`).
+`fused_field_backward` runs all three from the forward's inputs; on the
+CPU it is `fused_field_backward_plain` (the Pallas backward's explicit
+math, with its rounding points). `fused_field_train` ties forward and
+backward into a `torch.autograd.Function`, the counterpart of the JAX
+custom VJP: its forward keeps the train mode's buffers for its backward.
 
 Widths are the flagship's (pos 128, amb 64, hidden 128, geo 128, cond 64),
 checked by `weights_from_params`. The weight layout is the JAX package's
@@ -92,8 +98,9 @@ GRAD_BLOCKS = (
 )
 PACKED_SIZE = sum(r * c for _, _, (r, c) in GRAD_BLOCKS)  # 151,232
 
-# The backward in two kernels: the tile chain (csrc/fused_field_bwd.cu)
-# writes the bf16 operands of every weight-gradient product, and the
+# The backward's weight gradients: the forward's train mode
+# (csrc/fused_field.cu) and the tile chain (csrc/fused_field_bwd.cu) write
+# the bf16 operands of every weight-gradient product, and the
 # weight-gradient kernel (csrc/fused_field_wgrad.cu) sums their products
 # over all points. WGRAD_OPERANDS: (name, rows), in buffer order; each is
 # [n points, rows] bf16, stored by `pack_operands`. Rows past a live width
@@ -109,7 +116,19 @@ WGRAD_OPERANDS = (
     ("grgb", 8), ("gamb", 8), ("apos", 8), ("xyzb", 8),  # g_rgb_logit, g_amb_logit, bf16(amb_pos), bf16(xyz)
 )
 OPERAND_ROWS = sum(r for _, r in WGRAD_OPERANDS)  # 2,168 bf16 a point
-OPERAND_TILE = 64  # the chain's tile: operand buffers hold n rounded up to it
+OPERAND_TILE = 64  # the kernels' tile: operand buffers hold n rounded up to it
+# which kernel writes which operand (csrc/fused_field_common.cuh,
+# TRAIN_OPERANDS and CHAIN_OPERANDS; each library's list is compared when
+# it loads): the forward's train mode the activations (1,184 rows), the
+# chain the gradients (984 rows)
+OPERAND_WRITERS = {
+    "fused_field": ("x0", "x1", "x2", "x3", "xa", "a1", "a2", "s1", "s2", "c1", "g", "apos", "xyzb"),
+    "fused_field_bwd": ("gc1a", "gc1b", "gaproj", "gproj", "gs1", "ga1", "ga2", "gs2", "gsig", "grgb", "gamb"),
+}
+# The ReLU masks the train mode hands to the chain: the five hidden layers,
+# as int32 words [RELU_LAYERS, npad, RELU_WORDS] (`pack_relu_masks`)
+RELU_LAYERS = ("a1", "a2", "s1", "s2", "c1")
+RELU_WORDS = 4
 WGRAD_CHUNK = 8192  # points a weight-gradient work item sums (the last chunk of n is shorter)
 ONES = "ones"  # a constant [1, 0 x 7] operand: its product with a gradient is a bias row
 
@@ -254,6 +273,11 @@ def _r(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
+def _pad_cols(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x zero-padded to n columns."""
+    return F.pad(x, (0, n - x.shape[1]))
+
+
 def fused_field_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: int = AMB_DIM):
     """Plain PyTorch version of the fused field.
 
@@ -283,35 +307,45 @@ def fused_field_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: i
     return sigma, rgb, amb_pos
 
 
-def fused_field_bwd_operands_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
-                                   g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM) -> Dict[str, torch.Tensor]:
-    """Plain version of the backward's tile chain (`_bwd_kernel`'s explicit
-    math, not autograd of `fused_field_plain`): recompute the forward, then
-    backprop with bf16 rounding of every tensor-core input at the Pallas
-    kernel's places, ReLU masks from the float32 activations, the fast
-    sin/cos values as the Fourier derivatives and 1 - amb_pos^2 for tanh.
+class FieldTrainOutputs(NamedTuple):
+    """The forward's train mode: its outputs and what the backward reads
+    besides them. From the kernel (`fused_field_forward_train` on the
+    card): `ops` is the operand buffer (`pack_operands`' layout) with
+    OPERAND_WRITERS["fused_field"]'s rows written (the chain writes the
+    rest), `relu` the ReLU masks as int32 words [RELU_LAYERS, npad,
+    RELU_WORDS] (`pack_relu_masks`), `gate` uint8 [N]. From the plain
+    version: `ops` is {name: [N, rows]} float32 holding bf16 values,
+    `relu` bool [N, len(RELU_LAYERS), 128], `gate` bool [N]."""
 
-    g_sigma [N], g_rgb [N, 3], g_amb [N, amb_dim] f32. Returns the operands
-    of every weight-gradient product (WGRAD_OPERANDS): {name: [N, rows]}
-    float32 holding bf16 values, the values `_bwd_kernel`'s weight-gradient
-    `dot`s take."""
+    sigma: torch.Tensor  # [N]
+    rgb: torch.Tensor  # [N, 3]
+    amb: torch.Tensor  # [N, amb_dim]
+    ops: object
+    relu: torch.Tensor
+    gate: torch.Tensor  # sigma's gradient gate: the logit in (-15, 15)
+
+
+def fused_field_train_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
+                            amb_dim: int = AMB_DIM) -> FieldTrainOutputs:
+    """Plain version of the forward kernel's train mode (the forward half
+    of `_bwd_kernel`'s explicit math): the outputs, the activation
+    operands (OPERAND_WRITERS["fused_field"]) with bf16 rounding at the
+    Pallas kernel's places, the ReLU masks from the float32 activations
+    and the sigma gate. `fused_field_chain_plain` takes it on."""
     relu = torch.relu
     f = [t.float() for t in w]
     pos_B, amb_w1, amb_w2, amb_w3, amb_B, sig_w1, sig_w2, sig_w3, col_w1, col_w2 = f
     xyz, dirs = xyz.float(), dirs.float()
 
-    # ---- forward recompute ----
     proj = project(xyz, pos_B[:3])
-    sin_p, cos_p = fast_sin(proj), fast_cos(proj)
-    pos_feat = _r(torch.cat([sin_p, cos_p], dim=-1))
+    pos_feat = _r(torch.cat([fast_sin(proj), fast_cos(proj)], dim=-1))
     a1 = relu(pos_feat @ amb_w1[:256] + amb_bias)
     a1b = _r(a1)
     a2 = relu(a1b @ amb_w2)
     a2b = _r(a2)
     amb_pos = fast_tanh(a2b @ amb_w3[:, :amb_dim])
     aproj = project(amb_pos, amb_B[:amb_dim])
-    sin_a, cos_a = fast_sin(aproj), fast_cos(aproj)
-    amb_feat = _r(torch.cat([sin_a, cos_a], dim=-1))
+    amb_feat = _r(torch.cat([fast_sin(aproj), fast_cos(aproj)], dim=-1))
     s1 = relu(pos_feat @ sig_w1[:256] + amb_feat @ sig_w1[256:384])
     s1b = _r(s1)
     s2 = relu(s1b @ sig_w2)
@@ -325,44 +359,76 @@ def fused_field_bwd_operands_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeight
     c1b = _r(c1)
     rgb = 1.0 / (1.0 + torch.exp(-(c1b @ col_w2[:, :3])))
 
-    # ---- backward: the input-gradient chain ----
-    g_rgb_logit = _r(g_rgb.float() * rgb * (1.0 - rgb))
-    g_c1 = _r((g_rgb_logit @ col_w2[:, :3].t()) * (c1 > 0.0))
+    ops = {"x0": pos_feat[:, 0:64], "x1": pos_feat[:, 64:128], "x2": pos_feat[:, 128:192],
+           "x3": pos_feat[:, 192:256], "xa": amb_feat, "a1": a1b, "a2": a2b, "s1": s1b, "s2": s2b,
+           "c1": c1b, "g": torch.cat([geo, sh], dim=-1), "apos": _pad_cols(_r(amb_pos), 8),
+           "xyzb": _pad_cols(_r(xyz), 8)}
+    masks = torch.stack([a1 > 0.0, a2 > 0.0, s1 > 0.0, s2 > 0.0, c1 > 0.0], dim=1)
+    gate = (sig_logit > -15.0) & (sig_logit < 15.0)
+    return FieldTrainOutputs(sigma, rgb, amb_pos, ops, masks, gate)
+
+
+def fused_field_chain_plain(xyz, fwd: FieldTrainOutputs, w: FieldWeights, g_sigma, g_rgb, g_amb,
+                            amb_dim: int = AMB_DIM) -> Dict[str, torch.Tensor]:
+    """Plain version of the backward's tile chain: from the train mode's
+    outputs, ReLU masks and gate (`fused_field_train_plain`), no forward
+    recomputed, backprop with bf16 rounding of every tensor-core input at
+    the Pallas kernel's places, the fast sin/cos of the recomputed phases
+    as the Fourier derivatives and 1 - amb_pos^2 for tanh.
+
+    g_sigma [N], g_rgb [N, 3], g_amb [N, amb_dim] f32. Returns the gradient
+    operands (OPERAND_WRITERS["fused_field_bwd"]): {name: [N, rows]}
+    float32 holding bf16 values."""
+    f = [t.float() for t in w]
+    pos_B, amb_w1, amb_w2, amb_w3, amb_B, sig_w1, sig_w2, sig_w3, col_w1, col_w2 = f
+    m_a1, m_a2, m_s1, m_s2, m_c1 = fwd.relu.unbind(1)
+    proj = project(xyz.float(), pos_B[:3])
+    sin_p, cos_p = fast_sin(proj), fast_cos(proj)
+    amb_pos = fwd.amb
+    aproj = project(amb_pos, amb_B[:amb_dim])
+    sin_a, cos_a = fast_sin(aproj), fast_cos(aproj)
+
+    g_rgb_logit = _r(g_rgb.float() * fwd.rgb * (1.0 - fwd.rgb))
+    g_c1 = _r((g_rgb_logit @ col_w2[:, :3].t()) * m_c1)
     g_geo = g_c1 @ col_w1[16:144].t()
 
-    in_range = (sig_logit > -15.0) & (sig_logit < 15.0)
-    g_sig0 = torch.where(in_range, g_sigma.float() * sigma, torch.zeros_like(sigma))
+    g_sig0 = torch.where(fwd.gate, g_sigma.float() * fwd.sigma, torch.zeros_like(fwd.sigma))
     g_sig_out = _r(torch.cat([g_sig0[:, None], g_geo], dim=-1))  # [N, 129]
-    g_s2 = _r((g_sig_out @ sig_w3[:, :129].t()) * (s2 > 0.0))
-    g_s1 = _r((g_s2 @ sig_w2.t()) * (s1 > 0.0))
+    g_s2 = _r((g_sig_out @ sig_w3[:, :129].t()) * m_s2)
+    g_s1 = _r((g_s2 @ sig_w2.t()) * m_s1)
     g_pos_feat_s = g_s1 @ sig_w1[:256].t()
     g_amb_feat = g_s1 @ sig_w1[256:384].t()
 
     g_aproj = _r(g_amb_feat[:, :64] * cos_a - g_amb_feat[:, 64:] * sin_a)
     g_amb_pos = g_aproj @ _r(amb_B[:amb_dim]).t() + g_amb.float()
     g_amb_logit = _r(g_amb_pos * (1.0 - amb_pos * amb_pos))
-    g_a2 = _r((g_amb_logit @ amb_w3[:, :amb_dim].t()) * (a2 > 0.0))
-    g_a1 = _r((g_a2 @ amb_w2.t()) * (a1 > 0.0))
+    g_a2 = _r((g_amb_logit @ amb_w3[:, :amb_dim].t()) * m_a2)
+    g_a1 = _r((g_a2 @ amb_w2.t()) * m_a1)
     g_pos_feat = g_pos_feat_s + g_a1 @ amb_w1[:256].t()
     g_proj = _r(g_pos_feat[:, :128] * cos_p - g_pos_feat[:, 128:] * sin_p)
 
-    def cols(x, n):  # zero-padded to n columns
-        return F.pad(x, (0, n - x.shape[1]))
+    return {"gc1a": g_c1[:, :64], "gc1b": g_c1[:, 64:], "gaproj": g_aproj, "gproj": g_proj,
+            "gs1": g_s1, "ga1": g_a1, "ga2": g_a2, "gs2": g_s2,
+            "gsig": _pad_cols(torch.cat([g_sig_out[:, 1:129], g_sig_out[:, :1]], dim=-1), 136),
+            "grgb": _pad_cols(g_rgb_logit, 8), "gamb": _pad_cols(g_amb_logit, 8)}
 
-    return {
-        "x0": pos_feat[:, 0:64], "x1": pos_feat[:, 64:128], "x2": pos_feat[:, 128:192],
-        "x3": pos_feat[:, 192:256], "xa": amb_feat, "a1": a1b, "a2": a2b, "s1": s1b, "s2": s2b,
-        "c1": c1b, "gc1a": g_c1[:, :64], "gc1b": g_c1[:, 64:], "gaproj": g_aproj, "gproj": g_proj,
-        "gs1": g_s1, "ga1": g_a1, "ga2": g_a2, "gs2": g_s2,
-        "gsig": cols(torch.cat([g_sig_out[:, 1:129], g_sig_out[:, :1]], dim=-1), 136),
-        "g": torch.cat([geo, sh], dim=-1), "grgb": cols(g_rgb_logit, 8), "gamb": cols(g_amb_logit, 8),
-        "apos": cols(_r(amb_pos), 8), "xyzb": cols(_r(xyz), 8),
-    }
+
+def fused_field_bwd_operands_plain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
+                                   g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM) -> Dict[str, torch.Tensor]:
+    """The operands of every weight-gradient product (WGRAD_OPERANDS, in its
+    order): `fused_field_train_plain`'s activations, then
+    `fused_field_chain_plain`'s gradients. {name: [N, rows]} float32
+    holding bf16 values, the values `_bwd_kernel`'s weight-gradient `dot`s
+    take."""
+    fwd = fused_field_train_plain(xyz, dirs, amb_bias, col_bias, w, amb_dim)
+    ops = {**fwd.ops, **fused_field_chain_plain(xyz, fwd, w, g_sigma, g_rgb, g_amb, amb_dim)}
+    return {name: ops[name] for name, _ in WGRAD_OPERANDS}
 
 
 def fused_field_wgrad_plain(ops: Dict[str, torch.Tensor]):
     """Plain version of the weight-gradient kernel: float32 products of the
-    bf16 operands (`fused_field_bwd_operands_plain`), summed over the
+    bf16 operands (`fused_field_bwd_operands_plain`, or the train mode's
+    and the chain's plain operands together), summed over the
     points. Returns the 14 f32 gradient blocks of `_fused_backward`, in its
     order and padded shapes (see GRAD_BLOCKS)."""
     o = {k: v.float() for k, v in ops.items()}
@@ -410,20 +476,47 @@ def operand_points(n: int) -> int:
 
 
 def pack_operands(ops: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The operand buffer the chain writes and the weight-gradient kernel
-    reads: for each operand of WGRAD_OPERANDS in order, its [n, rows]
-    values zero-padded to `operand_points(n)` points and stored K-major
-    (K = points) in csrc/sm90.cuh's layout (`pack_kmajor` of the
-    transpose). Flat bf16."""
-    n = ops["x0"].shape[0]
+    """The operand buffer the train mode and the chain write and the
+    weight-gradient kernel reads: for each operand of WGRAD_OPERANDS in
+    order, its [n, rows] values zero-padded to `operand_points(n)` points
+    and stored K-major (K = points) in csrc/sm90.cuh's layout
+    (`pack_kmajor` of the transpose). Flat bf16; an operand missing from
+    `ops` is stored as zeros (one kernel's half of the buffer)."""
+    n = next(iter(ops.values())).shape[0]
     npad = operand_points(n)
     parts = []
     for name, rows in WGRAD_OPERANDS:
+        if name not in ops:
+            parts.append(torch.zeros(npad * rows, dtype=torch.bfloat16, device=next(iter(ops.values())).device))
+            continue
         x = ops[name].to(torch.bfloat16)
         if tuple(x.shape) != (n, rows):
             raise ValueError(f"pack_operands: {name} must be ({n}, {rows}), got {tuple(x.shape)}")
         parts.append(pack_kmajor(F.pad(x, (0, 0, 0, npad - n)).t()))
     return torch.cat(parts)
+
+
+def pack_relu_masks(masks: torch.Tensor) -> torch.Tensor:
+    """bool [n, RELU_LAYERS, 128] -> the train mode's words, int32
+    [RELU_LAYERS, operand_points(n), RELU_WORDS], zero past n: bit 2 j + e
+    of word t is feature 8 j + 2 t + e (csrc/fused_field_common.cuh,
+    relu_word and relu_bit)."""
+    n, layers, feats = masks.shape
+    bits = torch.tensor([[1 << (2 * j + e) for e in range(2)] for j in range(16)], dtype=torch.int64,
+                        device=masks.device)
+    words = (masks.view(n, layers, 16, RELU_WORDS, 2).long() * bits[:, None, :]).sum((2, 4))  # [n, L, 4]
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+    out = torch.zeros((layers, operand_points(n), RELU_WORDS), dtype=torch.int32, device=masks.device)
+    out[:, :n] = words.transpose(0, 1)
+    return out
+
+
+def unpack_relu_masks(words: torch.Tensor, n: int) -> torch.Tensor:
+    """`pack_relu_masks`' inverse: bool [n, RELU_LAYERS, 128]."""
+    w = words[:, :n].transpose(0, 1).long() & 0xFFFFFFFF  # [n, L, 4]
+    shifts = torch.tensor([[2 * j + e for e in range(2)] for j in range(16)], device=words.device)
+    bits = (w[:, :, None, :, None] >> shifts[None, None, :, None, :]) & 1  # [n, L, 16, 4, 2]
+    return bits.bool().reshape(n, words.shape[0], 128)
 
 
 def unpack_operands(buf: torch.Tensor, n: int) -> Dict[str, torch.Tensor]:
@@ -546,6 +639,8 @@ def _library(name: str) -> ctypes.CDLL:
     if name == "fused_field":
         lib.gfpp_fused_field_forward.argtypes = [ptr, ptr, c_int] + [ptr] * 9
         lib.gfpp_fused_field_forward.restype = c_int
+        lib.gfpp_fused_field_forward_train.argtypes = [ptr, ptr, c_int] + [ptr] * 8 + [ptr, c_int, ptr, ptr, ptr]
+        lib.gfpp_fused_field_forward_train.restype = c_int
         lib.gfpp_fused_field_layout.argtypes = [ctypes.POINTER(c_int), c_int]
         lib.gfpp_fused_field_layout.restype = c_int
         lib.gfpp_fused_field_tile.argtypes = [ctypes.POINTER(c_int)] * 3
@@ -554,14 +649,18 @@ def _library(name: str) -> ctypes.CDLL:
         n = lib.gfpp_fused_field_layout(spec, len(FWD_LAYERS))
         if n != len(FWD_LAYERS) or list(spec) != [v for _, n_, k, c in FWD_LAYERS for v in (k // 16, n_, c)]:
             raise RuntimeError("csrc/fused_field.cu's weight stream differs from FWD_LAYERS")
-        if fwd_config(lib)[:2] != (FWD_TILE, FWD_STEP):
+        if fwd_config(lib)[:2] != (FWD_TILE, FWD_STEP) or FWD_TILE != OPERAND_TILE:
             raise RuntimeError("csrc/fused_field.cu's tiles differ from FWD_TILE, FWD_STEP")
+        _check_writers(lib, name, lib.gfpp_fused_field_train_operands)
     elif name == "fused_field_bwd":
-        lib.gfpp_fused_field_backward.argtypes = [ptr, ptr, c_int] + [ptr] * 3 + [ptr] * 12 + [ptr, c_int, c_int, ptr]
+        lib.gfpp_fused_field_backward.argtypes = [ptr] * 6 + [c_int] + [ptr] * 3 + [ptr] * 10 + [ptr, c_int, ptr]
         lib.gfpp_fused_field_backward.restype = c_int
         lib.gfpp_fused_field_bwd_operand_rows.restype = c_int
+        lib.gfpp_fused_field_bwd_config.argtypes = [ctypes.POINTER(c_int)] * 2
+        lib.gfpp_fused_field_bwd_config.restype = c_int
         if lib.gfpp_fused_field_bwd_operand_rows() != OPERAND_ROWS:
             raise RuntimeError("csrc/fused_field_bwd.cu's operands differ from WGRAD_OPERANDS")
+        _check_writers(lib, name, lib.gfpp_fused_field_bwd_operands)
     else:
         lib.gfpp_fused_field_wgrad.argtypes = [ptr, c_int, ptr, c_int, ptr]
         lib.gfpp_fused_field_wgrad.restype = c_int
@@ -577,6 +676,23 @@ def _library(name: str) -> ctypes.CDLL:
     lib.gfpp_cuda_error_string.argtypes = [c_int]
     lib.gfpp_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def writers_table(name: str) -> list:
+    """OPERAND_WRITERS[name] as indices into WGRAD_OPERANDS: the form in
+    which each kernel library exports the operands it writes."""
+    index = {op: i for i, (op, _) in enumerate(WGRAD_OPERANDS)}
+    return [index[op] for op in OPERAND_WRITERS[name]]
+
+
+def _check_writers(lib, name: str, fn):
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    want = writers_table(name)
+    out = (ctypes.c_int * len(WGRAD_OPERANDS))()
+    got = fn(out, len(out))
+    if got != len(want) or list(out)[:got] != want:
+        raise RuntimeError(f"csrc/{name}.cu writes operands {list(out)[:got]}, OPERAND_WRITERS says {want}")
 
 
 def _check(name, t, shape, dtype, device):
@@ -623,7 +739,9 @@ def fused_field(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: int = A
     """The fused field: CUDA kernel for CUDA tensors, `fused_field_plain`
     for CPU tensors. Same contract as `fused_field_plain`.
 
-    `fused_field.launches` counts kernel launches (plain calls do not count)."""
+    `fused_field.launches` counts launches of the kernel, in either mode:
+    serving here, train mode in `fused_field_forward_train` (plain calls
+    do not count)."""
     if xyz.device.type == "cpu":
         return fused_field_plain(xyz, dirs, amb_bias, col_bias, w, amb_dim)
     if xyz.device.type != "cuda":
@@ -648,6 +766,48 @@ def fused_field(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: int = A
 
 
 fused_field.launches = 0
+
+
+def fused_field_forward_train(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
+                              amb_dim: int = AMB_DIM) -> FieldTrainOutputs:
+    """The forward kernel's train mode: for CUDA tensors
+    csrc/fused_field.cu's train instantiation, whose outputs are the
+    serving mode's bit for bit and which also writes the activation
+    operands into a new operand buffer, the ReLU masks and the sigma gate;
+    for CPU tensors `fused_field_train_plain`. The launch counts in
+    `fused_field.launches` and in `fused_field_forward_train.launches`."""
+    if xyz.device.type == "cpu":
+        return fused_field_train_plain(xyz, dirs, amb_bias, col_bias, w, amb_dim)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"fused_field: unsupported device {xyz.device}")
+    N = _check_cuda_inputs(xyz, dirs, amb_bias, col_bias, w, amb_dim)
+    dev = xyz.device
+    npad = operand_points(N)
+    if npad * OPERAND_ROWS >= 2 ** 40:
+        raise ValueError(f"fused_field: {N} points exceed the operand buffer's indexing")
+    out = FieldTrainOutputs(
+        torch.empty((N,), dtype=torch.float32, device=dev), torch.empty((N, 3), dtype=torch.float32, device=dev),
+        torch.empty((N, AMB_DIM), dtype=torch.float32, device=dev),
+        torch.empty((npad * OPERAND_ROWS,), dtype=torch.bfloat16, device=dev),
+        torch.empty((len(RELU_LAYERS), npad, RELU_WORDS), dtype=torch.int32, device=dev),
+        torch.empty((N,), dtype=torch.uint8, device=dev))
+    if N == 0:
+        return out
+    lib = _library("fused_field")
+    packed = packed_weights(w)
+    with torch.cuda.device(dev):
+        rc = lib.gfpp_fused_field_forward_train(
+            xyz.data_ptr(), dirs.data_ptr(), N, packed.data_ptr(), w.pos_B.data_ptr(),
+            w.amb_B.data_ptr(), amb_bias.data_ptr(), col_bias.data_ptr(), out.sigma.data_ptr(),
+            out.rgb.data_ptr(), out.amb.data_ptr(), out.ops.data_ptr(), npad, out.relu.data_ptr(),
+            out.gate.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, rc, "fused_field_forward_train")
+    fused_field.launches += 1
+    fused_field_forward_train.launches += 1
+    return out
+
+
+fused_field_forward_train.launches = 0
 
 
 def unpack_grads(packed: torch.Tensor):
@@ -680,41 +840,55 @@ def wgrad_table() -> list:
 
 def _check_bwd_inputs(xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb, g_amb, amb_dim) -> int:
     N = _check_cuda_inputs(xyz, dirs, amb_bias, col_bias, w, amb_dim)
+    _check_out_grads(xyz, g_sigma, g_rgb, g_amb, N)
+    return N
+
+
+def _check_out_grads(xyz, g_sigma, g_rgb, g_amb, N):
     dev = xyz.device
     _check("g_sigma", g_sigma, (N,), torch.float32, dev)
     _check("g_rgb", g_rgb, (N, 3), torch.float32, dev)
     _check("g_amb", g_amb, (N, AMB_DIM), torch.float32, dev)
-    return N
 
 
-def fused_field_bwd_chain(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
+def fused_field_bwd_chain(xyz, fwd: FieldTrainOutputs, w: FieldWeights,
                           g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM) -> torch.Tensor:
     """The backward's tile chain, csrc/fused_field_bwd.cu, on CUDA tensors
-    (its plain version is `pack_operands(fused_field_bwd_operands_plain(...))`).
-    Same arguments as `fused_field_backward`; returns the operand buffer
-    (`pack_operands`' layout, flat bf16, `operand_points(N) *
-    OPERAND_ROWS` values). `fused_field_bwd_chain.launches` counts kernel
-    launches."""
+    (its plain version is `fused_field_chain_plain`). `fwd` is
+    `fused_field_forward_train`'s result for these points; the chain reads
+    its outputs, ReLU masks and gate and writes the gradient operands
+    (OPERAND_WRITERS["fused_field_bwd"]) into `fwd.ops`, which it returns
+    (the whole operand buffer, `pack_operands`' layout). Running it again
+    on the same `fwd` writes the same values. `fused_field_bwd_chain.launches`
+    counts kernel launches."""
     if xyz.device.type != "cuda":
         raise ValueError(f"fused_field: unsupported device {xyz.device}")
-    N = _check_bwd_inputs(xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb, g_amb, amb_dim)
+    if amb_dim != AMB_DIM:
+        raise ValueError(f"fused_field: the CUDA kernel takes amb_dim={AMB_DIM}, got {amb_dim}")
     dev = xyz.device
+    N = xyz.shape[0]
     npad = operand_points(N)
-    if npad * OPERAND_ROWS >= 2 ** 40:
-        raise ValueError(f"fused_field: {N} points exceed the operand buffer's indexing")
-    ops = torch.empty((npad * OPERAND_ROWS,), dtype=torch.bfloat16, device=dev)
+    _check("xyz", xyz, (N, 3), torch.float32, dev)
+    for name, (shape, dtype) in FIELD_SHAPES.items():
+        _check(name, getattr(w, name), shape, dtype, dev)
+    _check("sigma", fwd.sigma, (N,), torch.float32, dev)
+    _check("rgb", fwd.rgb, (N, 3), torch.float32, dev)
+    _check("amb", fwd.amb, (N, AMB_DIM), torch.float32, dev)
+    _check("ops", fwd.ops, (npad * OPERAND_ROWS,), torch.bfloat16, dev)
+    _check("relu", fwd.relu, (len(RELU_LAYERS), npad, RELU_WORDS), torch.int32, dev)
+    _check("gate", fwd.gate, (N,), torch.uint8, dev)
+    _check_out_grads(xyz, g_sigma, g_rgb, g_amb, N)
     if N == 0:
-        return ops
+        return fwd.ops
     lib = _library("fused_field_bwd")
-    nblocks = min(npad // OPERAND_TILE, torch.cuda.get_device_properties(dev).multi_processor_count)
     with torch.cuda.device(dev):
         rc = lib.gfpp_fused_field_backward(
-            xyz.data_ptr(), dirs.data_ptr(), N, g_sigma.data_ptr(), g_rgb.data_ptr(),
-            g_amb.data_ptr(), *_weight_ptrs(w), amb_bias.data_ptr(), col_bias.data_ptr(),
-            ops.data_ptr(), npad, nblocks, torch.cuda.current_stream(dev).cuda_stream)
+            xyz.data_ptr(), fwd.sigma.data_ptr(), fwd.rgb.data_ptr(), fwd.amb.data_ptr(), fwd.gate.data_ptr(),
+            fwd.relu.data_ptr(), N, g_sigma.data_ptr(), g_rgb.data_ptr(), g_amb.data_ptr(), *_weight_ptrs(w),
+            fwd.ops.data_ptr(), npad, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, rc, "fused_field_bwd_chain")
     fused_field_bwd_chain.launches += 1
-    return ops
+    return fwd.ops
 
 
 fused_field_bwd_chain.launches = 0
@@ -755,14 +929,18 @@ fused_field_wgrad.launches = 0
 
 def fused_field_backward(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
                          g_sigma, g_rgb, g_amb, amb_dim: int = AMB_DIM):
-    """The fused backward: for CUDA tensors the tile chain
-    (`fused_field_bwd_chain`) and the weight-gradient kernel
-    (`fused_field_wgrad`) on the current stream; for CPU tensors
-    `fused_field_backward_plain`. Same contract.
+    """The fused backward from the forward's inputs: for CUDA tensors three
+    launches on the current stream, the forward's train mode
+    (`fused_field_forward_train`: the activation operands, ReLU masks and
+    sigma gate), the tile chain (`fused_field_bwd_chain`: the gradient
+    operands) and the weight-gradient kernel (`fused_field_wgrad`: the
+    sums over all points); for CPU tensors `fused_field_backward_plain`.
+    Same contract.
 
     Gives the same gradients run to run on one card (fixed grids, partials
-    summed in a fixed order). `fused_field_backward.launches` counts calls
-    that launched the kernels."""
+    summed in a fixed order). `fused_field_backward.launches` counts
+    backward passes that launched the chain and the weight-gradient kernel
+    (here and in `fused_field_train`'s backward)."""
     if xyz.device.type == "cpu":
         return fused_field_backward_plain(xyz, dirs, amb_bias, col_bias, w,
                                           g_sigma, g_rgb, g_amb, amb_dim)
@@ -771,32 +949,57 @@ def fused_field_backward(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
     N = _check_bwd_inputs(xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb, g_amb, amb_dim)
     if N == 0:
         return unpack_grads(torch.zeros((PACKED_SIZE,), dtype=torch.float32, device=xyz.device))
-    ops = fused_field_bwd_chain(xyz, dirs, amb_bias, col_bias, w, g_sigma, g_rgb, g_amb, amb_dim)
-    grads = fused_field_wgrad(ops, N)
-    fused_field_backward.launches += 1
-    return grads
+    fwd = fused_field_forward_train(xyz, dirs, amb_bias, col_bias, w, amb_dim)
+    return backward_from_train(xyz, fwd, w, g_sigma, g_rgb, g_amb, amb_dim)
 
 
 fused_field_backward.launches = 0
 
 
+def backward_from_train(xyz, fwd: FieldTrainOutputs, w: FieldWeights, g_sigma, g_rgb, g_amb,
+                        amb_dim: int = AMB_DIM):
+    """The 14 gradient blocks from the train mode's result `fwd`: on the card
+    the chain, then the weight-gradient kernel; on the CPU
+    `fused_field_chain_plain`, then `fused_field_wgrad_plain`."""
+    if xyz.device.type == "cpu":
+        return fused_field_wgrad_plain({**fwd.ops, **fused_field_chain_plain(xyz, fwd, w, g_sigma, g_rgb,
+                                                                             g_amb, amb_dim)})
+    N = xyz.shape[0]
+    if N == 0:
+        return unpack_grads(torch.zeros((PACKED_SIZE,), dtype=torch.float32, device=xyz.device))
+    grads = fused_field_wgrad(fused_field_bwd_chain(xyz, fwd, w, g_sigma, g_rgb, g_amb, amb_dim), N)
+    fused_field_backward.launches += 1
+    return grads
+
+
 class _FusedFieldTrain(torch.autograd.Function):
-    """The JAX custom VJP (`_make_fused_field_train`): forward `fused_field`,
-    backward `fused_field_backward`; gradients to cond_feat, ind_code and
-    every `FieldWeights` matrix, none to xyz/dirs (they come from the
-    marcher and are not optimised)."""
+    """The JAX custom VJP (`_make_fused_field_train`): forward the train mode
+    (`fused_field_forward_train`), backward the chain and the weight
+    gradients on what the forward kept (`backward_from_train`), without
+    running the forward again. Gradients to cond_feat, ind_code and every
+    `FieldWeights` matrix, none to xyz/dirs (they come from the marcher and
+    are not optimised). `fused_field_train` applies it only when a gradient
+    is needed (grad mode on, an input requiring one): its forward runs
+    under no_grad and cannot tell."""
 
     @staticmethod
     def forward(ctx, xyz, dirs, cond_feat, ind_code, amb_dim, *weights):
         w = FieldWeights(*weights)
         amb_bias, col_bias = bias_rows(cond_feat, ind_code, w)
-        ctx.amb_dim = amb_dim
-        ctx.save_for_backward(xyz, dirs, cond_feat, ind_code, *weights)
-        return fused_field(xyz, dirs, amb_bias, col_bias, w, amb_dim)
+        fwd = fused_field_forward_train(xyz, dirs, amb_bias, col_bias, w, amb_dim)
+        # the operands: one buffer from the kernel, a dict from the plain version
+        ops = list(fwd.ops.values()) if isinstance(fwd.ops, dict) else [fwd.ops]
+        ctx.amb_dim, ctx.op_names = amb_dim, list(fwd.ops) if isinstance(fwd.ops, dict) else None
+        ctx.n_ops = len(ops)
+        ctx.save_for_backward(xyz, cond_feat, ind_code, fwd.sigma, fwd.rgb, fwd.amb, fwd.relu, fwd.gate,
+                              *ops, *weights)
+        return fwd.sigma, fwd.rgb, fwd.amb
 
     @staticmethod
     def backward(ctx, g_sigma, g_rgb, g_amb):
-        xyz, dirs, cond_feat, ind_code, *weights = ctx.saved_tensors
+        xyz, cond_feat, ind_code, sigma, rgb, amb, relu, gate, *rest = ctx.saved_tensors
+        ops, weights = rest[:ctx.n_ops], rest[ctx.n_ops:]
+        ops = dict(zip(ctx.op_names, ops)) if ctx.op_names is not None else ops[0]
         w = FieldWeights(*weights)
         amb_dim = ctx.amb_dim
         N = xyz.shape[0]
@@ -805,11 +1008,10 @@ class _FusedFieldTrain(torch.autograd.Function):
             return torch.zeros(shape, dtype=torch.float32, device=xyz.device) if g is None \
                 else g.float().contiguous()
 
-        amb_bias, col_bias = bias_rows(cond_feat, ind_code, w)
         (g_pos_B, g_amb_w1p, g_amb_bias8, g_amb_w2, g_amb_w3, g_amb_B,
          g_sig_w1p, g_sig_w1a, g_sig_w2, g_sig_w3,
-         g_col_w1s, g_col_w1g, g_col_bias8, g_col_w2) = fused_field_backward(
-            xyz, dirs, amb_bias, col_bias, w, out_grad(g_sigma, (N,)),
+         g_col_w1s, g_col_w1g, g_col_bias8, g_col_w2) = backward_from_train(
+            xyz, FieldTrainOutputs(sigma, rgb, amb, ops, relu, gate), w, out_grad(g_sigma, (N,)),
             out_grad(g_rgb, (N, 3)), out_grad(g_amb, (N, amb_dim)), amb_dim)
         g_amb_bias, g_col_bias = g_amb_bias8[0:1], g_col_bias8[0:1]
 
@@ -839,5 +1041,13 @@ def fused_field_train(xyz, dirs, cond_feat, ind_code: Optional[torch.Tensor],
     """Differentiable fused field (forward and backward kernels on the card,
     their plain versions on the CPU). Same outputs as `fused_field`; grads
     flow to cond_feat, ind_code and all FieldWeights (the packed w1 grads
-    include the cond/ind rows). xyz and dirs get no gradient."""
+    include the cond/ind rows). xyz and dirs get no gradient. Where no
+    gradient is needed (grad mode off, or no input requires one) it is the
+    serving `fused_field`, and no operand buffer is made."""
+    if not (torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                            for t in (cond_feat, ind_code, *weights))):
+        # no gradient: the serving forward, which keeps nothing for a backward
+        w = FieldWeights(*(t.detach() for t in weights))
+        amb_bias, col_bias = bias_rows(cond_feat.detach(), None if ind_code is None else ind_code.detach(), w)
+        return fused_field(xyz.detach(), dirs.detach(), amb_bias, col_bias, w, amb_dim)
     return _FusedFieldTrain.apply(xyz.detach(), dirs.detach(), cond_feat, ind_code, amb_dim, *weights)

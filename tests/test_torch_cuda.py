@@ -1,5 +1,7 @@
-"""The CUDA fused-field kernels (forward and backward) on the card: they
-launch, count, mask the ragged tile and agree with their plain versions,
+"""The CUDA fused-field kernels (the forward in both modes, the backward's
+chain and weight gradients) on the card: they launch, count, mask the
+ragged tile and agree with their plain versions, the train mode's
+outputs equal the serving mode's,
 and a fused train step on the card agrees with the CPU; the full frame
 (head + torso + float32 SR) on the card agrees with the CPU, and the
 float32 SR, the audio-to-motion model and the SR and torso training steps
@@ -290,7 +292,6 @@ def test_wgrad_kernel_matches_plain(cuda_setup, n):
     print(f"[wgrad] n = {n}: max |kernel - plain| / max |plain| over the blocks {worst:.3e}")
 
 
-GRADIENT_OPERANDS = {"gc1a", "gc1b", "gaproj", "gproj", "gs1", "ga1", "ga2", "gs2", "gsig", "grgb", "gamb"}
 RELU_OPERANDS = ("a1", "a2", "s1", "s2", "c1")  # the hidden layers whose ReLU masks gate the gradients
 # measured on an H100 at n = 300 and 65,537: the masks agree on 264 of 264
 # and 57,208 of 57,214 clean points, where every operand is within 3.9e-3
@@ -300,20 +301,93 @@ CHAIN_MAX_REL = 1e-2  # on those points, any operand vs plain, of its largest en
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 64, 300, 65537] + EDGES)
+def test_train_mode_outputs_equal_serving(cuda_setup, n):
+    """B1's train mode gives the serving outputs bit for bit, counts its
+    launch in both counters, and writes zeros past n: the activation
+    operands' padded rows, the ReLU mask words."""
+    dev, w, ab, cb = cuda_setup
+    xyz, d = _points(n, dev, seed=3)
+    before = (ff.fused_field.launches, ff.fused_field_forward_train.launches)
+    with torch.no_grad():
+        serve = ff.fused_field(xyz, d, ab, cb, w)
+        fwd = ff.fused_field_forward_train(xyz, d, ab, cb, w)
+    torch.cuda.synchronize()
+    assert (ff.fused_field.launches, ff.fused_field_forward_train.launches) == (before[0] + 2, before[1] + 1)
+    for a, b in zip(fwd[:3], serve):
+        assert torch.equal(a, b)
+    padded = ff.unpack_operands(fwd.ops, ff.operand_points(n))
+    for name in ff.OPERAND_WRITERS["fused_field"]:
+        assert not padded[name][n:].float().any(), name
+    assert not fwd.relu[:, n:].any()
+    assert set(fwd.gate.unique().tolist()) <= {0, 1}
+
+
+def _witness(k, p, k_relu, p_relu, clean, names, n):
+    """On the clean points whose five ReLU masks agree (bool [n, 5, 128]),
+    the largest |kernel - plain| / max |plain| of each named operand, and
+    the share of clean entries that differ (each at most 3 %)."""
+    agree = clean & (k_relu == p_relu).flatten(1).all(-1)
+    n_clean, n_agree = int(clean.sum()), int(agree.sum())
+    worst, share = {}, {}
+    for name in names:
+        a, b = k[name][:n].float(), p[name].float()
+        assert torch.isfinite(a).all(), name
+        diff = (a != b)[clean]
+        share[name] = diff.float().mean().item() if n_clean else 0.0
+        assert share[name] <= 0.03 or diff.sum().item() <= 2, (name, share[name])
+        if n_agree:
+            worst[name] = (a - b).abs()[agree].max().item() / max(b.abs().max().item(), 1e-30)
+    return n_clean, n_agree, worst, share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 300, 65537])
+def test_train_mode_operands_match_plain(cuda_setup, n):
+    """B1's train mode's activation operands, ReLU masks and gate vs
+    fused_field_train_plain, held as test_chain_operands_match_plain holds
+    the buffer: on the clean points at least CHAIN_MASKS_AGREE of them with
+    the same five masks, and there every activation operand within
+    CHAIN_MAX_REL of its largest entry; bf16(xyz) equal everywhere."""
+    import chip_smoke
+
+    dev, w, ab, cb = cuda_setup
+    xyz, d = _points(n, dev, seed=7)
+    with torch.no_grad():
+        fwd = ff.fused_field_forward_train(xyz, d, ab, cb, w)
+        plain = ff.fused_field_train_plain(xyz, d, ab, cb, w)
+    k = ff.unpack_operands(fwd.ops, n)
+    clean = chip_smoke.clean_points(fwd[:3], plain[:3])
+    n_clean, n_agree, worst, share = _witness(k, plain.ops, ff.unpack_relu_masks(fwd.relu, n), plain.relu, clean,
+                                              ff.OPERAND_WRITERS["fused_field"], n)
+    gates = (fwd.gate.bool() == plain.gate).float().mean().item()
+    print(f"[train mode] n = {n}: {n_clean} clean points, {n_agree} of them with the same ReLU masks; gates "
+          f"equal {gates:.6f}; max |kernel - plain| / max |plain| there: "
+          + ", ".join(f"{k_}={v:.2e}" for k_, v in worst.items()))
+    assert n_agree >= CHAIN_MASKS_AGREE * n_clean, (n_agree, n_clean)
+    for name, rel in worst.items():
+        assert rel <= CHAIN_MAX_REL, (name, rel)
+    assert torch.equal(k["xyzb"].float(), plain.ops["xyzb"])
+    assert gates >= CHAIN_MASKS_AGREE
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 300, 65537])
 def test_chain_operands_match_plain(cuda_setup, n):
-    """The chain's operands vs fused_field_bwd_operands_plain. Both are
-    bf16 roundings of float32 values that the card sums in other orders
-    (tensor-core tiles, the Fourier phase's FMA chain vs a float32 matmul),
-    so a rounding can flip, and a flipped ReLU mask moves a point's
-    gradients by whole entries. On the points whose forward is clean
-    (chip_smoke.FWD_CLEAN) each operand differs in at most 3 % of its
-    entries. On the clean points whose ReLU masks (a1, a2, s1, s2, c1) are
-    the same in both, at least CHAIN_MASKS_AGREE of them, every operand,
-    gradients included, is within CHAIN_MAX_REL of its largest entry: a
-    few bf16 steps, so an operand written to the wrong place or corrupted
-    on those points fails. bf16(xyz) is equal everywhere, and the buffer
-    holds zeros past n."""
+    """The operand buffer after B1's train mode and the chain vs
+    fused_field_bwd_operands_plain (the train mode's plain version, then
+    the chain's). Both are bf16 roundings of float32 values that the card
+    sums in other orders (tensor-core tiles, the Fourier phase's FMA chain
+    vs a float32 matmul), so a rounding can flip, and a flipped ReLU mask
+    moves a point's gradients by whole entries. On the points whose
+    forward is clean (chip_smoke.FWD_CLEAN) each operand differs in at most
+    3 % of its entries. On the clean points whose ReLU masks (a1, a2, s1,
+    s2, c1) are the same in both, at least CHAIN_MASKS_AGREE of them, every
+    operand, gradients included, is within CHAIN_MAX_REL of its largest
+    entry: a few bf16 steps, so an operand written to the wrong place or
+    corrupted on those points fails. bf16(xyz) is equal everywhere, the
+    buffer holds zeros past n, and a second chain launch on the same
+    buffer writes the same values."""
     import chip_smoke
 
     dev, w, ab, cb = cuda_setup
@@ -321,29 +395,21 @@ def test_chain_operands_match_plain(cuda_setup, n):
     gs, gr, ga = _out_grads(n, dev)
     before = ff.fused_field_bwd_chain.launches
     with torch.no_grad():
-        buf = ff.fused_field_bwd_chain(xyz, d, ab, cb, w, gs, gr, ga)
+        fwd = ff.fused_field_forward_train(xyz, d, ab, cb, w)
+        buf = ff.fused_field_bwd_chain(xyz, fwd, w, gs, gr, ga).clone()
+        again = ff.fused_field_bwd_chain(xyz, fwd, w, gs, gr, ga)
         torch.cuda.synchronize()
-        assert ff.fused_field_bwd_chain.launches == before + 1
+        assert ff.fused_field_bwd_chain.launches == before + 2
+        assert torch.equal(buf, again)
         k = ff.unpack_operands(buf, ff.operand_points(n))
         p = ff.fused_field_bwd_operands_plain(xyz, d, ab, cb, w, gs, gr, ga)
-        fk, fp = ff.fused_field(xyz, d, ab, cb, w), ff.fused_field_plain(xyz, d, ab, cb, w)
-    moved = torch.stack([(fk[0].log() - fp[0].log()).abs(), (fk[1] - fp[1]).abs().amax(-1),
-                         (fk[2] - fp[2]).abs().amax(-1)], -1).amax(-1)
-    clean = moved <= chip_smoke.FWD_CLEAN
-    agree = clean.clone()
-    for name in RELU_OPERANDS:
-        agree &= ((k[name][:n] > 0) == (p[name] > 0)).all(-1)
-    n_clean, n_agree = int(clean.sum()), int(agree.sum())
-    worst, share = {}, {}
+        fp = ff.fused_field_plain(xyz, d, ab, cb, w)
     for name, _ in ff.WGRAD_OPERANDS:
-        a, b = k[name][:n].float(), p[name].float()
         assert not k[name][n:].float().any(), name
-        assert torch.isfinite(a).all(), name
-        diff = (a != b)[clean]
-        share[name] = diff.float().mean().item() if n_clean else 0.0
-        assert share[name] <= 0.03 or diff.sum().item() <= 2, (name, share[name])
-        if n_agree:
-            worst[name] = (a - b).abs()[agree].max().item() / max(b.abs().max().item(), 1e-30)
+    clean = chip_smoke.clean_points(fwd[:3], fp)
+    k_relu = torch.stack([k[name][:n] > 0 for name in RELU_OPERANDS], 1)
+    p_relu = torch.stack([p[name] > 0 for name in RELU_OPERANDS], 1)
+    n_clean, n_agree, worst, share = _witness(k, p, k_relu, p_relu, clean, [name for name, _ in ff.WGRAD_OPERANDS], n)
     print(f"[chain] n = {n}: {n_clean} clean points, {n_agree} of them with the same ReLU masks; "
           f"max |chain - plain| / max |plain| there: "
           + ", ".join(f"{k_}={v:.2e}" for k_, v in worst.items())
@@ -352,6 +418,42 @@ def test_chain_operands_match_plain(cuda_setup, n):
     for name, rel in worst.items():
         assert rel <= CHAIN_MAX_REL, (name, rel)
     assert torch.equal(k["xyzb"][:n].float(), p["xyzb"])
+
+
+@pytest.mark.cuda
+def test_fused_field_train_backward_twice_on_card(cuda_setup):
+    """fused_field_train on the card: the forward launches the train mode
+    once, each backward the chain and the weight gradients once (no
+    forward), a second backward on the same graph gives the same
+    gradients, and they equal fused_field_backward's from the same inputs."""
+    dev, w0, _, _ = cuda_setup
+    xyz, d = _points(3000, dev, seed=11)
+    gs, gr, ga = _out_grads(3000, dev)
+    g = torch.Generator().manual_seed(12)
+    cond = (torch.randn(1, 64, generator=g) * 0.5).to(dev).requires_grad_()
+    ind = (torch.randn(4, generator=g) * 0.5).to(dev).requires_grad_()
+    w = ff.FieldWeights(*[t.clone().requires_grad_() for t in w0])
+
+    def counts():
+        return (ff.fused_field.launches, ff.fused_field_forward_train.launches,
+                ff.fused_field_bwd_chain.launches, ff.fused_field_wgrad.launches)
+
+    c0 = counts()
+    s, c, a = ff.fused_field_train(xyz, d, cond, ind, w)
+    c1 = counts()
+    loss = (s * gs).sum() + (c * gr).sum() + (a * ga).sum()
+    first = torch.autograd.grad(loss, [cond, ind, *w], retain_graph=True)
+    second = torch.autograd.grad(loss, [cond, ind, *w])
+    c2 = counts()
+    assert [y - x for x, y in zip(c0, c1)] == [1, 1, 0, 0]
+    assert [y - x for x, y in zip(c1, c2)] == [0, 0, 2, 2]
+    for g1, g2 in zip(first, second):
+        assert torch.equal(g1, g2)
+    with torch.no_grad():
+        frozen = ff.FieldWeights(*[t.detach() for t in w])
+        ab, cb = ff.bias_rows(cond.detach(), ind.detach(), frozen)
+        blocks = ff.fused_field_backward(xyz, d, ab, cb, frozen, gs, gr, ga)
+    assert torch.equal(first[2], blocks[0])  # pos_B, float32
 
 
 # ---- the full frame: head + torso + 2x SR ---------------------------------

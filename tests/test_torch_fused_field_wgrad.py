@@ -215,12 +215,13 @@ def test_product_table_maps_onto_grad_blocks():
 def test_chain_and_wgrad_take_cuda_tensors_only(n):
     """The backward's two kernel wrappers have no plain route: on CPU (or
     any other non-CUDA) tensors they raise and count nothing, while
-    fused_field_backward gives the plain gradients on the CPU."""
+    fused_field_backward gives the plain gradients on the CPU. The chain
+    takes the train mode's result (here its plain version's)."""
     args = _field(n, 20 + n)
     buf = ff.pack_operands(ff.fused_field_bwd_operands_plain(*args))
     before = (ff.fused_field_bwd_chain.launches, ff.fused_field_wgrad.launches, ff.fused_field_backward.launches)
     with pytest.raises(ValueError, match="unsupported device cpu"):
-        ff.fused_field_bwd_chain(*args)
+        ff.fused_field_bwd_chain(args[0], ff.fused_field_train_plain(*args[:5]), args[4], *args[5:])
     with pytest.raises(ValueError, match="unsupported device cpu"):
         ff.fused_field_wgrad(buf, n)
     with pytest.raises(ValueError, match="unsupported device meta"):
