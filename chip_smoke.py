@@ -28,7 +28,9 @@ Phases (any failure exits non-zero, and no result line is printed):
               plain version on the operands; the chain (from a prepared
               buffer), the weight-gradient kernel and the whole backward each
               timed in turns with its plain version, and bf16 torch.matmul on
-              the same operands beside the weight-gradient kernel
+              the same operands beside the weight-gradient kernel; the chain's
+              layout from its library (consumer warpgroups, ring stages,
+              shared memory, registers) beside its ptxas report (0 spills)
   serve       GeneFaceInfer at the May lm3d_radnerf head config (full width,
               random weights from a seed) on a synthetic 512^2 identity with the
               bench's head-sized occupancy: GT-driven requests through
@@ -104,7 +106,9 @@ Phases (any failure exits non-zero, and no result line is printed):
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
               validation, a checkpoint and a resume; one train-mode forward,
               one chain and one weight-gradient launch a step; checked, ms a
-              step and peak memory
+              step (host wall) beside the step's span on the device and the
+              field's backward (CUDA events), 3 more steps' device busy time
+              and kernels (torch.profiler), and peak memory
   train_cli   the host image codec (csrc/image_codec.cpp, built here with the
               host compiler) decodes tests/torch_image_fixtures/ to the sha256
               of cv2's decodes recorded beside them, and its encoder's bytes
@@ -234,6 +238,7 @@ LONG_FRAMES = 1400
 N_RAYS, TRAIN_SAMPLES = 65536, 16  # egs/egs_bases/radnerf/base.yaml
 N_TRAIN_POINTS = N_RAYS * TRAIN_SAMPLES
 TRAIN_STEPS = 20  # grid refreshes at steps 0 and 16 (update_extra_interval 16)
+TRAIN_PROFILE_STEPS = 3  # steps after the counted run, under torch.profiler
 # backward kernel vs plain, every gradient block: (min cosine, max |norm
 # ratio - 1|, max |d| / max |plain|), over two sets of points.
 # All points: the kernel recomputes the forward on the tensor cores, whose
@@ -2081,8 +2086,14 @@ def phase_kernel_bwd(dev, train_extra_ms: float):
             t_lib += cuda_ms(run_library, 1)
             times["wgrad"][0].extend(cuda_ms(timings["wgrad"][0], 1))
         del ops, unpacked, X, gc1, u, fwd, plain_fwd
-    print(f"[kernel_bwd] {card_line()}; ptxas: " + "; ".join(
-        x for x in ptxas_report(ff.build_kernels(["fused_field_bwd"])["fused_field_bwd"]) if "Compiling" not in x))
+    chain_ptxas = ptxas_report(ff.build_kernels(["fused_field_bwd"])["fused_field_bwd"])
+    cfg = ff.chain_config(ff._library("fused_field_bwd"))
+    print(f"[kernel_bwd] {card_line()}; chain: {cfg['consumers']} consumer warpgroups of {cfg['tile']} points and "
+          f"one producer warpgroup a block, one block an SM, {cfg['stages']} weight-ring stages, "
+          f"{cfg['smem_bytes']} bytes of dynamic shared memory a block, {cfg['launch_regs']} registers a thread at "
+          f"launch, {cfg['consumer_regs']} a consumer after setmaxnreg; ptxas: "
+          + "; ".join(x for x in chain_ptxas if "Compiling" not in x))
+    check(not any(int(v) for x in chain_ptxas for v in re.findall(r"(\d+) bytes spill", x)), "the chain spills")
     print(f"[kernel_bwd] times at {n} points, medians in turns with the plain versions:")
     for key, (t_k, t_p) in times.items():
         print(f"[kernel_bwd] {key}: kernel {med(t_k)}; plain {med(t_p)}")
@@ -2123,17 +2134,27 @@ def phase_train(dev):
     print(f"[train] {SIZE}x{SIZE} synthetic identity, {len(ds)} train frames, {N_RAYS} rays x "
           f"{TRAIN_SAMPLES} samples = {N_TRAIN_POINTS} field points per step, grid {cfg.grid_size}")
 
-    step_ms, losses, occ = [], [], []
-    train_step, refresh = task.train_step, task.update_extra_state
+    step_ms, step_events, bwd_events, losses, occ, last = [], [], [], [], [], {}
+    train_step, refresh, backward = task.train_step, task.update_extra_state, ff.backward_from_train
 
     def timed_step(state, batch):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        start = cuda_event()
         state, metrics = train_step(state, batch)
+        end = cuda_event()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_events.append((start, end))
         losses.append(float(metrics["total_loss"]))
+        last["batch"] = batch
         return state, metrics
+
+    def timed_backward(*args, **kwargs):  # the field's backward: the chain and the weight gradients
+        start = cuda_event()
+        grads = backward(*args, **kwargs)
+        bwd_events.append((start, cuda_event()))
+        return grads
 
     def recorded_refresh(state):
         before = (task.occupancy.clone(), task.density_grid.clone())
@@ -2141,6 +2162,7 @@ def phase_train(dev):
         occ.append((before, (task.occupancy.clone(), task.density_grid.clone())))
 
     task.train_step, task.update_extra_state = timed_step, recorded_refresh
+    ff.backward_from_train = timed_backward
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         torch.cuda.synchronize()
@@ -2176,9 +2198,22 @@ def phase_train(dev):
                           max_updates=TRAIN_STEPS + 2, val_check_interval=1000, tb_log_interval=10,
                           update_extra_interval=task_cfg.update_extra_interval).fit()
         check(resumed.global_step == TRAIN_STEPS + 2, f"resume reached step {resumed.global_step}")
+
+        def more_steps():  # after the counted run: the device's busy time a step
+            st = state
+            for _ in range(TRAIN_PROFILE_STEPS):
+                st, _ = train_step(st, last["batch"])
+            return TRAIN_PROFILE_STEPS
+
+        _, kernels, busy_ms, top = profile_device(more_steps)
     finally:
+        ff.backward_from_train = backward
         shutil.rmtree(work_dir, ignore_errors=True)
     timed = step_ms[1:]  # the first step includes one-time set-up
+    span = [a.elapsed_time(b) for a, b in step_events[1:]]
+    bwd_ms = [a.elapsed_time(b) for a, b in bwd_events[1:TRAIN_STEPS]]
+    check(len(bwd_events) == TRAIN_STEPS + 2 + TRAIN_PROFILE_STEPS,
+          f"{len(bwd_events)} field backwards in {TRAIN_STEPS} + 2 + {TRAIN_PROFILE_STEPS} steps")
     print(f"[train] {TRAIN_STEPS} steps: losses finite ({losses[0]:.5f} -> {losses[-1]:.5f}); "
           f"{fwd} forward (all {fwd_train} in train mode), {chain} backward-chain and {wgrad} weight-gradient "
           f"kernel launches in {bwd_calls} backward passes (one each per step); occupancy "
@@ -2190,6 +2225,16 @@ def phase_train(dev):
     print(f"[train] train step (host wall, synchronised, steps 2..{TRAIN_STEPS}): median "
           f"{statistics.median(timed):.3f} ms, min {min(timed):.3f}, max {max(timed):.3f}, n={len(timed)}; "
           f"first step {step_ms[0]:.3f} ms; peak allocated {peak / 2 ** 30:.3f} GiB")
+    print(f"[train] {card_line()}; on the device, steps 2..{TRAIN_STEPS}: the step's span on the stream (CUDA "
+          f"events around train_step) median {statistics.median(span):.3f} ms (min {min(span):.3f}, max "
+          f"{max(span):.3f}); the field's backward (CUDA events around backward_from_train: chain + weight "
+          f"gradients) median {statistics.median(bwd_ms):.3f} ms (min {min(bwd_ms):.3f}, max {max(bwd_ms):.3f})")
+    if busy_ms is None:
+        print("[train] device busy a step: not measured (the profiler showed no device activity)")
+    else:
+        print(f"[train] {TRAIN_PROFILE_STEPS} more steps under torch.profiler: device busy {busy_ms:.3f} ms a step, "
+              f"{kernels:.1f} kernels a step; the most device time: "
+              + "; ".join(f"{name} {c:.1f}x {t:.3f} ms" for name, c, t in top[:6]))
     return fwd_train, chain, wgrad
 
 

@@ -86,10 +86,10 @@
 #include "sm90.cuh"
 
 using gfpp::bf16;
-using gfpp::OP_ROWS;
 using gfpp::fast_cos;
 using gfpp::fast_sin;
 using gfpp::fast_tanh;
+using gfpp::store_fragment;
 using namespace gfpp::sm90;
 
 namespace {
@@ -291,35 +291,19 @@ __device__ __forceinline__ void relu_masks(const uint32_t (&h)[8][4], uint32_t& 
     }
 }
 
-// ---- the train mode's stores ----
-// Where this warp's lane writes core matrix 0 of operand O in the k16 step
-// of its 16 rows: the operand's tile at `base`, step `warp`, then 4 bytes a
-// lane (feature g, points 2 t, 2 t + 1 of the core matrix). Core matrix c
-// (feature group j, point half h: c = 2 j + h) is 32 words further on.
+// ---- the train mode's stores (fused_field_common.cuh: operand_dst,
+// store_fragment, store_fragments) ----
 template <int O>
 __device__ __forceinline__ uint32_t* tile_dst(bf16* ops, int npad, int base, int warp, int lane) {
   static_assert(gfpp::listed(O, gfpp::TRAIN_OPERANDS), "the forward's train mode writes the activation operands");
-  constexpr int R = OP_ROWS[O];
-  return reinterpret_cast<uint32_t*>(ops + static_cast<size_t>(npad) * gfpp::op_first_row(O) +
-                                     static_cast<size_t>(base) * R + warp * R * 16) + lane;
+  return gfpp::operand_dst<O>(ops, npad, base, warp, lane);
 }
 
-// the 8 x 8 fragment x (this lane: row g or g + 8, 2 features) as the core
-// matrix at dst (tile_dst + 32 c), zero if the lane's row is past n
-__device__ __forceinline__ void store_fragment(uint32_t* dst, uint32_t x, bool live_row) {
-  *dst = movmatrix_trans(live_row ? x : 0u);
-}
-
-// a 128-feature layer held as A fragments (h[s][i]: feature block 2 s + i / 2,
-// rows g + 8 (i % 2)) as core matrices 4 s + i of operand O
+// a 128-feature layer held as A fragments as operand O
 template <int O>
 __device__ __forceinline__ void store_layer(bf16* ops, int npad, int base, int warp, int lane,
                                             const uint32_t (&h)[8][4], bool live_g, bool live_h) {
-  uint32_t* dst = tile_dst<O>(ops, npad, base, warp, lane);
-#pragma unroll
-  for (int s = 0; s < 8; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) store_fragment(dst + 32 * (4 * s + i), h[s][i], (i & 1) ? live_h : live_g);
+  gfpp::store_fragments<0, 8>(tile_dst<O>(ops, npad, base, warp, lane), h, live_g, live_h);
 }
 
 // an 8-row operand whose features 0..2 are a 3-wide value (apos, xyzb): the

@@ -1,25 +1,21 @@
 // Device functions of the fused head-field kernels: the fast sin/cos/tanh
 // of ops/fastmath.py and the SH16 basis of the Pallas kernel (all
-// kernels), the backward chain's input-gradient tile products on the
-// tensor cores (fused_field_bwd.cu; WMMA m16n16k16, bf16 inputs, f32
-// sums), the table of the weight-gradient operands that the forward's
-// train mode and the chain hand to fused_field_wgrad.cu, and the layout of
-// the ReLU masks the train mode hands to the chain.
-//
-// Every product walks k in ascending 16-steps into one accumulator per
-// output fragment, whichever warp owns the fragment, so a block of 4 warps
-// and a block of 8 warps give bit-identical products.
+// kernels), the table of the weight-gradient operands that the forward's
+// train mode and the backward's chain hand to fused_field_wgrad.cu, the
+// stores that write those operands from register fragments (the train
+// mode and the chain), and the layout of the ReLU masks the train mode
+// hands to the chain.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace gfpp {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 // ops/fastmath.py, term for term
@@ -71,43 +67,6 @@ __device__ __forceinline__ void sh16(const float* d, bf16* out) {
       0.59004358992664352f * x * (-x2 + 3.0f * y2)};
 #pragma unroll
   for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16_rn(v[i]);
-}
-
-// C[0:TM, 0:N] = A1[0:TM, 0:K] . W1^T (+ A2[0:TM, 0:K] . W2^T when A2 is
-// given; row strides LDA and LDA2): the input-gradient product of a layer
-// y = x . W. W is the layer's
-// bf16 weight, row-major [N rows, LDW] in global memory, read as W[n][k] for
-// k < K: the same weights as the forward, loaded column-major as the B
-// fragment, so no transposed copy exists.
-template <int TM, int NW, int K, int N, int LDA, int LDW, int LDC, int LDA2 = LDA>
-__device__ __forceinline__ void tile_matmul_wt(const bf16* A1, const bf16* __restrict__ W1,
-                                               const bf16* A2, const bf16* __restrict__ W2,
-                                               float* C) {
-  const int warp = threadIdx.x >> 5;
-  for (int nt = warp; nt < N / 16; nt += NW) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TM / 16];
-#pragma unroll
-    for (int m = 0; m < TM / 16; ++m) wmma::fill_fragment(acc[m], 0.0f);
-    for (int pass = 0; pass < (A2 != nullptr ? 2 : 1); ++pass) {
-      const bf16* A = pass == 0 ? A1 : A2;
-      const bf16* W = pass == 0 ? W1 : W2;
-      const int lda = pass == 0 ? LDA : LDA2;
-#pragma unroll 2
-      for (int k = 0; k < K; k += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, W + nt * 16 * LDW + k, LDW);
-#pragma unroll
-        for (int m = 0; m < TM / 16; ++m) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, A + m * 16 * lda + k, lda);
-          wmma::mma_sync(acc[m], a, b, acc[m]);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < TM / 16; ++m)
-      wmma::store_matrix_sync(C + m * 16 * LDC + nt * 16, acc[m], LDC, wmma::mem_row_major);
-  }
 }
 
 // The backward's weight-gradient operands, which fused_field_wgrad.cu sums
@@ -176,6 +135,42 @@ __host__ __device__ constexpr bool owned_once() {
 }
 static_assert(owned_once() && N_TRAIN_OPERANDS + N_CHAIN_OPERANDS == N_OPERANDS, "operand writers");
 static_assert(listed_rows(TRAIN_OPERANDS) == 1184 && listed_rows(CHAIN_OPERANDS) == 984, "operand writers");
+
+// ---- operand stores from register fragments (sm90.cuh's layout) ----
+// A warpgroup's 64-point tile is one k range of every operand, and a
+// warp's 16 rows are one k16 step. A bf16 pair of an A fragment (or of an
+// accumulator, rounded) of one 8-feature block is an m8n8 matrix, rows 8
+// points, columns 2 features a lane; movmatrix.trans turns it into 2
+// points of one feature a lane, and the warp's 32 4-byte stores fill one
+// contiguous 128-byte core matrix of the operand (8 features x 8 points).
+//
+// Where this warp's lane writes core matrix 0 of operand O in the k16 step
+// of its 16 rows: the operand's tile at `base`, step `warp`, then 4 bytes a
+// lane (feature g, points 2 t, 2 t + 1 of the core matrix). Core matrix c
+// (feature group j, point half h: c = 2 j + h) is 32 words further on.
+template <int O>
+__device__ __forceinline__ uint32_t* operand_dst(bf16* ops, int npad, int base, int warp, int lane) {
+  constexpr int R = OP_ROWS[O];
+  return reinterpret_cast<uint32_t*>(ops + static_cast<size_t>(npad) * op_first_row(O) +
+                                     static_cast<size_t>(base) * R + warp * R * 16) + lane;
+}
+
+// the 8 x 8 fragment x (this lane: row g or g + 8, 2 features) as the core
+// matrix at dst (operand_dst + 32 c), zero if the lane's row is past n
+__device__ __forceinline__ void store_fragment(uint32_t* dst, uint32_t x, bool live_row) {
+  *dst = sm90::movmatrix_trans(live_row ? x : 0u);
+}
+
+// k16 steps S0 .. S1 - 1 of a layer held as A fragments (h[s][i]: feature
+// block 2 s + i / 2, rows g + 8 (i % 2)) as core matrices 4 (s - S0) + i
+template <int S0, int S1, int S>
+__device__ __forceinline__ void store_fragments(uint32_t* dst, const uint32_t (&h)[S][4], bool live_g,
+                                                bool live_h) {
+#pragma unroll
+  for (int s = S0; s < S1; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) store_fragment(dst + 32 * (4 * (s - S0) + i), h[s][i], (i & 1) ? live_h : live_g);
+}
 
 // The ReLU masks of the five hidden layers (a1, a2, s1, s2, c1), written by
 // the forward's train mode and read by the chain instead of the

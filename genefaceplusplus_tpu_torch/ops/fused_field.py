@@ -18,8 +18,10 @@ the weight-gradient operands, the ReLU masks, the sigma gate); its plain
 version is `fused_field_train_plain`. The backward then runs two kernels
 on the card: the tile chain `csrc/fused_field_bwd.cu` (plain version
 `fused_field_chain_plain`) writes the gradient half of the operands
-without recomputing the forward, and `csrc/fused_field_wgrad.cu` sums the
-operands' products over all points (`fused_field_wgrad_plain`).
+without recomputing the forward, its input-gradient products reading a
+second packed stream (`pack_chain_weights`, cached like the forward's),
+and `csrc/fused_field_wgrad.cu` sums the operands' products over all
+points (`fused_field_wgrad_plain`).
 `fused_field_backward` runs all three from the forward's inputs; on the
 CPU it is `fused_field_backward_plain` (the Pallas backward's explicit
 math, with its rounding points). `fused_field_train` ties forward and
@@ -174,6 +176,21 @@ FWD_TILE, FWD_STEP = 64, 192  # points per consumer tile, per persistent block s
 FWD_LAYERS = (("amb_w1", 128, 256, 4), ("amb_w2", 128, 128, 4), ("amb_w3", 8, 128, 8),
               ("sig_w1", 128, 384, 4), ("sig_w2", 128, 128, 4), ("sig_w3", 136, 128, 4),
               ("col_w1", 128, 144, 3), ("col_w2", 8, 128, 8))
+# The chain's weight stream (csrc/fused_field_bwd.cu, SPEC), in the order
+# its input-gradient products g . W^T read it: (name, N, K, k16 steps per
+# chunk). The B operand of g . W^T is N = the layer's input features by K =
+# its output features, so each is the weight's live block itself [in, out],
+# packed by `pack_kmajor` with no transpose; the 3-wide outputs' K is
+# zero-padded to 16 and sig_w3's is [sigma | geo 128 | 0 x 15], the
+# Pallas kernel's order. The position-feature gradient is two N = 128
+# products over K = sig_w1's 128 columns then amb_w1's 128 (g_s1's pass,
+# then g_a1's): pos_lo's rows are features 0..63 then 128..191, pos_hi's
+# 64..127 then 192..255, so a sin feature and its cos feature sit in
+# columns c and c + 64 of one accumulator.
+CHAIN_LAYERS = (("col_w2", 128, 16, 1), ("col_w1", 128, 128, 4), ("sig_w3", 128, 144, 3),
+                ("sig_w2", 128, 128, 4), ("sig_w1a", 128, 128, 4), ("amb_w3", 128, 16, 1),
+                ("amb_w2", 128, 128, 4), ("pos_lo", 128, 256, 4), ("pos_hi", 128, 256, 4))
+CHAIN_POS_ROWS = {"pos_lo": (*range(0, 64), *range(128, 192)), "pos_hi": (*range(64, 128), *range(192, 256))}
 
 
 def weights_from_params(model, bound: float = 1.0, differentiable: bool = False) -> FieldWeights:
@@ -565,21 +582,56 @@ def pack_field_weights(w: FieldWeights) -> torch.Tensor:
         return torch.cat(parts)
 
 
-_PACKED = WeakIdKeyDictionary()  # w.amb_w1 -> (weakrefs to w's tensors, versions, packed)
+def pack_chain_weights(w: FieldWeights) -> torch.Tensor:
+    """The chain's weight stream (CHAIN_LAYERS), bf16, flat, on w's device:
+    each input-gradient product's B operand, the weight's live block [in,
+    out] with zeros where K is wider than its live columns."""
+    with torch.no_grad():
+        def cols(x, live, k):  # the first `live` columns, zero-padded to k
+            return F.pad(x[:, :live], (0, k - live))
+
+        pos = torch.cat([w.sig_w1[:256], w.amb_w1[:256]], dim=1)  # [256 pos_feat, g_s1's K | g_a1's K]
+        operands = {
+            "col_w2": cols(w.col_w2, 3, 16), "col_w1": w.col_w1[16:144], "sig_w3": cols(w.sig_w3, 129, 144),
+            "sig_w2": w.sig_w2, "sig_w1a": w.sig_w1[256:384], "amb_w3": cols(w.amb_w3, AMB_DIM, 16),
+            "amb_w2": w.amb_w2,
+            **{name: pos[list(rows)] for name, rows in CHAIN_POS_ROWS.items()},
+        }
+        parts = []
+        for name, n, k, _ in CHAIN_LAYERS:
+            x = operands[name]
+            assert tuple(x.shape) == (n, k), (name, tuple(x.shape))
+            parts.append(pack_kmajor(x.to(torch.bfloat16)))
+        return torch.cat(parts)
+
+
+_PACKED = {pack_field_weights: WeakIdKeyDictionary(), pack_chain_weights: WeakIdKeyDictionary()}
+
+
+def _cached_pack(w: FieldWeights, pack) -> torch.Tensor:
+    """pack(w), cached per FieldWeights (the same tensors, unmodified since:
+    in-place updates bump a tensor's version). Inference tensors (made
+    under `torch.inference_mode`) keep no version counter, so for them only
+    the tensors' identity is checked."""
+    cache = _PACKED[pack]  # w.amb_w1 -> (weakrefs to w's tensors, versions, packed)
+    versions = tuple(None if t.is_inference() else t._version for t in w)
+    hit = cache.get(w.amb_w1)
+    if hit is not None and hit[1] == versions and all(r() is t for r, t in zip(hit[0], w)):
+        return hit[2]
+    packed = pack(w)
+    cache[w.amb_w1] = (tuple(weakref.ref(t) for t in w), versions, packed)
+    return packed
 
 
 def packed_weights(w: FieldWeights) -> torch.Tensor:
-    """`pack_field_weights(w)`, cached per FieldWeights (the same tensors,
-    unmodified since: in-place updates bump a tensor's version). Inference
-    tensors (made under `torch.inference_mode`) keep no version counter, so
-    for them only the tensors' identity is checked."""
-    versions = tuple(None if t.is_inference() else t._version for t in w)
-    hit = _PACKED.get(w.amb_w1)
-    if hit is not None and hit[1] == versions and all(r() is t for r, t in zip(hit[0], w)):
-        return hit[2]
-    packed = pack_field_weights(w)
-    _PACKED[w.amb_w1] = (tuple(weakref.ref(t) for t in w), versions, packed)
-    return packed
+    """`pack_field_weights(w)`, cached per FieldWeights (`_cached_pack`)."""
+    return _cached_pack(w, pack_field_weights)
+
+
+def chain_weights(w: FieldWeights) -> torch.Tensor:
+    """`pack_chain_weights(w)`, cached per FieldWeights (`_cached_pack`): the
+    train step updates the weights in place, which repacks."""
+    return _cached_pack(w, pack_chain_weights)
 
 
 # ---------------------------------------------------------------------------
@@ -632,6 +684,17 @@ def fwd_config(lib: ctypes.CDLL) -> Tuple[int, int, int]:
     return tuple(v.value for v in out)
 
 
+def chain_config(lib: ctypes.CDLL) -> Dict[str, int]:
+    """How the built chain is laid out: points a consumer tile, consumer
+    warpgroups a block (one block an SM), weight-ring stages, dynamic shared
+    memory a block in bytes, registers a thread at launch and a consumer's
+    after setmaxnreg."""
+    keys = ("tile", "consumers", "stages", "smem_bytes", "launch_regs", "consumer_regs")
+    out = [ctypes.c_int() for _ in keys]
+    lib.gfpp_fused_field_bwd_config(*[ctypes.byref(v) for v in out])
+    return {k: v.value for k, v in zip(keys, out)}
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_kernels([name])[name]))
@@ -653,13 +716,21 @@ def _library(name: str) -> ctypes.CDLL:
             raise RuntimeError("csrc/fused_field.cu's tiles differ from FWD_TILE, FWD_STEP")
         _check_writers(lib, name, lib.gfpp_fused_field_train_operands)
     elif name == "fused_field_bwd":
-        lib.gfpp_fused_field_backward.argtypes = [ptr] * 6 + [c_int] + [ptr] * 3 + [ptr] * 10 + [ptr, c_int, ptr]
+        lib.gfpp_fused_field_backward.argtypes = [ptr] * 6 + [c_int] + [ptr] * 7 + [c_int, ptr]
         lib.gfpp_fused_field_backward.restype = c_int
         lib.gfpp_fused_field_bwd_operand_rows.restype = c_int
-        lib.gfpp_fused_field_bwd_config.argtypes = [ctypes.POINTER(c_int)] * 2
+        lib.gfpp_fused_field_bwd_layout.argtypes = [ctypes.POINTER(c_int), c_int]
+        lib.gfpp_fused_field_bwd_layout.restype = c_int
+        lib.gfpp_fused_field_bwd_config.argtypes = [ctypes.POINTER(c_int)] * 6
         lib.gfpp_fused_field_bwd_config.restype = c_int
         if lib.gfpp_fused_field_bwd_operand_rows() != OPERAND_ROWS:
             raise RuntimeError("csrc/fused_field_bwd.cu's operands differ from WGRAD_OPERANDS")
+        spec = (ctypes.c_int * (3 * len(CHAIN_LAYERS)))()
+        n = lib.gfpp_fused_field_bwd_layout(spec, len(CHAIN_LAYERS))
+        if n != len(CHAIN_LAYERS) or list(spec) != [v for _, n_, k, c in CHAIN_LAYERS for v in (k // 16, n_, c)]:
+            raise RuntimeError("csrc/fused_field_bwd.cu's weight stream differs from CHAIN_LAYERS")
+        if chain_config(lib)["tile"] != OPERAND_TILE:
+            raise RuntimeError("csrc/fused_field_bwd.cu's tile differs from OPERAND_TILE")
         _check_writers(lib, name, lib.gfpp_fused_field_bwd_operands)
     else:
         lib.gfpp_fused_field_wgrad.argtypes = [ptr, c_int, ptr, c_int, ptr]
@@ -703,9 +774,6 @@ def _check(name, t, shape, dtype, device):
                          f"got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"fused_field: {name} must be contiguous")
-    if dtype == torch.bfloat16 and t.data_ptr() % 32:
-        # the kernels load the bf16 weight matrices as WMMA fragments
-        raise ValueError(f"fused_field: {name} must be 32-byte aligned")
 
 
 def _check_cuda_inputs(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: int) -> int:
@@ -729,10 +797,6 @@ def _raise_on(lib, rc: int, what: str):
     if rc != 0:
         msg = lib.gfpp_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
-
-
-def _weight_ptrs(w: FieldWeights):
-    return [getattr(w, name).data_ptr() for name in FIELD_SHAPES]
 
 
 def fused_field(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: int = AMB_DIM):
@@ -881,11 +945,13 @@ def fused_field_bwd_chain(xyz, fwd: FieldTrainOutputs, w: FieldWeights,
     if N == 0:
         return fwd.ops
     lib = _library("fused_field_bwd")
+    packed = chain_weights(w)
     with torch.cuda.device(dev):
         rc = lib.gfpp_fused_field_backward(
             xyz.data_ptr(), fwd.sigma.data_ptr(), fwd.rgb.data_ptr(), fwd.amb.data_ptr(), fwd.gate.data_ptr(),
-            fwd.relu.data_ptr(), N, g_sigma.data_ptr(), g_rgb.data_ptr(), g_amb.data_ptr(), *_weight_ptrs(w),
-            fwd.ops.data_ptr(), npad, torch.cuda.current_stream(dev).cuda_stream)
+            fwd.relu.data_ptr(), N, g_sigma.data_ptr(), g_rgb.data_ptr(), g_amb.data_ptr(), packed.data_ptr(),
+            w.pos_B.data_ptr(), w.amb_B.data_ptr(), fwd.ops.data_ptr(), npad,
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, rc, "fused_field_bwd_chain")
     fused_field_bwd_chain.launches += 1
     return fwd.ops

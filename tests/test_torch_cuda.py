@@ -420,6 +420,95 @@ def test_chain_operands_match_plain(cuda_setup, n):
     assert torch.equal(k["xyzb"][:n].float(), p["xyzb"])
 
 
+# the chain's ragged edges, with its tile (OPERAND_TILE, 64 points) and its
+# block step of three consumer tiles (192 points): one point, a tile +- 1
+# (64 and 65 leave the step's last tile wholly past n), a step - 1, a step
+# + 1 (the second step's first tile holds one point, its others lie wholly
+# past n), and more than twice as many steps as an H100 has SMs (132), so
+# that every persistent block loops
+CHAIN_EDGES = [1, 63, 64, 65, 191, 193, 2 * 132 * 192 + 77]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", CHAIN_EDGES)
+def test_chain_on_plain_inputs_at_ragged_n(cuda_setup, n):
+    """The chain alone, on the plain train mode's outputs, ReLU masks and
+    gate packed as the train mode writes them, vs fused_field_chain_plain
+    on the same: the masks are the same on both sides, and only the
+    products' float32 summation order differs (wgmma tiles vs float32
+    matmuls), which can flip a bf16 rounding by one step but no mask. So
+    every gradient operand is within CHAIN_MAX_REL of its largest entry at
+    every point, its rows past n are zero, and the activation half of the
+    buffer is left as it was. Each launch counted."""
+    dev, w, ab, cb = cuda_setup
+    xyz, d = _points(n, dev, seed=13)
+    gs, gr, ga = _out_grads(n, dev, seed=14)
+    before = ff.fused_field_bwd_chain.launches
+    with torch.no_grad():
+        plain = ff.fused_field_train_plain(xyz, d, ab, cb, w)
+        fwd = ff.FieldTrainOutputs(plain.sigma.contiguous(), plain.rgb.contiguous(), plain.amb.contiguous(),
+                                   ff.pack_operands(plain.ops), ff.pack_relu_masks(plain.relu),
+                                   plain.gate.to(torch.uint8))
+        acts = fwd.ops.clone()
+        buf = ff.fused_field_bwd_chain(xyz, fwd, w, gs, gr, ga)
+        want = ff.fused_field_chain_plain(xyz, plain, w, gs, gr, ga)
+    torch.cuda.synchronize()
+    assert ff.fused_field_bwd_chain.launches == before + 1
+    k, k0 = ff.unpack_operands(buf, ff.operand_points(n)), ff.unpack_operands(acts, ff.operand_points(n))
+    for name in ff.OPERAND_WRITERS["fused_field"]:
+        assert torch.equal(k[name], k0[name]), name
+    worst = {}
+    for name in ff.OPERAND_WRITERS["fused_field_bwd"]:
+        assert not k[name][n:].float().any(), name
+        a, b = k[name][:n].float(), want[name].float()
+        assert torch.isfinite(a).all(), name
+        worst[name] = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+    print(f"[chain] n = {n}, plain inputs: max |chain - plain| / max |plain| "
+          + ", ".join(f"{k_}={v:.2e}" for k_, v in worst.items()))
+    for name, rel in worst.items():
+        assert rel <= CHAIN_MAX_REL, (name, rel)
+
+
+@pytest.mark.cuda
+def test_fused_field_train_after_an_in_place_update(cuda_setup):
+    """Two steps of fused_field_train on the same weight tensors with an
+    in-place update between them (as an optimizer steps them): the second
+    backward's gradients equal, bit for bit, those of fused_field_backward
+    on freshly packed copies of the updated weights, and agree with the
+    plain backward as test_backward_kernel_matches_plain holds it. A chain
+    stream packed before the update (stale) fails both."""
+    import chip_smoke
+
+    dev, w0, _, _ = cuda_setup
+    n = 3000
+    xyz, d = _points(n, dev, seed=15)
+    gs, gr, ga = _out_grads(n, dev, seed=16)
+    g = torch.Generator().manual_seed(17)
+    cond = (torch.randn(1, 64, generator=g) * 0.5).to(dev).requires_grad_()
+    ind = (torch.randn(4, generator=g) * 0.5).to(dev).requires_grad_()
+    w = ff.FieldWeights(*[t.clone().requires_grad_() for t in w0])
+
+    def step():
+        s, c, a = ff.fused_field_train(xyz, d, cond, ind, w)
+        return torch.autograd.grad((s * gs).sum() + (c * gr).sum() + (a * ga).sum(), [cond, ind, *w])
+
+    first = step()
+    with torch.no_grad():
+        for t, gt in zip(w, first[2:]):
+            t.sub_(gt.to(t.dtype) * (0.5 * t.abs().max() / gt.abs().max().clamp_min(1e-30)).to(t.dtype))
+    second = step()
+    with torch.no_grad():
+        fresh = ff.FieldWeights(*[t.detach().clone() for t in w])
+        ab, cb = ff.bias_rows(cond.detach(), ind.detach(), fresh)
+        blocks = ff.fused_field_backward(xyz, d, ab, cb, fresh, gs, gr, ga)
+        stats, _ = chip_smoke.backward_vs_plain(xyz, d, ab, cb, fresh, gs, gr, ga)
+    assert not torch.equal(first[2], second[2])  # the update moved the gradients
+    assert torch.equal(second[2], blocks[0])  # pos_B, float32
+    assert torch.equal(second[4], blocks[3].to(second[4].dtype))  # amb_w2, bf16 as the weight
+    for name, cos, _, rel in stats["clean"]:
+        assert cos >= 0.9995 and rel <= 0.05, (name, cos, rel)
+
+
 @pytest.mark.cuda
 def test_fused_field_train_backward_twice_on_card(cuda_setup):
     """fused_field_train on the card: the forward launches the train mode
