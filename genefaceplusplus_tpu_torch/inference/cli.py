@@ -9,9 +9,11 @@ The flags and defaults of `genefaceplusplus_tpu/inference/cli.py`, plus
 (the port computes no HuBERT, so a bare `--drv_aud` wav raises). The output
 is an uncompressed AVI with the audio (`<stem>.avi` for an .mp4 name).
 `--postnet_ckpt` names a postnet work dir: its refiner runs on the a2m's
-landmarks. Flags whose function the port lacks raise when set away from
-their default: `--debug`, `--color_topk`, `--compact_frac` and
-`--n_devices` above 1.
+landmarks. `--color_topk K` runs the colour MLP on the K samples of highest
+weight a ray; `--compact_frac` runs the head field on a budget of live
+samples (a float, or "auto" to measure the request's poses). Flags whose
+function the port lacks raise when set away from their default: `--debug`
+and `--n_devices` above 1.
 """
 
 from __future__ import annotations
@@ -44,8 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--torso_crop", type=str, default="auto", help="auto | off")
     p.add_argument("--sr_crop", type=str, default="auto", help="auto | off")
     p.add_argument("--frames_per_dispatch", type=int, default=8, help="frames rendered per chunk")
-    p.add_argument("--color_topk", type=int, default=0)
-    p.add_argument("--compact_frac", type=str, default="0")
+    p.add_argument("--color_topk", type=int, default=0,
+                   help="colour MLP on only the K highest-weight samples a ray (0 = all)")
+    p.add_argument("--compact_frac", type=str, default="0",
+                   help="head field on a budget of frac x rays x samples live slots: a float, "
+                        "'auto' (measured on the request's poses), or 0 = off")
     p.add_argument("--n_devices", type=int, default=1)
     p.add_argument("--device", type=str, default=None, help="cuda (default) | cpu")
     return p
@@ -56,10 +61,6 @@ def unported_flags(args) -> None:
     ported (ROADMAP.md names each item)."""
     if args.debug:
         raise NotImplementedError("--debug: the SECC and landmark panels are not ported (ROADMAP queue A5)")
-    if args.color_topk != 0:
-        raise NotImplementedError("--color_topk: the top-k colour approximation is not ported (ROADMAP queue A7)")
-    if args.compact_frac == "auto" or float(args.compact_frac) != 0.0:
-        raise NotImplementedError("--compact_frac: live-sample compaction is not ported (ROADMAP queue A7)")
     if args.n_devices > 1:
         raise NotImplementedError("--n_devices: the port serves on one card; ray sharding over several is "
                                   "not ported (ROADMAP queue A7)")
@@ -93,6 +94,8 @@ def main(argv=None) -> str:
         "torso_crop": args.torso_crop,
         "sr_crop": args.sr_crop,
         "frames_per_dispatch": args.frames_per_dispatch,
+        "color_topk": args.color_topk,
+        "compact_frac": args.compact_frac,
     }
     out = infer.infer_once(inp)
     print(f"wrote {out}")

@@ -53,9 +53,10 @@ from genefaceplusplus_tpu_torch.models.postnet.lle import compute_lle_projection
 from genefaceplusplus_tpu_torch.models.postnet.models import postnet_from_hparams
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
 from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoConfig, TorsoField
-from genefaceplusplus_tpu_torch.models.renderer import RenderOptions
+from genefaceplusplus_tpu_torch.models.renderer import RenderOptions, make_aabb
 from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
 from genefaceplusplus_tpu_torch.ops import fused_field as ff
+from genefaceplusplus_tpu_torch.ops import raymarch
 from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
 from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint, restore_into
 from genefaceplusplus_tpu_torch.utils.convert_jax import flax_leaves, unwrap_train_state
@@ -497,14 +498,68 @@ class GeneFaceInfer:
         }
 
     def render_options(self, inp: Mapping[str, Any]) -> RenderOptions:
-        """The production options (probe entry, S=10, T_thresh 1e-2)."""
+        """The production options (probe entry, S=10, T_thresh 1e-2) with
+        the request's `color_topk` and `compact_frac`. `forward_secc2video`
+        turns a `compact_frac` of "auto" into a measured budget; where "auto"
+        reaches this unresolved (a stream, whose pose track is not known
+        yet) compaction is off, as in JAX's stream."""
+        cf = inp.get("compact_frac", 0.0)
         return RenderOptions(
             num_samples=int(inp.get("num_samples", 10)),
             T_thresh=float(inp.get("T_thresh", 1e-2)),
             entry_mode=str(inp.get("entry_mode", "probe")),
             color_topk=int(inp.get("color_topk", 0)),
-            compact_frac=float(inp.get("compact_frac", 0.0)),
+            compact_frac=0.0 if str(cf) == "auto" else float(cf),
         )
+
+    @torch.no_grad()
+    def live_sample_counts(self, poses, opts: RenderOptions, image_hw: tuple, max_probe: int = 32) -> np.ndarray:
+        """The marcher's live-sample count of the full (H, W) frame at up to
+        `max_probe` evenly spaced poses of `poses` (interval march mode).
+        The mask depends on the occupancy and the rays only, so a count is
+        exact and needs no field. Reads the counts to the host once."""
+        H, W = image_hw
+        cfg, dev = self.head_cfg, self.device
+        aabb = make_aabb(cfg.bound, device=dev)
+        occ_box = raymarch.occupancy_aabb(self.occupancy, cfg.bound)
+        T = len(poses)
+        counts = []
+        for i in np.unique(np.linspace(0, T - 1, min(T, max_probe)).astype(int)):
+            pose = torch.as_tensor(np.asarray(poses[i]), dtype=torch.float32, device=dev)
+            ro, rd = (x[0] for x in pixel_rays(pose[None], self.dataset.intrinsics, H, W))
+            nears, fars = raymarch.near_far_from_aabb(ro, rd, aabb, cfg.min_near)
+            t_entry = t_exit = None
+            if opts.entry_mode == "probe":
+                t_entry, t_exit = raymarch.entry_exit_depth_map(
+                    ro, rd, self.occupancy, occ_box, cfg.bound, (H, W), stride=opts.probe_stride,
+                    coarse_factor=opts.probe_coarse_factor, n_probe=opts.n_probe, min_near=cfg.min_near)
+            m = raymarch.march_rays_interval(
+                ro, rd, nears, fars, occ_box, bound=cfg.bound, max_steps=opts.max_steps,
+                num_samples=opts.num_samples, min_near=cfg.min_near, grid_size=self.occupancy.shape[0],
+                t_entry=t_entry, t_exit=t_exit)
+            counts.append(m.mask.sum())
+        return torch.stack(counts).cpu().numpy()
+
+    def _auto_compact_frac(self, poses, opts: RenderOptions, image_hw: tuple, head_crop,
+                           max_probe: int = 32, margin: float = 1.25) -> float:
+        """A `compact_frac` that covers the live samples of these poses: the
+        largest of `live_sample_counts`, times `margin` for the poses
+        between the probed ones, over the head render's R*S slots (R the
+        crop window's rays where `head_crop` is active: every live sample
+        lies inside it), rounded up to the renderer's 512 slots. Returns 0.0
+        (off) when it would not skip 10 % of the slots, or in grid march
+        mode."""
+        if opts.march_mode != "interval":
+            return 0.0
+        H, W = image_hw
+        max_live = int(self.live_sample_counts(poses, opts, image_hw, max_probe).max())
+        R = head_crop[0] * head_crop[1] if head_crop is not None else H * W
+        N = R * opts.num_samples
+        frac = min(max(margin * max_live / float(N), 1.0 / opts.num_samples), 1.0)
+        # the renderer's budget M: equal budgets give equal options
+        M = min(N, max(512, ((int(frac * N) + 511) // 512) * 512))
+        frac = M / float(N)
+        return 0.0 if frac >= 0.9 else float(frac)
 
     def render_frame(self, rays_o, rays_d, cond_window, eye_area_percent, lm68,
                      inp: Optional[Mapping[str, Any]] = None, fused_fn=ff.fused_field):
@@ -585,9 +640,22 @@ class GeneFaceInfer:
                            inp: Optional[Mapping[str, Any]] = None) -> Iterator[np.ndarray]:
         """Yield the batch's frames as uint8 arrays, [2H, 2W, 3] with SR and
         [H, W, 3] without, rendered through the head field one chunk at a
-        time."""
+        time. A `compact_frac` of "auto" becomes the budget that
+        `_auto_compact_frac` measures on the batch's poses; the active
+        render options are printed first."""
+        inp = dict(inp or {})
+        ds = self.dataset
         T = int(batch["T"])
-        chunk = max(1, min(int(dict(inp or {}).get("frames_per_dispatch", 8)), T))
+        chunk = max(1, min(int(inp.get("frames_per_dispatch", 8)), T))
+        head_crop = resolve_crop(inp, "head_crop", self.head_crop)
+        if str(inp.get("compact_frac", 0.0)) == "auto":  # a budget that covers this request's poses
+            inp["compact_frac"] = self._auto_compact_frac(batch["poses"], self.render_options(inp),
+                                                          (ds.H, ds.W), head_crop)
+        opts = self.render_options(inp)
+        print(f"| render: entry_mode={opts.entry_mode} num_samples={opts.num_samples} "
+              f"color_topk={opts.color_topk} compact_frac={opts.compact_frac} T_thresh={opts.T_thresh} "
+              f"head_crop={head_crop} torso_crop={resolve_crop(inp, 'torso_crop', self.torso_crop)} "
+              f"sr_crop={'on' if resolve_crop(inp, 'sr_crop', self.sr_crop) else None}")
         yield from self.drain_frames(c for start in range(0, T, chunk)
                                      for c in self.launch_secc2video(batch, inp, start, start + chunk))
 

@@ -44,7 +44,12 @@ def stream_infer(infer, wav16k: np.ndarray, inp: Optional[Dict] = None,
     with `inp['resume_from_frame'] = k`; the stream restarts at frame k's
     audio position and pose (both functions of the absolute frame index),
     so a resume at a chunk boundary gives the uninterrupted stream's frames
-    (given the same a2m draws: at temperature 0 there are none)."""
+    (given the same a2m draws: at temperature 0 there are none).
+
+    `inp['color_topk']` and a float `inp['compact_frac']` apply to every
+    chunk; a `compact_frac` of "auto" is off here, as in JAX's stream: the
+    budget is measured on a request's poses, which a stream does not know
+    ahead."""
     inp = default_inp(**(inp or {}))
     if "hubert_full" not in inp:
         raise RuntimeError("the port computes no HuBERT features: pass inp['hubert_full'], the request's "

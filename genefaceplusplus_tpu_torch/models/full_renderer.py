@@ -192,7 +192,9 @@ def render_full_frame(head_model: RADNeRF, rays_o, rays_d, cond_window, occupanc
     With `field_weights` (from `fused_field.weights_from_params`) the field
     is `fused_fn` (`fused_field`, or `fused_field_plain` to compare) with
     the frame's bias rows computed once; without, it is `RADNeRF.field`.
-    With `head_crop` the head renders on a (ch, cw) window at a per-frame
+    `opts.compact_frac` runs that field on the compact buffer;
+    `opts.color_topk` runs the float32 `RADNeRF.field_sigma` and
+    `field_color` instead (the top-K colour path). With `head_crop` the head renders on a (ch, cw) window at a per-frame
     offset and is pasted into a zero canvas (lossless while the window
     covers the hit set). The offset is read to the host once per frame to
     slice the rays.
@@ -272,6 +274,14 @@ def _render_head(head_model: RADNeRF, rays_o, rays_d, cond_window, occupancy, op
             return fused_fn(xyz, dirs, amb_bias, col_bias, field_weights,
                             amb_dim=cfg.ambient_coord_dim)
 
+    # the split field for opts.color_topk: the float32 RADNeRF stages, as in
+    # JAX (the top-K path runs no fused kernel)
+    def sigma_fn(xyz):
+        return head_model.field_sigma(xyz, cond_feat)
+
+    def color_fn(geo_feat, dirs):
+        return head_model.field_color(geo_feat, dirs, ind_code)
+
     H, W = image_hw
     crop_fits = None
     if head_crop is not None and tuple(head_crop) != (H, W):
@@ -282,13 +292,15 @@ def _render_head(head_model: RADNeRF, rays_o, rays_d, cond_window, occupancy, op
         ro_c = rays_o.reshape(H, W, 3)[r0:r0 + ch, c0:c0 + cw].reshape(-1, 3)
         rd_c = rays_d.reshape(H, W, 3)[r0:r0 + ch, c0:c0 + cw].reshape(-1, 3)
         out = render_rays(field_fn, ro_c, rd_c, occupancy, bound=cfg.bound,
-                          min_near=cfg.min_near, bg_color=0.0, opts=opts, image_hw=(ch, cw))
+                          min_near=cfg.min_near, bg_color=0.0, opts=opts, image_hw=(ch, cw),
+                          sigma_fn=sigma_fn, color_fn=color_fn)
         head_image = _paste(out.head_image, (H, W), (r0, c0, ch, cw))
         weights_sum = _paste(out.weights_sum[:, None], (H, W), (r0, c0, ch, cw))[:, 0]
         depth_map = _paste(out.depth_map[:, None], (H, W), (r0, c0, ch, cw))[:, 0]
     else:
         out = render_rays(field_fn, rays_o, rays_d, occupancy, bound=cfg.bound,
-                          min_near=cfg.min_near, bg_color=0.0, opts=opts, image_hw=image_hw)
+                          min_near=cfg.min_near, bg_color=0.0, opts=opts, image_hw=image_hw,
+                          sigma_fn=sigma_fn, color_fn=color_fn)
         head_image, weights_sum, depth_map = out.head_image, out.weights_sum, out.depth_map
 
     return head_image, weights_sum, depth_map, crop_fits

@@ -36,6 +36,18 @@ def composite_rays(sigmas, rgbs, ambient, deltas, ts, mask, T_thresh: float = 1e
     return CompositeResult(weights_sum, ambient_sum, depth, image, w)
 
 
+def composite_weights(sigmas, deltas, mask, T_thresh: float = 1e-4):
+    """The weights of `composite_rays` without colours: (weights [R, S],
+    keep [R, S]). The top-K colour path needs the weights before it picks
+    the samples that get a colour."""
+    sigmas = torch.where(mask, sigmas, torch.zeros_like(sigmas))
+    alphas = 1.0 - torch.exp(-sigmas * deltas)
+    one_minus = 1.0 - alphas
+    T = torch.cumprod(torch.cat([torch.ones_like(one_minus[:, :1]), one_minus[:, :-1]], dim=1), dim=1)
+    keep = (T >= T_thresh) & mask
+    return alphas * T * keep, keep
+
+
 def blend_background(image, weights_sum, bg_color):
     """image += (1 - weights_sum) * bg; clamp to [0, 1]."""
     return torch.clamp(image + (1.0 - weights_sum)[..., None] * bg_color, 0.0, 1.0)

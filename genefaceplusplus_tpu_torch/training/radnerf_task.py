@@ -6,7 +6,9 @@ adaptive lambda_ambient controller; grouped Adam; perturbed marching. The
 field is the f32 model field, or with `use_fused_field` the fused field
 (`fused_field_train`: the CUDA forward and backward kernels on the card),
 whose gradients reach the parameters through the differentiable weight
-folding.
+folding. With `opts.compact_frac` (the head task's train-side compaction)
+the field runs on the compact buffer of live samples: the kernels then
+take M points, a multiple of 512, not R*S.
 
 PyTorch idiom: the `TrainState` holds the module, its optimizer and a
 `torch.Generator` for the ray noise, and `train_step` updates them in

@@ -17,8 +17,14 @@ trains its heads) trains with the float32 field, its tables through
 kernels) is Fourier-only and refuses it. Validation renders a grid head in
 chunks of 16,384 rays, as JAX's does.
 
-Not ported (it raises NotImplementedError when it would run): train-side
-live-sample compaction (ROADMAP).
+Train-side live-sample compaction (`train_compact_start` > 0): at that
+step the task measures the marcher's live fraction on probe batches
+(`_live_frac_probe`, the same numpy draws as JAX's) and from then on runs
+the train step with `compact_frac` = that fraction x
+`train_compact_margin` (the field on the live samples only: B1's train
+mode and B2 on M points with `use_fused_field`); where the budget would be
+85 % or more it keeps the full-slot step. Each grid refresh probes again
+and warns when the budget no longer covers the live samples.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ import torch
 from genefaceplusplus_tpu_torch.data import image_io
 from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, get_boundary_mask
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
-from genefaceplusplus_tpu_torch.models.renderer import RenderOptions, render_rays
+from genefaceplusplus_tpu_torch.models.renderer import RenderOptions, make_aabb, render_rays
+from genefaceplusplus_tpu_torch.ops import raymarch
 from genefaceplusplus_tpu_torch.training import frame_store
 from genefaceplusplus_tpu_torch.training import losses as L
 from genefaceplusplus_tpu_torch.training.grid_updater import mark_untrained_grid, update_density_grid
@@ -103,9 +110,6 @@ class HeadNeRFTask:
             raise ValueError(f"use_fused_field with grid_type={model_cfg.grid_type!r}: the fused field is a "
                              "Fourier-only kernel (csrc/fused_field.cu); a grid head trains with the float32 "
                              "field (use_fused_field=False)")
-        if task_cfg.train_compact_start > 0:
-            raise NotImplementedError("train_compact_start > 0: train-side compaction is not "
-                                      "ported (ROADMAP)")
         self.dataset = dataset
         self.val_dataset: Optional[RADNeRFDataset] = None
         self.cfg = model_cfg
@@ -117,6 +121,9 @@ class HeadNeRFTask:
                                   num_samples=task_cfg.num_samples, perturb=True)
         self._train_step = make_train_step(self.opts, hp, use_fused_field=task_cfg.use_fused_field,
                                            fused_tile=task_cfg.fused_tile)
+        # train-side compaction: built at train_compact_start, from a measured budget
+        self._compact_step = None
+        self._compact_telemetry: Dict[str, float] = {}
         self._host_step: Optional[int] = None
         self.np_rng = np.random.RandomState(seed)
         self.seed = seed
@@ -241,6 +248,60 @@ class HeadNeRFTask:
             inds = self.np_rng.randint(0, ds.H * ds.W, size=self.task_cfg.n_rays)
         return {"frame_idx": idx, "inds": inds.astype(np.int32), "_is_lip": is_lip}
 
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _live_frac_probe(self, n_probes: int = 8) -> float:
+        """The largest marcher live-sample fraction over `n_probes` train
+        batches drawn as JAX's probe draws them (a frame, the rays, the
+        perturbation noise, from `np_rng`), under the current occupancy:
+        the fraction the compaction budget must cover. Only the march runs.
+        Reads the fractions to the host once."""
+        ds, cfg, opts, dev = self.dataset, self.cfg, self.opts, self.device
+        n = self.task_cfg.n_rays
+        aabb = make_aabb(cfg.bound, device=dev)
+        occ_box = raymarch.occupancy_aabb(self.occupancy, cfg.bound)
+        fracs = []
+        for _ in range(n_probes):
+            idx = int(self.np_rng.randint(len(ds)))
+            inds = self.np_rng.randint(0, ds.H * ds.W, size=n)
+            noise = torch.from_numpy(self.np_rng.random_sample(n).astype(np.float32)).to(dev)
+            pose = torch.from_numpy(np.asarray(ds.frame_pose(idx), np.float32)[None]).to(dev)
+            rays_o, rays_d = (x[0] for x in pixel_rays(pose, ds.intrinsics, ds.H, ds.W,
+                                                       torch.from_numpy(inds.astype(np.int32)[None]).to(dev)))
+            nears, fars = raymarch.near_far_from_aabb(rays_o, rays_d, aabb, cfg.min_near)
+            m = raymarch.march_rays_interval(
+                rays_o, rays_d, nears, fars, occ_box, bound=cfg.bound, max_steps=opts.max_steps,
+                num_samples=opts.num_samples, noise=noise if opts.perturb else None, min_near=cfg.min_near,
+                grid_size=self.occupancy.shape[0])
+            fracs.append(m.mask.float().mean())
+        return max(torch.stack(fracs).tolist())
+
+    def _enable_train_compaction(self):
+        """Measure the live budget and build the compacted train step; keep
+        the full-slot step where the budget leaves no headroom (>= 85 %)."""
+        frac = self._live_frac_probe()
+        budget = min(1.0, frac * self.task_cfg.train_compact_margin)
+        self._compact_telemetry = {"compact/probe_live_frac": frac, "compact/budget_frac": budget}
+        self._compact_step = self._compact_step_for(budget)
+
+    def _compact_step_for(self, budget: float):
+        return self._train_step if budget >= 0.85 else self._build_compact_step(budget)
+
+    def _build_compact_step(self, budget: float):
+        """The train step with the field on a compacted budget (a subclass
+        with its own step overrides this)."""
+        opts_c = dataclasses.replace(self.opts, compact_frac=budget)
+        return make_train_step(opts_c, self.hp, use_fused_field=self.task_cfg.use_fused_field,
+                               fused_tile=self.task_cfg.fused_tile)
+
+    def _step_fn(self):
+        """The full-step function of this step: the compacted one from
+        `train_compact_start` on (built there, after the batch was drawn)."""
+        cs = self.task_cfg.train_compact_start
+        if cs > 0 and self._compact_step is None and self._host_step >= cs:
+            self._enable_train_compaction()
+        return self._compact_step if self._compact_step is not None else self._train_step
+
     def train_step(self, state: TrainState, batch, noise: Optional[torch.Tensor] = None):
         if self._host_step is None:
             self._host_step = int(state.global_step)
@@ -251,7 +312,8 @@ class HeadNeRFTask:
         if batch.get("_is_lip", False):
             state, metrics = self._lip_step(state, gathered, noise)
         else:
-            state, metrics = self._train_step(state, gathered, self.occupancy, noise)
+            state, metrics = self._step_fn()(state, gathered, self.occupancy, noise)
+            metrics.update(self._compact_telemetry)
         metrics.update(self.grid_telemetry)
         self._host_step += 1
         return state, metrics
@@ -305,6 +367,15 @@ class HeadNeRFTask:
             "density_grid/mean_density": self.mean_density,
             "density_grid/occupancy_rate": float(self.occupancy.float().mean()),
         }
+        # the compaction budget was measured at the switch: probe the live
+        # fraction again at each refresh and warn when it no longer fits
+        if self._compact_step is not None and self._compact_step is not self._train_step:
+            frac = self._live_frac_probe(n_probes=1)
+            self._compact_telemetry["compact/probe_live_frac"] = frac
+            budget = self._compact_telemetry.get("compact/budget_frac", 1.0)
+            if frac > budget:
+                print(f"| WARNING: live-sample fraction {frac:.3f} exceeds the compaction budget {budget:.3f}: "
+                      "tail samples are being dropped; raise train_compact_margin or restart compaction")
 
     # ------------------------------------------------------------------
     def validate(self, state: TrainState, max_frames: int = 2, save_dir: str = "",
@@ -368,7 +439,8 @@ class HeadNeRFTask:
         return {"np_rng": numpy_rng_state(self.np_rng), "grid": generator_state(self._grid_gen),
                 "lip_flag": np.asarray(self._finetune_lip_flag),
                 "mean_density": np.asarray(self.mean_density, np.float64),
-                "grid_telemetry": {k: np.asarray(v, np.float64) for k, v in self.grid_telemetry.items()}}
+                "grid_telemetry": {k: np.asarray(v, np.float64) for k, v in self.grid_telemetry.items()},
+                "compact": {k: np.asarray(v, np.float64) for k, v in self._compact_telemetry.items()}}
 
     def load_host_state(self, d: Dict):
         set_numpy_rng_state(self.np_rng, d["np_rng"])
@@ -376,3 +448,8 @@ class HeadNeRFTask:
         self._finetune_lip_flag = bool(d["lip_flag"])
         self.mean_density = float(d["mean_density"])
         self.grid_telemetry = {k: float(v) for k, v in d["grid_telemetry"].items()}
+        # a compaction switched on before the save resumes with its budget, unprobed
+        self._compact_telemetry = {k: float(v) for k, v in d.get("compact", {}).items()}
+        self._compact_step = None
+        if self._compact_telemetry:
+            self._compact_step = self._compact_step_for(self._compact_telemetry["compact/budget_frac"])

@@ -11,7 +11,9 @@ blocks compute in bf16 by default (`sr_dtype`) with float32 parameters,
 and the optimizer steps the SR's `noise_const` buffers as optax steps
 JAX's (they are in its params tree). Validation adds `val_sr_psnr`, the
 SR frame against the stored full-resolution gt, and saves the SR renders
-as PNG.
+as PNG. From `train_compact_start` on the head field runs on a compacted
+budget of live samples (the head task's switch; the batch is a full frame,
+so the live fraction is the head's screen coverage).
 
 Not ported: the frozen dual discriminator's feature matching
 (`lambda_dual_fm > 0` raises; ROADMAP queue A7).
@@ -20,6 +22,7 @@ Not ported: the frozen dual discriminator's feature matching
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Dict, Optional
 
@@ -30,7 +33,7 @@ from torch import nn
 from genefaceplusplus_tpu_torch.data import image_io
 from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, resize_bilinear
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
-from genefaceplusplus_tpu_torch.models.renderer import render_rays
+from genefaceplusplus_tpu_torch.models.renderer import RenderOptions, render_rays
 from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
 from genefaceplusplus_tpu_torch.training import frame_store
 from genefaceplusplus_tpu_torch.training import losses as L
@@ -62,6 +65,7 @@ class SRHeadNeRFTask(HeadNeRFTask):
                 "models/eg3d_discriminator.py, models/dual_discriminator.py) is not ported "
                 "(ROADMAP queue A7)")
         super().__init__(dataset, model_cfg, task_cfg, hp, seed, device)
+        self._train_step = functools.partial(self._sr_step, opts=self.opts)
         self.sr_dtype = torch.bfloat16 if task_cfg.sr_dtype == "bfloat16" else torch.float32
         self.perceptual = perceptual_from_task_config(task_cfg, self.device)
 
@@ -128,31 +132,37 @@ class SRHeadNeRFTask(HeadNeRFTask):
         self._device_frames()
         return {"frame_idx": int(self.np_rng.randint(len(self.dataset)))}
 
+    def _build_compact_step(self, budget: float):
+        """The SR step with the head field on a compacted budget."""
+        return functools.partial(self._sr_step, opts=dataclasses.replace(self.opts, compact_frac=budget))
+
     def train_step(self, state: TrainState, batch, noise: Optional[torch.Tensor] = None):
         """One SR step; `noise` [H*W] overrides the draw from
         `state.generator`."""
         if self._host_step is None:
             self._host_step = int(state.global_step)
         step = self._host_step
+        step_fn = self._step_fn()
         b = self._gather(self._device_frames(), int(batch["frame_idx"]))
-        state, metrics = self._sr_step(state, b, use_sr=step >= self.task_cfg.sr_start_iters,
-                                       use_lpips=step >= self.task_cfg.lpips_start_iters, noise=noise)
+        state, metrics = step_fn(state, b, use_sr=step >= self.task_cfg.sr_start_iters,
+                                 use_lpips=step >= self.task_cfg.lpips_start_iters, noise=noise)
+        metrics.update(self._compact_telemetry)
         self._host_step = step + 1
         return state, metrics
 
     def _sr_step(self, state: TrainState, batch: Dict, use_sr: bool, use_lpips: bool,
-                 noise: Optional[torch.Tensor] = None):
+                 noise: Optional[torch.Tensor] = None, *, opts: RenderOptions):
         head, sr_model = state.model["head"], state.model["sr"]
         cfg, hp, tcfg = self.cfg, self.hp, self.task_cfg
         H, W = self.dataset.H, self.dataset.W
-        if noise is None and self.opts.perturb:
+        if noise is None and opts.perturb:
             noise = torch.rand(batch["rays_o"].shape[:1], generator=state.generator, device=self.device)
         state.opt.zero_grad()
         cond_feat = head.cal_cond_feat(batch["cond"], batch.get("eye_area_percent"))
         ind = head.get_individual_code(batch["idx"])
         out = render_rays(lambda x, d: head.field(x, d, cond_feat, ind), batch["rays_o"],
                           batch["rays_d"], self.occupancy, bound=cfg.bound, min_near=cfg.min_near,
-                          bg_color=batch["bg_color"], opts=self.opts, noise=noise)
+                          bg_color=batch["bg_color"], opts=opts, noise=noise)
         raw = out.rgb_map.reshape(1, H, W, 3)
         mse = L.mse_loss(out.rgb_map, batch["gt_rgb"])
         went = L.weights_entropy_loss(out.weights_sum)

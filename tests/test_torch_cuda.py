@@ -204,20 +204,15 @@ def test_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda_setup):
         ff.fused_field_backward(xyz, d, ab, cb, w, gs.cpu(), gr, ga)
 
 
-@pytest.mark.cuda
-def test_fused_train_step_on_card_matches_cpu(cuda_setup):
-    """One make_train_step with use_fused_field on the card (both kernels)
-    vs the same step on the CPU (plain versions): same params, batch,
-    occupancy and noise at 64^2 x 8 samples. Losses rtol 1e-3, the whole
-    gradient's cosine >= 0.99 (bf16 chains, float32 sums in other orders:
-    tests/test_torch_train.py's fused-path bounds); one forward and one
-    backward launch."""
-    from genefaceplusplus_tpu_torch.models.renderer import RenderOptions
+def _fused_step_card_and_cpu(dev, opts):
+    """One make_train_step with use_fused_field and `opts` on the CPU (plain
+    versions) and on the card (the kernels), same params, batch, occupancy
+    and noise at 64^2 x 8 samples: {device: (metrics, gradient, (forward,
+    backward) launches)}."""
     from genefaceplusplus_tpu_torch.training import radnerf_task as rt
     from genefaceplusplus_tpu_torch.training.schedulers import make_radnerf_optimizer
     from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
-    dev = cuda_setup[0]
     cfg = RADNeRFConfig.from_hparams({**MAY_LM3D_RADNERF, "grid_size": 32})
     init = RADNeRF(cfg, generator=torch.Generator().manual_seed(6)).state_dict()
     g = torch.Generator().manual_seed(7)
@@ -234,7 +229,7 @@ def test_fused_train_step_on_card_matches_cpu(cuda_setup):
     xx, yy, zz = torch.meshgrid(lin, lin, lin, indexing="ij")
     occ = (xx ** 2 + (2.2 * yy) ** 2 + (1.4 * zz) ** 2) < 0.3
     noise = torch.rand(R, generator=g)
-    step = rt.make_train_step(RenderOptions(num_samples=8, perturb=True), use_fused_field=True)
+    step = rt.make_train_step(opts, use_fused_field=True)
     out = {}
     for device in ("cpu", dev):
         model = RADNeRF(cfg).to(device)
@@ -246,12 +241,83 @@ def test_fused_train_step_on_card_matches_cpu(cuda_setup):
         launched = (ff.fused_field.launches - fwd, ff.fused_field_backward.launches - bwd)
         grads = torch.cat([p.grad.detach().double().cpu().flatten() for p in model.parameters()])
         out[str(device)] = ({k: float(v) for k, v in metrics.items()}, grads, launched)
+    return out
+
+
+def _step_card_vs_cpu(out, dev):
     (m_c, g_c, l_c), (m_g, g_g, l_g) = out["cpu"], out[str(dev)]
     assert l_c == (0, 0) and l_g == (1, 1)
     assert g_c.norm() > 0  # the rays hit the occupied region
     for k in ("mse_loss", "weights_entropy_loss", "ambient_loss", "total_loss"):
         np.testing.assert_allclose(m_g[k], m_c[k], rtol=1e-3, err_msg=k)
     assert (g_c @ g_g).item() / (g_c.norm() * g_g.norm()).item() >= 0.99
+
+
+@pytest.mark.cuda
+def test_fused_train_step_on_card_matches_cpu(cuda_setup):
+    """One make_train_step with use_fused_field on the card (both kernels)
+    vs the same step on the CPU (plain versions): same params, batch,
+    occupancy and noise at 64^2 x 8 samples. Losses rtol 1e-3, the whole
+    gradient's cosine >= 0.99 (bf16 chains, float32 sums in other orders:
+    tests/test_torch_train.py's fused-path bounds); one forward and one
+    backward launch."""
+    from genefaceplusplus_tpu_torch.models.renderer import RenderOptions
+
+    dev = cuda_setup[0]
+    _step_card_vs_cpu(_fused_step_card_and_cpu(dev, RenderOptions(num_samples=8, perturb=True)), dev)
+
+
+@pytest.mark.cuda
+def test_compacted_fused_train_step_on_card_matches_cpu(cuda_setup):
+    """The same step with compact_frac 0.5 (B1's train mode, the chain and
+    the weight gradients on the compact buffer of M = 16,384 points) on the
+    card vs its plain version on the CPU, at the bounds above; and the
+    card's compacted step against its full-slot step (the budget covers the
+    live samples: losses rtol 1e-3, gradient cosine >= 0.99)."""
+    from genefaceplusplus_tpu_torch.models.renderer import RenderOptions
+
+    dev = cuda_setup[0]
+    compact = _fused_step_card_and_cpu(dev, RenderOptions(num_samples=8, perturb=True, compact_frac=0.5))
+    _step_card_vs_cpu(compact, dev)
+    full = _fused_step_card_and_cpu(dev, RenderOptions(num_samples=8, perturb=True))[str(dev)]
+    (m_c, g_c, _), (m_f, g_f, _) = compact[str(dev)], full
+    np.testing.assert_allclose(m_c["total_loss"], m_f["total_loss"], rtol=1e-3)
+    assert (g_c @ g_f).item() / (g_c.norm() * g_f.norm()).item() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [512, 1024, "crop"])
+def test_kernel_on_a_compacted_buffer(cuda_setup, budget):
+    """B1 on the compact buffer of live samples (renderer.compact_slots) at
+    M = 512, 1,024 and a head crop's budget (288 x 224 rays x 10 samples,
+    a live fraction of 0.3 x 1.25): against its plain version on the same
+    buffer (the bounds above), and scattered back, equal bit for bit to B1
+    on all N slots at the live samples (a point's result does not depend on
+    its tile)."""
+    from genefaceplusplus_tpu_torch.models.renderer import compact_slots, scatter_slots
+
+    dev, w, ab, cb = cuda_setup
+    R, S = (288 * 224, 10) if budget == "crop" else (4096, 8)
+    N = R * S
+    frac = 0.375 if budget == "crop" else budget / N
+    rs = np.random.RandomState(9)
+    mask = torch.from_numpy(rs.rand(R, S) < (0.3 if budget == "crop" else 0.9 * frac)).to(dev)
+    src, _, dest = compact_slots(mask, frac)
+    assert src.shape[0] == (budget if budget != "crop" else ((int(frac * N) + 511) // 512) * 512)
+    xyz, d = _points(N, dev, seed=3)
+    before = ff.fused_field.launches
+    with torch.no_grad():
+        k = ff.fused_field(xyz[src], d[src], ab, cb, w)
+        p = ff.fused_field_plain(xyz[src], d[src], ab, cb, w)
+        full = ff.fused_field(xyz, d, ab, cb, w)
+    assert ff.fused_field.launches == before + 2
+    for name, a, b in (("log_sigma", k[0].log(), p[0].log()), ("rgb", k[1], p[1]), ("amb", k[2], p[2])):
+        assert torch.isfinite(a).all()
+        e = (a - b).abs()
+        assert e.max().item() <= MAX[name] and e.mean().item() <= MEAN[name], name
+    live = mask.reshape(-1)
+    for a, b in zip(k, full):
+        torch.testing.assert_close(scatter_slots(a, dest, N)[live], b[live], rtol=0, atol=0)
 
 
 # ---- the backward's two kernels: the tile chain and the weight gradients --

@@ -80,11 +80,29 @@ def test_render_rays_probe_matches_jax(scene):
 
 
 def test_render_rays_refuses_unported_approximations(scene):
+    """Both approximations, once refused, now render on the production
+    options: `compact_frac` 0.5 covers this scene's live samples, so its
+    render equals the full one (atol 1e-5, float32 order); `color_topk` 4
+    with the split field keeps the geometry exact and the image close
+    (tests/test_torch_compaction.py holds both to JAX)."""
     s = scene
-    for kw in ({"color_topk": 4}, {"compact_frac": 0.5}):
-        with pytest.raises(NotImplementedError):
-            t_render_rays(None, torch.from_numpy(s["ro"]), torch.from_numpy(s["rd"]),
-                          torch.from_numpy(s["occ"]), 1.0, 0.05, 0.0, TOptions(**OPTS, **kw))
+    tm = s["tm"]
+    cf = tm.cal_cond_feat(torch.from_numpy(s["cond"]), torch.from_numpy(s["eye"]))
+    ind = tm.get_individual_code(0)
+    args = (torch.from_numpy(s["ro"]), torch.from_numpy(s["rd"]), torch.from_numpy(s["occ"]), 1.0, 0.05,
+            torch.from_numpy(s["bg"]))
+    out = {}
+    with torch.no_grad():
+        for name, kw in (("full", {}), ("compact", {"compact_frac": 0.5}), ("topk", {"color_topk": 4})):
+            out[name] = t_render_rays(lambda x, d: tm.field(x, d, cf, ind), *args, TOptions(**OPTS, **kw),
+                                      image_hw=(H, W), sigma_fn=lambda x: tm.field_sigma(x, cf),
+                                      color_fn=lambda g, d: tm.field_color(g, d, ind))
+    for name in ("rgb_map", "depth_map", "weights_sum", "ambient_sum", "weights", "head_image"):
+        # (ambient_pos of a dead sample is 0 in the compacted render)
+        np.testing.assert_allclose(getattr(out["compact"], name).numpy(), getattr(out["full"], name).numpy(),
+                                   atol=1e-5, err_msg=name)
+    np.testing.assert_allclose(out["topk"].weights_sum.numpy(), out["full"].weights_sum.numpy(), atol=1e-6)
+    assert np.abs(out["topk"].rgb_map.numpy() - out["full"].rgb_map.numpy()).mean() < 1e-2
 
 
 @pytest.mark.parametrize("pad_px,multiple", [(2, 4), (12, 16)])

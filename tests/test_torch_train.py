@@ -457,5 +457,6 @@ def test_head_task_draws_match_jax_and_trainer_resumes(data, tmp_path):
     state2 = resumed.fit()
     assert state2.global_step == 6
     assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".ckpt")) == ["model_ckpt_steps_6.ckpt"]
-    with pytest.raises(NotImplementedError):
-        HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), HeadTaskConfig(train_compact_start=10), device="cpu")
+    # train-side compaction, once refused, builds (tests/test_torch_train_compaction.py runs it)
+    compact = HeadNeRFTask(ds_t, TConfig(**FLAGSHIP), HeadTaskConfig(train_compact_start=10), device="cpu")
+    assert compact._compact_step is None and compact.task_cfg.train_compact_start == 10

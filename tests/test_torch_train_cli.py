@@ -305,12 +305,21 @@ def test_sigterm_checkpoints_and_the_rerun_continues(binary, tmp_path):
 
 
 def test_unported_tasks_and_no_card_raise(binary, tmp_path, monkeypatch):
-    """What the tasks do not port raises (train-side compaction, the SR's
-    dual discriminator); without a card the CLI raises unless --device
-    names one."""
-    for stage, extra in (("head", {"train_compact_start": 5}), ("sr", {"lambda_dual_fm": 0.1})):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            run.main(_argv(binary, stage, str(tmp_path / stage), **extra))
+    """What the tasks do not port raises (the SR's dual discriminator);
+    train-side compaction, once refused, switches on at its step (the
+    budget telemetry in the log from that step on); without a card the
+    CLI raises unless --device names one."""
+    work = str(tmp_path / "head")
+    run.main(_argv(binary, "head", work, steps=4, train_compact_start=2))
+    logged = [r for r in _metrics(work) if "total_loss" in r]
+    # full steps from step 3 on carry it; lip steps (lpips_loss) run their own step
+    assert [("compact/budget_frac" in r) for r in logged] == [False, False] + [
+        "lpips_loss" not in r for r in logged[2:]]
+    assert any("compact/budget_frac" in r for r in logged)
+    assert all(0.0 < r["compact/budget_frac"] <= 1.0 and 0.0 < r["compact/probe_live_frac"] <= 1.0
+               for r in logged if "compact/budget_frac" in r)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        run.main(_argv(binary, "sr", str(tmp_path / "sr"), lambda_dual_fm=0.1))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = _argv(binary, "head", str(tmp_path / "card"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
