@@ -113,6 +113,16 @@ Phases (any failure exits non-zero, and no result line is printed):
               Fourier frame of the serve phase, the grid encoders by CUDA
               events, kernels a frame, peak memory). The grid heads run the
               float32 field: neither B1 nor B2 is launched
+  quality     the quality instruments on serve_full's 32 served frames of
+              512^2: the v1 and v2 landmark detectors (metrics/lmd.py, seeded
+              weights) card vs CPU (landmarks 1e-4 of the largest, v2's peak
+              probabilities 1e-5), detect_lmd against the detector's own
+              landmarks (<= 1e-3 px) and a 1/512 shift of them (1 px); the
+              sync scorer (metrics/sync_scorer.py) trained on the card, 500
+              steps of batch 48 on a seeded clip at HuBERT's width (1024),
+              held by its three controls (aligned high at offset 0, shuffled
+              audio and a frozen mouth under half of it) and its offset sweep
+              card vs CPU; ms for the frames' detection, the scorer's ms/step
   train      HeadNeRFTask + Trainer.fit at the same config with
               use_fused_field=True on a synthetic 512^2 identity: 20 steps of
               65,536 rays x 16 samples, grid refreshes at steps 0 and 16,
@@ -172,6 +182,26 @@ Phases (any failure exits non-zero, and no result line is printed):
               and the hashgrid and converted heads on a band; ms/step per stage.
               Neither B1 nor B2 runs: grid heads train and serve with the
               float32 field, as in JAX
+  train_disc  the SR stage's frozen dual discriminator: a full-width seeded fake
+              of the reference's `disc` sub-model (512^2, channel_base 32768,
+              channel_max 512, 8 mapping layers) converted by
+              tools/convert_ckpt.py --type disc; the discriminator alone at
+              512^2, batch 2, card vs CPU (logits and the seven feature maps
+              within 1e-4 of their largest; the feature-matching loss's
+              input gradients against the CPU's float64 ones, within 4x the
+              CPU float32's distance + 1e-4); the CLI's head + SR stage on train_cli's
+              identity with lambda_dual_fm 0.1 from step 1 and that
+              disc_model_dir, 12 steps (the loss in every step, the
+              discriminator bit-equal after, no discriminator leaf in the
+              checkpoint; ms/step beside train_cli's head + SR, the
+              discriminator's passes by CUDA events, peak memory); one SR +
+              FM step card vs CPU (losses 1e-5; the gradients of the head's
+              nn.Linear layers, Fourier projections and the SR's noise
+              strengths against the CPU step's float64 sums as in
+              train_grid, the rest within 1e-4 of their largest; the card's
+              Adam step against the CPU's Adam on the card's gradients, 4
+              ulps + 1e-6 of the update); 8 frames served from the trained
+              dir (one B1 launch each)
   train_audio an identity's tracks (1,000 motion frames at 25 fps: seeded
               HuBERT, a voiced f0 contour, exp and idexp_lm3d smooth in time)
               as trainval_dataset.npy; the training CLI trains the a2m
@@ -953,7 +983,7 @@ def phase_serve_full(dev):
               f"{100.0 * (1.0 - busy / served):.1f} %")
         for name, count, ms in top:
             print(f"[serve_full] profiler top kernel: {ms:.4f} ms a frame in {count:.1f} launches: {name}")
-    return launches, infer, requests
+    return launches, infer, requests, [f for frames in frames_all for f in frames]
 
 
 def phase_serve_compact(dev, infer, requests) -> int:
@@ -2575,12 +2605,18 @@ def train_cli_stage(argv) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
-    step_ms = []
+    step_ms, disc = [], {}
     build = run.build_task
 
     def timed_build(cfg, device=None):
         task = build(cfg, device)
         step = task.train_step
+        if getattr(task, "disc_model", None) is not None:
+            # train_disc: the frozen discriminator's tensors before the run and
+            # its forward passes by CUDA events (two a step: fake, real)
+            disc.update(model=task.disc_model, before=digest(task.disc_model.state_dict().values()), spans=[])
+            task.disc_model.register_forward_pre_hook(lambda *_: disc["spans"].append([cuda_event()]))
+            task.disc_model.register_forward_hook(lambda *_: disc["spans"][-1].append(cuda_event()))
 
         def timed(*args, **kw):
             torch.cuda.synchronize()
@@ -2605,6 +2641,10 @@ def train_cli_stage(argv) -> int:
     out = {"step_ms": step_ms, "global_step": int(state.global_step), "ckpt": os.path.basename(path),
            "ckpt_equal": _trees_equal(ckpt["state_dict"], state_to_flax(state)),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "wall_s": wall}
+    if disc:
+        torch.cuda.synchronize()
+        out.update(disc_equal=digest(disc["model"].state_dict().values()) == disc["before"],
+                   disc_ms=[a.elapsed_time(b) for a, b in disc["spans"]])
     with open(os.path.join(work_dir, "chip_smoke_stage.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -2806,8 +2846,7 @@ def phase_train_cli(dev, root: str):
           f"JPEG {codec['jpeg_bytes']} bytes, PNG {codec['png_bytes']} bytes a frame (noise: entropy "
           f"decoding's worst case)")
     dirs = {s: os.path.join(root, s) for s in TRAIN_CLI_STAGES}
-    common = (f"binary_data_dir={binary},video_id=syn,max_updates={TRAIN_CLI_STEPS},val_check_interval=6,"
-              f"update_extra_interval={TRAIN_CLI_START},tb_log_interval=1")
+    common = train_cli_common(binary)
 
     def argv(stage):
         cfg, extra = TRAIN_CLI_STAGES[stage]
@@ -3124,16 +3163,23 @@ class Float64Sums:
     call, input^T (output gradient) and its bias row sum, from the float32
     operands (a forward hook saves the input, a hook on the output its
     gradient); for every GridEncodeFunction backward, the table gradient
-    accumulated in float64 from the same rows and weights. `refs` maps
-    parameter names to those sums; `spread` to the same sums of the terms'
-    absolute values (how far an entry's terms cancel)."""
+    accumulated in float64 from the same rows and weights; for every
+    Fourier projection x @ B^T, B's gradient (output gradient)^T x; for
+    every SR layer's const noise, its strength's gradient, the sum of the
+    conv output's gradient times the noise. `refs` maps parameter names to
+    those sums; `spread` to the same sums of the terms' absolute values (how
+    far an entry's terms cancel)."""
 
     def __init__(self, model):
+        from genefaceplusplus_tpu_torch.models import superresolution
+        from genefaceplusplus_tpu_torch.ops import fourier_encoder
         from genefaceplusplus_tpu_torch.ops.grid_encoder import GridEncodeFunction
 
         self.model, self.fn = model, GridEncodeFunction
+        self.sr, self.fourier = superresolution, fourier_encoder
         self.names = {p.data_ptr(): n for n, p in model.named_parameters()}
-        self.refs, self.spread, self.hooks = {}, {}, []
+        self.layers = {m: n for n, m in model.named_modules() if isinstance(m, superresolution.SynthesisLayer)}
+        self.refs, self.spread, self.hooks, self.layer = {}, {}, [], None
 
     def _add(self, name, ref, spread):
         self.refs[name] = self.refs.get(name, 0) + ref
@@ -3171,12 +3217,48 @@ class Float64Sums:
             return backward(ctx, grad_out)
 
         self.fn.backward = staticmethod(recorded)
+
+        project = self.project = self.fourier.project
+
+        def projected(x, Bt):
+            p = project(x, Bt)
+            name = self.names.get(Bt.data_ptr())
+            if name is not None and p.requires_grad:
+                a = x.detach().reshape(-1, x.shape[-1]).double()
+
+                def on_grad(g):
+                    g = g.detach().reshape(-1, p.shape[-1]).double()
+                    self._add(name, g.t() @ a, g.abs().t() @ a.abs())
+                p.register_hook(on_grad)
+            return p
+
+        def on_layer(layer, args, kwargs):
+            self.layer = (self.layers[layer], layer, kwargs.get("noise_offset", (0, 0)))
+
+        self.hooks += [m.register_forward_pre_hook(on_layer, with_kwargs=True) for m in self.layers]
+        modulated = self.modulated = self.sr.modulated_conv2d
+
+        def noised(*args, noise=None, **kwargs):
+            out = modulated(*args, noise=noise, **kwargs)
+            if noise is not None and out.requires_grad and self.layer is not None:
+                mod, layer, (r0, c0) = self.layer
+                h, w = out.shape[2:]
+                const = layer.noise_const.detach()[r0:r0 + h, c0:c0 + w].double()
+
+                def on_grad(g):
+                    t = g.detach().double() * const
+                    self._add(mod + ".noise_strength", t.sum(), t.abs().sum())
+                out.register_hook(on_grad)
+            return out
+
+        self.fourier.project, self.sr.modulated_conv2d = projected, noised
         return self
 
     def __exit__(self, *exc):
         for h in self.hooks:
             h.remove()
         self.fn.backward = staticmethod(self.backward)
+        self.fourier.project, self.sr.modulated_conv2d = self.project, self.modulated
 
 
 def grid_grads_card_vs_cpu(cfg, ckpt, dev) -> dict:
@@ -3412,6 +3494,479 @@ def phase_train_grid(dev, binary: str, root: str):
     check(ff.fused_field.launches == 0 and ff.fused_field_bwd_chain.launches == 0,
           "train_grid: a grid head launched the Fourier kernels")
     print("[train_grid] the phase's parts, host wall: " + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()))
+
+
+# train_disc: the SR stage's frozen dual discriminator, as the reference
+# trains with it (radnerf_sr.py's feature matching): a seeded fake of its
+# `disc` sub-model at full width (testing.reference_disc_state: 512^2,
+# channel_base 32768, channel_max 512, 8 mapping layers, 25-d camera)
+# converted by tools/convert_ckpt.py --type disc; the discriminator alone at
+# 512^2, batch DISC_BATCH, card vs CPU; the CLI's head + SR stage on
+# train_cli's identity with lambda_dual_fm DISC_LAMBDA from step 1; one SR +
+# FM step card vs CPU (float32 SR: the bf16 convolutions of cuDNN and
+# oneDNN round differently) from the trained state, batch and noise; then
+# DISC_SERVE_FRAMES frames served from the trained dir.
+DISC_STEP, DISC_BATCH, DISC_LAMBDA, DISC_SERVE_FRAMES = 60_000, 2, 0.1, 8
+DISC_REL = 1e-4  # the discriminator card vs CPU: each output within this of its largest |value|
+# the FM loss's input gradients: the card's distance from the CPU's float64
+# gradient within DISC_ORDER_K times the CPU float32's own, plus DISC_REL
+# (max |d| over the largest |g64|, and the L2 distance over |g64|): an L1 of
+# lrelu features is not smooth, so float32 rounding flips some of its signs
+# and kinks on either device (the CPU's own float32 gradient read 5.8e-3 of
+# the largest entry from float64 at 512^2, the card's 4.8e-3)
+DISC_ORDER_K = 4.0
+# the SR + FM step card vs CPU. Its gradients are not a smooth function of
+# float32 rounding (lrelu and clamps in the SR and the discriminator, ReLUs in
+# the head and the perceptual net, the FM loss's L1), and each device's sums
+# sit within 1.6e-6 of float64 sums of its own operands: card vs CPU (NVIDIA
+# H100 80GB HBM3, 700 W, eight runs) the head's Fourier B and sigma layers
+# read 1.1e-4-2.26e-4 of their largest entry (failing `grad_witness` against
+# the CPU's float64 sums), the SR's noise strengths up to 2.73e-2 of
+# themselves, the noise_const buffers 4e-2-1.7e-1 (L2 1.5e-3-3.5e-3).
+# Held: each parameter within GRID_GRAD_REL of its largest entry, the
+# tensors whose sums `Float64Sums` redoes (the head's nn.Linear layers, both
+# Fourier projections) within FM_GRAD_REL and the card within GRID_GRAD_REL
+# of float64 sums of its own operands; the noise strengths (scalar sums
+# whose terms cancel ~10^3-10^4x) by `grad_witness` against the CPU step's
+# float64 sums; the noise_const buffers (per-pixel sums over a layer's
+# channels) by their L2 distance within FM_CONST_L2 of their norm. Then the
+# card's Adam step replayed on the CPU from the card's gradients: each entry
+# within ADAM_ULPS float32 ulps, plus ADAM_UPDATE_REL of a parameter's update
+FM_GRAD_REL, FM_CONST_L2 = 1e-3, 1e-2
+ADAM_ULPS, ADAM_UPDATE_REL = 4.0, 1e-6
+FM_LOSS_REL = 1e-5  # the SR + FM step's losses card vs CPU
+
+
+def fm_input_grads(disc, inputs, cam, dev, dtype=torch.float32) -> dict:
+    """The feature-matching loss of (image, raw) against the maps of a second
+    pair, and its gradients with respect to both images, on `dev` in
+    `dtype` (float64 copies of the discriminator on the CPU as a witness)."""
+    from genefaceplusplus_tpu_torch.models.eg3d_discriminator import feature_matching_loss
+
+    model = disc.to(dev, dtype)
+    img, raw, rimg, rraw = (t.to(dev, dtype) for t in inputs)
+    img, raw = img.detach().requires_grad_(True), raw.detach().requires_grad_(True)  # leaves on each device
+    with torch.no_grad():
+        _, real = model(rimg, rraw, cam.to(dev, dtype))
+    _, feats = model(img, raw, cam.to(dev, dtype))
+    feature_matching_loss(feats, real).backward()
+    disc.to("cpu", torch.float32)
+    return {"grad_image": img.grad.double().cpu(), "grad_raw": raw.grad.double().cpu()}
+
+
+def disc_card_vs_cpu(disc, dev) -> dict:
+    """The converted discriminator on the card and on the CPU, on seeded
+    inputs in [0, 1] (what the SR task feeds it) at SIZE^2: the logits and
+    each feature map at batch DISC_BATCH, max |card - CPU| over the CPU's
+    largest |value|; the feature-matching loss's input gradients at batch
+    1, the card's and the CPU's each against the CPU's float64 gradient
+    (max |d| over the largest |g64| and the L2 distance over |g64|: the
+    loss is an L1 of lrelu features, so float32 rounding flips some of its
+    signs and kinks, on either device); the card's forward and forward +
+    FM backward by CUDA events."""
+    from genefaceplusplus_tpu_torch.models.eg3d_discriminator import feature_matching_loss
+
+    g = torch.Generator().manual_seed(41)
+    R = SIZE
+    img, raw = torch.rand((DISC_BATCH, 3, R, R), generator=g), torch.rand((DISC_BATCH, 3, R // 2, R // 2), generator=g)
+    cam = torch.randn((DISC_BATCH, 25), generator=g)
+    out = {}
+    for d in ("cpu", dev):
+        with torch.no_grad():
+            logits, feats = disc.to(d)(img.to(d), raw.to(d), cam.to(d))
+        out[str(d)] = {"logits": logits.cpu(), **{f"map{i}": f.cpu() for i, f in enumerate(feats)}}
+    rel = {k: ((out[str(dev)][k] - ref).abs().max() / ref.abs().max()).item() for k, ref in out["cpu"].items()}
+    shapes = [tuple(out["cpu"][f"map{i}"].shape[1:]) for i in range(len(feats))]
+
+    pair = [torch.rand((1, 3, R, R), generator=g), torch.rand((1, 3, R // 2, R // 2), generator=g),
+            torch.rand((1, 3, R, R), generator=g), torch.rand((1, 3, R // 2, R // 2), generator=g)]
+    c1 = torch.randn((1, 25), generator=g)
+    grads = {"card": fm_input_grads(disc, pair, c1, dev), "cpu": fm_input_grads(disc, pair, c1, "cpu"),
+             "f64": fm_input_grads(disc, pair, c1, "cpu", torch.float64)}
+    witness = {}
+    for k, g64 in grads["f64"].items():
+        witness[k] = {f"{who}_{how}": ((grads[who][k] - g64).abs().max() / g64.abs().max()).item() if how == "max"
+                      else ((grads[who][k] - g64).norm() / g64.norm()).item()
+                      for who in ("card", "cpu") for how in ("max", "l2")}
+        witness[k]["card_vs_cpu_max"] = ((grads["card"][k] - grads["cpu"][k]).abs().max() / g64.abs().max()).item()
+
+    model = disc.to(dev)
+    x, r = img.to(dev), raw.to(dev)
+    x.requires_grad_(True)
+    with torch.no_grad():
+        _, real = model(x.detach(), r, cam.to(dev))
+        fwd = cuda_ms(lambda: model(x, r, cam.to(dev)), 5)
+
+    def fwd_bwd():
+        _, f = model(x, r, cam.to(dev))
+        feature_matching_loss(f, real).backward()
+    both = cuda_ms(fwd_bwd, 5)
+    disc.to("cpu")
+    return {"rel": rel, "witness": witness, "shapes": shapes,
+            "ms": {"forward": statistics.median(fwd), "forward_backward": statistics.median(both)}}
+
+
+def fm_step_card_vs_cpu(cfg, ckpt, dev) -> dict:
+    """One SR + FM step of the CLI's task (float32 SR) on the card and on
+    the CPU from a trained checkpoint (its Adam state), one frame and one
+    noise draw, each step's gradient sums also redone in float64
+    (`Float64Sums`): every loss's relative difference; for each gradient
+    tensor (the trained buffers too) max |card - CPU| over the CPU's
+    largest entry and the L2 distance over the CPU's norm, with
+    `grad_witness`'s readings against the CPU step's float64 sums and the
+    card against its own operands' float64 sums where `Float64Sums` has
+    them, and whether the tensor passes its bound (see FM_GRAD_REL); then
+    the card's Adam step against the CPU's Adam applied to the card's
+    gradients from the same state (parameters and both moments,
+    `adam_replay`), and the updated parameters card vs CPU."""
+    from genefaceplusplus_tpu_torch.training import run
+    from genefaceplusplus_tpu_torch.training.schedulers import _moments
+    from genefaceplusplus_tpu_torch.training.trainer import load_flax_state
+
+    cfg = cfg.replace(sr_dtype="float32")
+    grads, after, losses, sums, buffers, noise = {}, {}, {}, {}, set(), None
+    for d, who in (("cpu", "cpu"), (dev, "card")):
+        task = run.build_task(cfg, device=d)
+        task.load_extra_state(ckpt["extra_state"])
+        if noise is None:
+            noise = torch.rand(task.dataset.H * task.dataset.W, generator=torch.Generator().manual_seed(7))
+        state = load_flax_state(task.create_state(), ckpt["state_dict"])
+        with Float64Sums(state.model) as sums[who]:
+            _, m = task.train_step(state, {"frame_idx": 3}, noise=noise.to(d))
+        losses[who] = {k: float(v) for k, v in m.items() if k.endswith("loss")}
+        grads[who] = {k: p.grad.detach().cpu() for k, p in state.opt.named}
+        moms = _moments(state.opt.opt, state.opt.named)
+        after[who] = {k: (p.detach().cpu(), moms[k][0].cpu(), moms[k][1].cpu()) for k, p in state.opt.named}
+        buffers = {k for k, _ in state.model.named_buffers()}
+        if who == "cpu":
+            cpu_task = task
+    rows, zero = {}, []
+    for k, ref in grads["cpu"].items():
+        g_card = grads["card"][k]
+        if ref.abs().max().item() == 0.0:
+            zero.append(k)
+            continue
+        row = {"max": ((g_card - ref).abs().max() / ref.abs().max()).item(),
+               "l2": ((g_card - ref).norm() / ref.norm()).item()}
+        if k in sums["cpu"].refs:
+            _, row["w_card"], row["w_cpu"], row["spread"], row["witness_ok"] = grad_witness(
+                g_card, ref, sums["cpu"].refs[k], sums["cpu"].spread[k])
+            r64 = sums["card"].refs[k].cpu()  # the card against its own operands' float64 sums
+            row["own"] = ((g_card.double() - r64).abs().max() / r64.abs().max()).item()
+        if k.endswith("noise_strength"):
+            row["ok"] = row.get("witness_ok", False)
+        elif k in buffers:
+            row["ok"] = row["l2"] <= FM_CONST_L2
+        elif "own" in row:
+            row["ok"] = row["max"] <= FM_GRAD_REL and row["own"] <= GRID_GRAD_REL
+        else:
+            row["ok"] = row["max"] <= GRID_GRAD_REL
+        rows[k] = row
+    check(all(grads["card"][k].abs().max().item() == 0.0 for k in zero),
+          f"train_disc: a gradient is 0 on the CPU only: {zero}")
+
+    # the card's Adam step, replayed on the CPU from the card's gradients
+    replay = load_flax_state(cpu_task.create_state(), ckpt["state_dict"])
+    before = {k: p.detach().clone() for k, p in replay.opt.named}
+    for k, p in replay.opt.named:
+        p.grad = grads["card"][k].clone()
+    replay.opt.step()
+    mom = _moments(replay.opt.opt, replay.opt.named)
+    adam = {}
+    for k, p in replay.opt.named:
+        for i, (want, name) in enumerate(((p.detach(), "param"), (mom[k][0], "exp_avg"), (mom[k][1], "exp_avg_sq"))):
+            adam[(k, name)] = adam_replay(after["card"][k][i], want, before[k] if name == "param" else None)
+    moved = {k: ((after["card"][k][0] - after["cpu"][k][0]).abs().max().item(),
+                 (after["cpu"][k][0] - before[k]).abs().max().item()) for k in before}
+    return {"rows": rows, "adam": adam, "moved": moved,
+            "loss_rel": {k: abs(losses["card"][k] - v) / abs(v) if v else abs(losses["card"][k])
+                         for k, v in losses["cpu"].items()}}
+
+
+def adam_replay(got, want, before=None) -> tuple:
+    """(max |got - want| over the allowance, ok) for one tensor of an Adam
+    step that two devices computed from the same gradients and state: each
+    entry within ADAM_ULPS float32 ulps of `want`, plus, for a parameter,
+    ADAM_UPDATE_REL of its update `want - before` (the update's own
+    rounding)."""
+    got, want = got.double(), want.double()
+    allow = ADAM_ULPS * torch.finfo(torch.float32).eps * want.abs() + torch.finfo(torch.float32).tiny
+    if before is not None:
+        allow = allow + ADAM_UPDATE_REL * (want - before.double()).abs()
+    ratio = ((got - want).abs() / allow).max().item()
+    return ratio, ratio <= 1.0
+
+
+def phase_train_disc(dev, binary: str, root: str) -> int:
+    """train_disc (module docstring), on train_cli's identity in `binary`
+    (train_cli's work dirs in `root`); returns the fused_field launches of
+    the frames served from the trained dir."""
+    import hashlib
+
+    from genefaceplusplus_tpu_torch.config import load_config, set_hparams
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
+    from genefaceplusplus_tpu_torch.models.eg3d_discriminator import EG3DDualDiscriminator
+    from genefaceplusplus_tpu_torch.models.radnerf_torso import TorsoField
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.testing import reference_disc_state, save_reference_ckpt
+    from genefaceplusplus_tpu_torch.tools import convert_ckpt
+    from genefaceplusplus_tpu_torch.utils.ckpt import get_all_ckpts, get_last_checkpoint, save_flax_checkpoint
+    from genefaceplusplus_tpu_torch.utils.convert_jax import convert_flax_params, export_flax_params
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+
+    # the reference's discriminator at full width, converted
+    t0 = time.perf_counter()
+    src = os.path.join(root, "reference_disc", f"model_ckpt_steps_{DISC_STEP}.ckpt")
+    os.makedirs(os.path.dirname(src))
+    state = reference_disc_state(seed=31, img_resolution=SIZE)
+    save_reference_ckpt(src, state, global_step=DISC_STEP, sub_model="disc")
+    with open(os.path.join(root, "reference_disc", "config.yaml"), "w") as f:
+        f.write(f"final_resolution: {SIZE}\n")  # the reference's config beside its checkpoint
+    disc_dir = os.path.join(root, "disc")
+    path = convert_ckpt.main(["--input", src, "--type", "disc", "--out", disc_dir])
+    convert_s = time.perf_counter() - t0
+    n_map = int(set_hparams(work_dir=disc_dir)["disc_mapping_layers"])
+    disc = EG3DDualDiscriminator(img_resolution=SIZE, mapping_layers=n_map)
+    disc.load_state_dict(convert_flax_params(get_last_checkpoint(disc_dir)[0]["state_dict"]["disc"], disc))
+    check(n_map == 8 and np.array_equal(getattr(disc, f"b{SIZE}").conv0.weight.detach().numpy(),
+                                        state[f"b{SIZE}.conv0.weight"])
+          and np.array_equal(disc.mapping.fc7.weight.detach().numpy(), state["mapping.fc7.weight"]),
+          "train_disc: the converted discriminator")
+    n_params = sum(p.numel() for p in disc.parameters())
+    with open(path, "rb") as f:
+        disc_sha = hashlib.sha256(f.read()).hexdigest()
+    print(f"[train_disc] the reference's disc sub-model faked at full width ({SIZE}^2, channel_base 32768, channel_max "
+          f"512, {len(state)} torch tensors, {n_params:,} parameters), converted by --type disc at step {DISC_STEP} in "
+          f"{convert_s:.1f} s: mapping depth {n_map}, every tensor restored into EG3DDualDiscriminator")
+
+    # the discriminator alone, card vs CPU
+    t0 = time.perf_counter()
+    r = disc_card_vs_cpu(disc, dev)
+    del disc
+    worst = max(r["rel"].items(), key=lambda kv: kv[1])
+    print(f"[train_disc] {card_line()}; the discriminator alone at {SIZE}^2, batch {DISC_BATCH}, card vs CPU, max |d| "
+          f"over the largest |value|: " + ", ".join(f"{k} {v:.3e}" for k, v in r["rel"].items())
+          + f" (worst {worst[0]} {worst[1]:.3e}, <= {DISC_REL}); feature maps {r['shapes']}; on the card forward "
+          f"{r['ms']['forward']:.3f} ms, forward + FM backward {r['ms']['forward_backward']:.3f} ms (CUDA events, "
+          f"median of 5); {time.perf_counter() - t0:.1f} s")
+    ok = worst[1] <= DISC_REL
+    for k, w in r["witness"].items():
+        print(f"[train_disc] the FM loss's {k} (batch 1) against the CPU's float64 gradient: card max "
+              f"{w['card_max']:.3e} of the largest, L2 {w['card_l2']:.3e}; CPU float32 max {w['cpu_max']:.3e}, L2 "
+              f"{w['cpu_l2']:.3e}; card vs CPU max {w['card_vs_cpu_max']:.3e} (the card within {DISC_ORDER_K}x the "
+              f"CPU's + {DISC_REL})")
+        ok = ok and all(w[f"card_{how}"] <= DISC_ORDER_K * w[f"cpu_{how}"] + DISC_REL for how in ("max", "l2"))
+    check(ok, "train_disc: the discriminator card vs CPU")
+
+    # the CLI's head + SR stage with feature matching
+    work = os.path.join(root, "disc_sr")
+    cfg_path = os.path.join(repo, TRAIN_CLI_STAGES["sr"][0])
+    argv = ["--config", cfg_path, "--exp_name", "chip_smoke_disc", "--work_dir", work, "--hparams",
+            f"{train_cli_common(binary)},lpips_start_iters=0,lambda_dual_fm={DISC_LAMBDA},disc_model_dir={disc_dir}"]
+    t0 = time.perf_counter()
+    res = run_cli_stages([argv], "train_disc")[0]
+    wall = time.perf_counter() - t0
+    steps = [x for x in _stage_metrics(work) if "total_loss" in x]
+    check([x["step"] for x in steps] == list(range(1, TRAIN_CLI_STEPS + 1)), f"train_disc: steps logged "
+                                                                             f"{[x['step'] for x in steps]}")
+    check(all(math.isfinite(x.get("dual_feature_matching_loss", math.nan)) for x in steps),
+          "train_disc: dual_feature_matching_loss missing or not finite in a step")
+    check(all(math.isfinite(v) for x in steps for k, v in x.items() if k.endswith("loss")),
+          "train_disc: a loss is not finite")
+    check(res["global_step"] == TRAIN_CLI_STEPS and res["ckpt_equal"], "train_disc: the checkpoint")
+    check(res["disc_equal"], "train_disc: the discriminator's tensors changed")
+    with open(path, "rb") as f:
+        check(hashlib.sha256(f.read()).hexdigest() == disc_sha, "train_disc: the disc dir's checkpoint changed")
+    ckpt, ckpt_path = get_last_checkpoint(work)
+    check(set(ckpt["state_dict"]["params"]) == {"head", "sr"} and "disc" not in ckpt["state_dict"],
+          "train_disc: a discriminator leaf in the checkpoint")
+    with open(os.path.join(root, "sr", "chip_smoke_stage.json")) as f:
+        sr_stage = json.load(f)  # train_cli's head + SR stage in this run
+    sr_ms = sr_stage["step_ms"][1:]
+    fm_ms = res["step_ms"][1:]
+    passes = res["disc_ms"]
+    fake, real = passes[0::2], passes[1::2]
+    fm = [x["dual_feature_matching_loss"] for x in steps]
+    print(f"[train_disc] the CLI's head + SR stage ({TRAIN_CLI_STAGES['sr'][0]}) with lambda_dual_fm {DISC_LAMBDA} "
+          f"and disc_model_dir from step 1, {TRAIN_CLI_STEPS} steps, {wall:.1f} s of wall: "
+          f"dual_feature_matching_loss in every step ({fm[0]:.5f} .. {fm[-1]:.5f}), the discriminator's tensors "
+          f"bit-equal after the run, its dir's checkpoint unchanged, {os.path.basename(ckpt_path)} holds params "
+          f"{sorted(ckpt['state_dict']['params'])} and no discriminator leaf, equal to the live state")
+    print(f"[train_disc] {card_line()}; head + SR + FM ms/step (host wall, synchronised, steps 2..{TRAIN_CLI_STEPS}): "
+          f"median {statistics.median(fm_ms):.3f}, min {min(fm_ms):.3f}, max {max(fm_ms):.3f}; train_cli's head + "
+          f"SR (no FM, this run): median {statistics.median(sr_ms):.3f}, min {min(sr_ms):.3f}, max {max(sr_ms):.3f}; "
+          f"the discriminator's passes by CUDA events over {len(fake)} steps: fake (with autograd) median "
+          f"{statistics.median(fake):.3f} ms, real (no grad) median {statistics.median(real):.3f} ms; peak "
+          f"allocated {res['peak_gib']:.3f} GiB (train_cli's head + SR stage: {sr_stage['peak_gib']:.3f} GiB)")
+
+    # one SR + FM step, card vs CPU
+    t0 = time.perf_counter()
+    g = fm_step_card_vs_cpu(set_hparams(work_dir=work), ckpt, dev)
+    rows = g["rows"]
+    parts = {"mlps": ("head.ambient_net", "head.sigma_net", "head.color_net"),
+             "fourier": ("head.position_embedder.B", "head.ambient_embedder.B"),
+             "condition": ("head.cond_prenet", "head.cond_att_net", "head.blink_"), "noise": ("noise_strength",),
+             "noise_const": ("noise_const",), "sr": ("sr.",)}
+    worst = {}
+    for k, row in rows.items():
+        part = next((p for p, names in parts.items() if k.startswith(names) or k.endswith(names)), "other")
+        if part not in worst or row["max"] > worst[part][1]["max"]:
+            worst[part] = (k, row)
+    check(all("own" in rows[k] for k in rows if k.endswith(("noise_strength", "_embedder.B"))),
+          "train_disc: a noise strength or Fourier projection without its float64 sum")
+    failed = [k for k, row in rows.items() if not row["ok"]]
+    witnessed = {k: row for k, row in rows.items() if "own" in row}
+    print(f"[train_disc] one SR + FM step (float32 SR) card vs CPU from the trained state, frame 3, one noise draw "
+          f"({time.perf_counter() - t0:.1f} s): losses relative " + ", ".join(
+              f"{k} {v:.3e}" for k, v in g["loss_rel"].items())
+          + f" (<= {FM_LOSS_REL}); gradients card vs CPU, max |d| / max |g| and L2 over |g|, each part's worst: "
+          + "; ".join(f"{p} {row['max']:.3e}, {row['l2']:.3e} ({k})" for p, (k, row) in worst.items())
+          + f"; past {GRID_GRAD_REL} of the largest entry: "
+          + (", ".join(f"{k} {row['max']:.3e}" for k, row in rows.items() if row["max"] > GRID_GRAD_REL) or "none")
+          + f" (parameters within {GRID_GRAD_REL}, those with float64 sums within {FM_GRAD_REL}; the noise_const "
+            f"buffers' L2 within {FM_CONST_L2})")
+    print(f"[train_disc] the same gradients against the CPU step's sums redone in float64 ({len(witnessed)} tensors: "
+          f"the head's nn.Linear layers, both Fourier projections, the SR's noise strengths), each part's worst "
+          f"tensor above: " + "; ".join(
+              f"{p} card {row['w_card']:.3e}, CPU {row['w_cpu']:.3e} of the largest entry (the card against its own "
+              f"operands' float64 sums {row['own']:.3e}), the terms' absolute sum {row['spread']:.1f}x it"
+              for p, (k, row) in worst.items() if "own" in row)
+          + f" (the card against its own operands' float64 sums within {GRID_GRAD_REL}: worst "
+            f"{max(row['own'] for row in witnessed.values()):.3e})")
+    print("[train_disc] the noise strengths' gradients (scalar sums; each card entry within "
+          f"{GRID_GRAD_ABS} of its terms' absolute sum + {GRID_GRAD_REL} of the largest from the CPU's float64 sum): "
+          + "; ".join(f"{k} card vs CPU {row['max']:.3e} of the CPU's, card {row['w_card']:.3e} and CPU "
+                      f"{row['w_cpu']:.3e} from float64, terms' absolute sum {row['spread']:.1f}x it"
+                      for k, row in rows.items() if k.endswith("noise_strength")))
+    adam_worst = max(g["adam"].items(), key=lambda kv: kv[1][0])
+    moved = max(g["moved"].items(), key=lambda kv: kv[1][0])
+    print(f"[train_disc] the card's Adam step against the CPU's Adam on the card's gradients from the same state "
+          f"({len(g['adam'])} tensors: parameters, trained buffers and both moments): worst {adam_worst[1][0]:.3f} "
+          f"of the allowance ({adam_worst[0][0]} {adam_worst[0][1]}; {ADAM_ULPS:.0f} float32 ulps + "
+          f"{ADAM_UPDATE_REL} of the update, <= 1); the updated parameters card vs CPU (each from its own "
+          f"gradients): max |d| {moved[1][0]:.3e} ({moved[0]}, whose largest update is {moved[1][1]:.3e})")
+    check(not failed, "train_disc: gradients card vs CPU: " + "; ".join(
+        f"{k} {rows[k]}" for k in failed))
+    check(all(ok for _, ok in g["adam"].values()),
+          f"train_disc: the card's Adam step: {[k for k, (_, ok) in g['adam'].items() if not ok]}")
+    check(max(g["loss_rel"].values()) <= FM_LOSS_REL, "train_disc: the losses card vs CPU")
+
+    # serving from the FM-trained head + SR dir, with a seeded torso dir
+    tcfg = torso_config()
+    cwd = os.getcwd()
+    os.chdir(repo)  # base_config paths are relative to the repository root
+    try:
+        torso_yaml = load_config(TRAIN_CLI_STAGES["torso"][0])
+    finally:
+        os.chdir(cwd)
+    torso_dir = os.path.join(root, "disc_torso")
+    save_flax_checkpoint(torso_dir, 1, {
+        "state_dict": {"torso_params": export_flax_params(TorsoField(tcfg, generator=torch.Generator().manual_seed(9))),
+                       "opt_state": {}},
+        "extra_state": {"torso_grid": bench_torso_grid(tcfg.grid_size)}},
+        config=dict(torso_yaml, head_model_dir=work, binary_data_dir=binary, video_id="syn"))
+    infer = GeneFaceInfer.from_work_dirs(torso_model_dir=torso_dir, device=dev)
+    batch = infer.prepare_gt_batch(list(range(DISC_SERVE_FRAMES)))
+    torch.cuda.synchronize()
+    ff.fused_field.launches = 0  # count only the main path's launches
+    t0 = time.perf_counter()
+    frames = list(infer.forward_secc2video(batch, {"frames_per_dispatch": DISC_SERVE_FRAMES}))
+    serve_ms = (time.perf_counter() - t0) * 1e3
+    launches = ff.fused_field.launches
+    H = infer.dataset.H
+    check(len(frames) == DISC_SERVE_FRAMES and all(f.shape == (2 * H, 2 * H, 3) and f.dtype == np.uint8
+                                                   for f in frames), "train_disc: served frames")
+    check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "train_disc: frames do not vary")
+    check(launches == DISC_SERVE_FRAMES, f"train_disc: fused_field launched {launches} times for "
+                                         f"{DISC_SERVE_FRAMES} frames")
+    print(f"[train_disc] served from the FM-trained head + SR dir with a seeded torso dir: {len(frames)} frames of "
+          f"{2 * H}x{2 * H} in {serve_ms:.1f} ms (first request, host wall), {launches} fused_field launches; "
+          f"checkpoints kept {len(get_all_ckpts(work))}; the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def train_cli_common(binary: str) -> str:
+    """The hparams every train_cli stage shares."""
+    return (f"binary_data_dir={binary},video_id=syn,max_updates={TRAIN_CLI_STEPS},val_check_interval=6,"
+            f"update_extra_interval={TRAIN_CLI_START},tb_log_interval=1")
+
+
+# quality: the instruments on QUALITY_FRAMES frames that serve_full served
+# (512^2): the v1 and v2 landmark detectors (seeded weights), card vs CPU
+# (landmarks within LMD_REL of the largest, v2's peak probabilities within
+# LMD_CONF_ABS); detect_lmd against the detector's own landmarks and a
+# 1/512 shift of them; the sync scorer trained on the card on
+# tests/test_sync_scorer.py's clip at HuBERT's width, JAX's three controls,
+# and sync_confidence card vs CPU on its params.
+QUALITY_FRAMES = N_REQUESTS * FRAMES_PER_REQUEST
+LMD_REL, LMD_CONF_ABS = 1e-4, 1e-5
+SYNC_STEPS, SYNC_BATCH, SYNC_AUDIO_DIM, SYNC_CURVE_ABS = 500, 48, 1024, 1e-4
+
+
+def phase_quality(dev, frames) -> None:
+    """quality (module docstring), on serve_full's frames."""
+    from genefaceplusplus_tpu_torch.metrics import lmd, sync_scorer
+    from genefaceplusplus_tpu_torch.testing import sync_clip
+    from genefaceplusplus_tpu_torch.utils.convert_jax import export_flax_params
+
+    frames = np.stack(frames)
+    check(frames.shape == (QUALITY_FRAMES, SIZE, SIZE, 3) and frames.dtype == np.uint8, "quality: the frames")
+    readings = []
+    for arch, seed in (("v1", 51), ("v2", 52)):
+        params = export_flax_params(lmd.lm_detector(arch, generator=torch.Generator().manual_seed(seed)))
+        lms = {"cpu": lmd.detect_lms(frames, "", arch=arch, params=params, device="cpu")}
+        lmd.detect_lms(frames[:2], "", arch=arch, params=params, device=dev)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lms[str(dev)] = lmd.detect_lms(frames, "", arch=arch, params=params, device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        rel = np.abs(lms[str(dev)] - lms["cpu"]).max() / np.abs(lms["cpu"]).max()
+        conf_d = None
+        if arch == "v2":
+            conf = {str(d): lmd.detect_lmd(frames, lms["cpu"], "", arch=arch, per_landmark=True, with_conf=True,
+                                           params=params, device=d)[1] for d in ("cpu", dev)}
+            conf_d = float(np.abs(conf[str(dev)] - conf["cpu"]).max())
+        own = lmd.detect_lmd(frames, lms[str(dev)], "", arch=arch, params=params, device=dev)
+        shifted = lmd.detect_lmd(frames, lms[str(dev)] + np.array([1.0 / 512.0, 0.0]), "", arch=arch, params=params,
+                                 device=dev)
+        readings.append((arch, rel, conf_d, own, shifted, ms))
+        check(rel <= LMD_REL and (conf_d is None or conf_d <= LMD_CONF_ABS),
+              f"quality: the {arch} detector card vs CPU ({rel:.3e}, {conf_d})")
+        check(own <= 1e-3 and abs(shifted - 1.0) <= 1e-3, f"quality: detect_lmd ({own}, {shifted})")
+    for arch, rel, conf_d, own, shifted, ms in readings:
+        print(f"[quality] {card_line()}; {arch} detector (seeded weights) on serve_full's {QUALITY_FRAMES} frames of "
+              f"{SIZE}x{SIZE}: card vs CPU landmarks {rel:.3e} of the largest (<= {LMD_REL})"
+              + ("" if conf_d is None else f", peak probabilities max |d| {conf_d:.3e} (<= {LMD_CONF_ABS})")
+              + f"; detect_lmd against its own landmarks {own:.3e} px (<= 1e-3), with a 1/512 shift {shifted:.6f} px "
+                f"(1 +- 1e-3); {QUALITY_FRAMES} frames detected on the card in {ms:.3f} ms (host wall, resize on "
+                f"the host included)")
+
+    hubert, lms = sync_clip(audio_dim=SYNC_AUDIO_DIM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = sync_scorer.train_sync_scorer(hubert, lms, steps=SYNC_STEPS, batch=SYNC_BATCH, seed=0, device=dev)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / SYNC_STEPS
+    aligned = sync_scorer.sync_confidence(params, hubert, lms, device=dev)
+    blocks = hubert.reshape(-1, 2, hubert.shape[-1])
+    shuffled = sync_scorer.sync_confidence(
+        params, blocks[np.random.RandomState(3).permutation(len(blocks))].reshape(hubert.shape), lms, device=dev)
+    frozen = sync_scorer.sync_confidence(params, hubert, np.repeat(lms[:1], len(lms), 0), device=dev)
+    cpu = sync_scorer.sync_confidence(params, hubert, lms, device="cpu")
+    curve_d = float(np.abs(np.asarray(aligned["curve"]) - np.asarray(cpu["curve"])).max())
+    print(f"[quality] {card_line()}; sync scorer trained on the card, {SYNC_STEPS} steps of batch {SYNC_BATCH} at "
+          f"audio_dim {SYNC_AUDIO_DIM}, {step_ms:.3f} ms/step (host wall, synchronised): aligned confidence "
+          f"{aligned['confidence']:.4f} at offset {aligned['offset']} (> 0.15 at |offset| <= 1), shuffled audio "
+          f"{shuffled['confidence']:.4f}, frozen mouth {frozen['confidence']:.4f} (each < half the aligned); "
+          f"sync_confidence card vs CPU: curve max |d| {curve_d:.1e} (<= {SYNC_CURVE_ABS}, both rounded to 4 "
+          f"decimals), offset {aligned['offset']} / {cpu['offset']}")
+    check(abs(aligned["offset"]) <= 1 and aligned["confidence"] > 0.15, f"quality: aligned {aligned}")
+    check(shuffled["confidence"] < 0.5 * aligned["confidence"], "quality: shuffled audio does not collapse")
+    check(frozen["confidence"] < 0.5 * aligned["confidence"], "quality: a frozen mouth carries signal")
+    check(curve_d <= SYNC_CURVE_ABS * (1 + 1e-6) and aligned["offset"] == cpu["offset"],
+          "quality: sync_confidence card vs CPU")
 
 
 # train_audio: an identity's tracks of TRAIN_AUDIO_FRAMES motion frames at 25
@@ -3767,40 +4322,53 @@ def main() -> int:
         write_reference(dev, sys.argv[2])
         return 0
     t0 = time.perf_counter()
-    phase_build()
-    k, kt = phase_kernel(dev)
-    kb, kw = phase_kernel_bwd(dev, kt["extra_ms"])
-    serve_launches, fourier_ms = phase_serve(dev)
-    full_launches, full_infer, full_requests = phase_serve_full(dev)
-    compact_launches = phase_serve_compact(dev, full_infer, full_requests)
+    walls = {}
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - start
+        return out
+
+    timed("build", phase_build)
+    k, kt = timed("kernel", phase_kernel, dev)
+    kb, kw = timed("kernel_bwd", phase_kernel_bwd, dev, kt["extra_ms"])
+    serve_launches, fourier_ms = timed("serve", phase_serve, dev)
+    full_launches, full_infer, full_requests, full_frames = timed("serve_full", phase_serve_full, dev)
+    compact_launches = timed("serve_compact", phase_serve_compact, dev, full_infer, full_requests)
     del full_infer
-    audio_launches = phase_serve_audio(dev)
+    audio_launches = timed("serve_audio", phase_serve_audio, dev)
     print(f"ffmpeg: {shutil.which('ffmpeg')}")
     work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
-        cli_launches, served = phase_serve_cli(dev, work)
-        long_launches = phase_serve_long(dev, served)
-        convert_launches = phase_convert(dev, served)
-        app_launches = phase_serve_app(dev, served)
-        phase_serve_grid(dev, served, fourier_ms)
+        cli_launches, served = timed("serve_cli", phase_serve_cli, dev, work)
+        long_launches = timed("serve_long", phase_serve_long, dev, served)
+        convert_launches = timed("convert", phase_convert, dev, served)
+        app_launches = timed("serve_app", phase_serve_app, dev, served)
+        timed("serve_grid", phase_serve_grid, dev, served, fourier_ms)
         del served
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    train_fwd, train_chain, train_wgrad, train_compacted = phase_train(dev)
+    timed("quality", phase_quality, dev, full_frames)
+    del full_frames
+    train_fwd, train_chain, train_wgrad, train_compacted = timed("train", phase_train, dev)
     train_root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        trained_launches, binary = phase_train_cli(dev, train_root)
-        phase_train_grid(dev, binary, train_root)
+        trained_launches, binary = timed("train_cli", phase_train_cli, dev, train_root)
+        timed("train_grid", phase_train_grid, dev, binary, train_root)
+        disc_launches = timed("train_disc", phase_train_disc, dev, binary, train_root)
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
-    refined_launches = phase_train_audio(dev)
-    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    refined_launches = timed("train_audio", phase_train_audio, dev)
+    print(f"[done] {time.perf_counter() - t0:.1f} s; by phase (host wall): "
+          + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()))
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
           f"{compact_launches} full-frame serving on the compact buffer (compact_frac 'auto') + "
           f"{audio_launches} audio-driven serving + {cli_launches} CLI (plain and with --compact_frac auto) and "
           f"streaming + {long_launches} long clip + "
           f"{convert_launches} from the converted a2m + {app_launches} web app (serve_grid: none, its grid heads "
-          f"run the float32 field) + {trained_launches} serving from CLI-trained dirs + {refined_launches} serving "
+          f"run the float32 field) + {trained_launches} serving from CLI-trained dirs + {disc_launches} serving from "
+          f"the FM-trained head + SR dir + {refined_launches} serving "
           f"through the trained postnet; in train mode: {train_fwd} training; fused_field_bwd_chain: {train_chain} "
           f"training; fused_field_wgrad: {train_wgrad} training ({train_compacted} of each of the three on the "
           f"compact buffer; serve_grid and train_grid launch none: grid heads run the float32 field)")
@@ -3809,7 +4377,7 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda", "source": source + "fused_field.cu", "replaces": pallas + "156",
         "launches": (serve_launches + full_launches + compact_launches + audio_launches + cli_launches + long_launches
-                     + convert_launches + app_launches + trained_launches + refined_launches),
+                     + convert_launches + app_launches + trained_launches + disc_launches + refined_launches),
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {

@@ -63,7 +63,7 @@ def unported_flags(args) -> None:
         raise NotImplementedError("--debug: the SECC and landmark panels are not ported (ROADMAP queue A5)")
     if args.n_devices > 1:
         raise NotImplementedError("--n_devices: the port serves on one card; ray sharding over several is "
-                                  "not ported (ROADMAP queue A7)")
+                                  "not ported (ROADMAP queue A, not ported on purpose: parallel/mesh.py)")
 
 
 def main(argv=None) -> str:

@@ -1,7 +1,8 @@
 """Seeded stand-ins for checking the port without downloads: the
-reference's audio-to-motion and grid-head checkpoints in their released
-layout (for the converter) and a small CPU `GeneFaceInfer` (for the writer
-and the app). Used by the tests and by `chip_smoke.py`."""
+reference's audio-to-motion, grid-head and discriminator checkpoints in
+their released layout (for the converter), a small CPU `GeneFaceInfer`
+(for the writer and the app) and a synthetic audio-mouth clip (for the
+sync scorer). Used by the tests and by `chip_smoke.py`."""
 
 from __future__ import annotations
 
@@ -120,15 +121,80 @@ def reference_head_state(hp: Mapping, seed: int, occupancy: np.ndarray) -> Dict[
     return s
 
 
-def save_reference_ckpt(path: str, state: Mapping[str, np.ndarray], global_step: int = 400_000) -> None:
+def reference_disc_state(seed: int, img_resolution: int = 512, channel_base: int = 32768, channel_max: int = 512,
+                         mapping_layers: int = 8, camera_dim: int = 25) -> Dict[str, np.ndarray]:
+    """A torch-named state dict of the reference's `disc` sub-model (the EG3D
+    dual discriminator of eg3d_baseline_run2) at the given widths, seeded:
+    `b{res}.{fromrgb,conv0,conv1,skip}` (conv weights [out, in, k, k] ~ N(0,
+    1), the skip without bias), `mapping.embed` and `mapping.fc{i}` ([out,
+    in], the fc layers ~ N(0, 1) / 0.01, their lr multiplier), `b4.{conv,
+    fc,out}`, biases ~ N(0, 0.1^2), and the buffers the converter ignores
+    (each resampling layer's `resample_filter`, `mapping.w_avg`)."""
+    rng = np.random.RandomState(seed)
+    block_res = [2 ** i for i in range(int(np.log2(img_resolution)), 2, -1)]
+    ch = {r: min(channel_base // r, channel_max) for r in block_res + [4]}
+    fir = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32) / 64.0
+    s: Dict[str, np.ndarray] = {}
+
+    def layer(name, out_c, in_shape, bias=True, scale=1.0):
+        s[f"{name}.weight"] = (rng.randn(out_c, *in_shape) * scale).astype(np.float32)
+        if bias:
+            s[f"{name}.bias"] = (rng.randn(out_c) * 0.1).astype(np.float32)
+
+    for i, r in enumerate(block_res):
+        t, o = ch[r], ch[r // 2]
+        if i == 0:
+            layer(f"b{r}.fromrgb", t, (6, 1, 1))
+        layer(f"b{r}.conv0", t, (t, 3, 3))
+        layer(f"b{r}.conv1", o, (t, 3, 3))
+        layer(f"b{r}.skip", o, (t, 1, 1), bias=False)
+        for buf in (f"b{r}.resample_filter", f"b{r}.conv1.resample_filter", f"b{r}.skip.resample_filter"):
+            s[buf] = fir.copy()
+    cmap = ch[4]
+    layer("mapping.embed", cmap, (camera_dim,))
+    for i in range(mapping_layers):
+        layer(f"mapping.fc{i}", cmap, (cmap,), scale=100.0)
+    s["mapping.w_avg"] = np.zeros(cmap, np.float32)
+    layer("b4.conv", cmap, (cmap + 1, 3, 3))
+    layer("b4.fc", cmap, (cmap * 16,))
+    layer("b4.out", cmap, (cmap,))
+    return s
+
+
+def sync_clip(T: int = 240, seed: int = 0, audio_dim: int = 64):
+    """tests/test_sync_scorer.py's clip for the sync scorer: (hubert [2T,
+    audio_dim] at 50 Hz, lms [T, 68, 2]) with the mouth opening on a latent
+    jaw signal and the audio features a noisy, nuisance-laden projection of
+    that signal and its derivative."""
+    rng = np.random.RandomState(seed)
+    tt = np.arange(T) / 25.0
+    jaw = np.clip(0.5 + 0.5 * np.sin(2 * np.pi * 2.3 * tt) * np.sin(2 * np.pi * 0.37 * tt + 1.0), 0, 1)
+    base = rng.rand(68, 2) * 0.2  # lm68: eyes 36:48, nose 27:36, mouth 48:68
+    base[36:42] = [0.35, 0.35] + rng.rand(6, 2) * 0.02
+    base[42:48] = [0.65, 0.35] + rng.rand(6, 2) * 0.02
+    base[27:36] = [0.5, 0.45] + rng.rand(9, 2) * 0.02
+    base[48:68] = [0.5, 0.7] + rng.rand(20, 2) * 0.05
+    lms = np.repeat(base[None], T, 0).copy()
+    lms[:, 48:68, 1] += 0.08 * jaw[:, None] * np.linspace(0, 1, 20)[None]
+    lms[:, 48:68, 0] += 0.03 * np.sin(2 * np.pi * 0.9 * tt)[:, None]
+    jaw50 = np.interp(np.linspace(0, T - 1, 2 * T), np.arange(T), jaw)
+    feats = np.stack([jaw50, np.gradient(jaw50)], -1)
+    nuis = rng.randn(2 * T, 3) * 0.5
+    proj = rng.randn(5, audio_dim) / np.sqrt(5)
+    hubert = np.tanh(np.concatenate([feats, nuis], -1) @ proj) + 0.05 * rng.randn(2 * T, audio_dim)
+    return hubert.astype(np.float32), lms.astype(np.float32)
+
+
+def save_reference_ckpt(path: str, state: Mapping[str, np.ndarray], global_step: int = 400_000,
+                        sub_model: str = "model") -> None:
     """Write `state` as the reference's trainer saves a checkpoint: torch's
     legacy serialization of `{epoch, global_step, optimizer_states,
-    state_dict: {model: ...}}`."""
+    state_dict: {<sub_model>: ...}}`."""
     torch.save({"epoch": 320, "global_step": global_step,
                 "optimizer_states": [{"state": {0: {"step": global_step, "exp_avg": torch.zeros(4),
                                                     "exp_avg_sq": torch.zeros(4)}},
                                       "param_groups": [{"lr": 5e-4}]}],
-                "state_dict": {"model": {k: torch.from_numpy(np.asarray(v)) for k, v in state.items()}}},
+                "state_dict": {sub_model: {k: torch.from_numpy(np.asarray(v)) for k, v in state.items()}}},
                path, _use_new_zipfile_serialization=False)
 
 

@@ -22,7 +22,16 @@ Both packages load it:
 `hashgrid`): its params, and in `extra_state` the cascade-0 density grid
 and occupancy in spatial order; `config.yaml` gets `grid_type` (default
 `tiledgrid`) and `grid_size` where the source config has none.
-`--type disc` (the EG3D discriminator) raises until the port has it.
+`--type disc` converts the reference's `disc` sub-model (the EG3D dual
+discriminator, eg3d_baseline_run2) at the config's `final_resolution`
+(default 512) into the payload `{'state_dict': {'disc': {'params':
+...}}}`, and writes its mapping depth into `config.yaml` as
+`disc_mapping_layers`; the SR task reads it as its frozen discriminator
+(`disc_model_dir`):
+
+    python -m genefaceplusplus_tpu_torch.tools.convert_ckpt \\
+        --input checkpoints/eg3d_baseline_run2/model_ckpt_steps_<N>.ckpt \\
+        --type disc --out checkpoints/eg3d_disc_converted
 """
 
 from __future__ import annotations
@@ -40,19 +49,19 @@ def convert_file(input_path: str, kind: str, out_dir: str, grid_size: int = 128,
                  config: Optional[dict] = None) -> str:
     """Convert one reference checkpoint into the work dir `out_dir`; returns
     the checkpoint's path."""
-    if kind == "disc":
-        raise NotImplementedError("--type disc: the EG3D discriminator (convert_eg3d_disc) waits for the "
-                                  "discriminators (ROADMAP queue A, reference-parity paths: "
-                                  "models/eg3d_discriminator.py)")
-    if kind not in ("a2m", "head"):
+    if kind not in ("a2m", "head", "disc"):
         raise ValueError(f"unknown --type {kind!r} (a2m | head | disc)")
-    state, step = cvt.load_torch_state_dict(input_path)
+    state, step = cvt.load_torch_state_dict(input_path, sub_model="disc" if kind == "disc" else "model")
     cfg = dict(config or {})
     src_cfg = os.path.join(os.path.dirname(input_path), "config.yaml")
     if os.path.exists(src_cfg):
         cfg = {**(yaml_io.load(src_cfg) or {}), **cfg}
     if kind == "a2m":
         payload = {"state_dict": cvt.convert_pitch_contour_vae(state)}
+    elif kind == "disc":
+        out = cvt.convert_eg3d_disc(state, img_resolution=int(cfg.get("final_resolution", 512)))
+        payload = {"state_dict": {"disc": {"params": out["params"]}}}
+        cfg["disc_mapping_layers"] = int(out["n_mapping_layers"])  # the SR task builds this depth
     else:
         out = cvt.convert_radnerf_grid(state, grid_size=grid_size)
         payload = {"state_dict": {"params": out["params"]}, "extra_state": {}}

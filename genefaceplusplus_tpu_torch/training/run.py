@@ -93,6 +93,7 @@ def build_task(cfg, device=None):
             lpips_start_iters=cfg.get("lpips_start_iters", 200_000),
             lambda_lpips=cfg.get("lambda_lpips_loss", 0.001),
             lambda_dual_fm=cfg.get("lambda_dual_fm", 0.0),
+            disc_model_dir=cfg.get("disc_model_dir", ""),
             lip_window=cfg.get("lip_window", 64),
             finetune_lips=cfg.get("finetune_lips", True),
             finetune_lips_start_iter=cfg.get("finetune_lips_start_iter", 200_000),

@@ -15,8 +15,21 @@ as PNG. From `train_compact_start` on the head field runs on a compacted
 budget of live samples (the head task's switch; the batch is a full frame,
 so the live fraction is the head's screen coverage).
 
-Not ported: the frozen dual discriminator's feature matching
-(`lambda_dual_fm > 0` raises; ROADMAP queue A7).
+With `lambda_dual_fm > 0` a frozen dual discriminator scores the SR frame
+with the raw frame and the gt pair under the frame's EG3D camera label,
+and the step adds `lambda_dual_fm` x the L1 between their per-resolution
+feature maps (`dual_feature_matching_loss`, with the perceptual terms from
+`lpips_start_iters`). `disc_arch` "eg3d" is the reference's
+discriminator at 2H (its mapping depth from `disc_model_dir`'s
+config.yaml, default 8), "compact" the small stack; with `disc_model_dir`
+its weights come from that dir's newest checkpoint, every tensor
+accounted for (`tools/convert_ckpt.py --type disc` writes one), else from
+a seeded init. It is never trained and never checkpointed: it is not in
+the state's model, so neither the optimizer, the gradient norms nor the
+checkpoint see it, and its parameters need no gradient, while the
+gradient flows through it into the SR and raw frames. It runs in float32
+on images in [0, 1], as JAX's does: the clipped SR frame is float32 (the
+SR sums its image in float32 whatever `sr_dtype`).
 """
 
 from __future__ import annotations
@@ -30,8 +43,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from genefaceplusplus_tpu_torch.config import set_hparams
 from genefaceplusplus_tpu_torch.data import image_io
 from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, resize_bilinear
+from genefaceplusplus_tpu_torch.data.eg3d_convention import eg3d_camera_from_euler_trans
+from genefaceplusplus_tpu_torch.models.dual_discriminator import DualDiscriminator
+from genefaceplusplus_tpu_torch.models.eg3d_discriminator import EG3DDualDiscriminator, feature_matching_loss
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
 from genefaceplusplus_tpu_torch.models.renderer import RenderOptions, render_rays
 from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
@@ -41,6 +58,8 @@ from genefaceplusplus_tpu_torch.training.perceptual import perceptual_from_task_
 from genefaceplusplus_tpu_torch.training.radnerf_task import TaskHParams, TrainState, create_train_state
 from genefaceplusplus_tpu_torch.training.schedulers import grad_norms_by_group
 from genefaceplusplus_tpu_torch.training.tasks.head_task import HeadNeRFTask, HeadTaskConfig
+from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint
+from genefaceplusplus_tpu_torch.utils.convert_jax import convert_flax_params
 from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
 
@@ -49,7 +68,9 @@ class SRTaskConfig(HeadTaskConfig):
     sr_start_iters: int = 0
     lpips_start_iters: int = 200_000
     lambda_lpips: float = 0.001
-    lambda_dual_fm: float = 0.0  # the frozen dual discriminator's feature matching (not ported)
+    lambda_dual_fm: float = 0.0  # the frozen dual discriminator's feature matching
+    disc_model_dir: str = ""  # a work dir holding the discriminator's checkpoint
+    disc_arch: str = "eg3d"  # "eg3d" (the reference's) or "compact" (tests, tiny resolutions)
     sr_dtype: str = "bfloat16"  # the SR blocks' compute dtype; parameters stay float32
 
 
@@ -59,15 +80,36 @@ class SRHeadNeRFTask(HeadNeRFTask):
     def __init__(self, dataset: RADNeRFDataset, model_cfg: RADNeRFConfig,
                  task_cfg: SRTaskConfig = SRTaskConfig(), hp: TaskHParams = TaskHParams(),
                  seed: int = 9999, device=None):
-        if task_cfg.lambda_dual_fm > 0:
-            raise NotImplementedError(
-                "lambda_dual_fm > 0: the frozen dual discriminator (JAX "
-                "models/eg3d_discriminator.py, models/dual_discriminator.py) is not ported "
-                "(ROADMAP queue A7)")
         super().__init__(dataset, model_cfg, task_cfg, hp, seed, device)
         self._train_step = functools.partial(self._sr_step, opts=self.opts)
         self.sr_dtype = torch.bfloat16 if task_cfg.sr_dtype == "bfloat16" else torch.float32
         self.perceptual = perceptual_from_task_config(task_cfg, self.device)
+        self.disc_model = self._frozen_discriminator() if task_cfg.lambda_dual_fm > 0 else None
+
+    def _frozen_discriminator(self) -> nn.Module:
+        """The discriminator (module docstring), on the task's device, its
+        parameters without gradient."""
+        tcfg: SRTaskConfig = self.task_cfg
+        H = self.dataset.H
+        g = torch.Generator().manual_seed(self.seed + 7)
+        if tcfg.disc_arch == "eg3d":
+            n_map = 8
+            if tcfg.disc_model_dir:
+                try:
+                    n_map = int(set_hparams(work_dir=tcfg.disc_model_dir).get("disc_mapping_layers", 8))
+                except (OSError, ValueError):
+                    pass
+            disc = EG3DDualDiscriminator(img_resolution=2 * H, mapping_layers=n_map, generator=g)
+        else:
+            disc = DualDiscriminator(2 * H, n_down=max(2, min(5, int(np.log2(H)) - 2)), generator=g)
+        if tcfg.disc_model_dir:
+            ckpt, _ = get_last_checkpoint(tcfg.disc_model_dir)
+            if ckpt is None:
+                raise FileNotFoundError(f"disc_model_dir={tcfg.disc_model_dir!r} has no checkpoint (convert one "
+                                        "with tools/convert_ckpt.py --type disc)")
+            state = ckpt.get("state_dict", ckpt)
+            disc.load_state_dict(convert_flax_params(state.get("disc", state), disc))
+        return disc.requires_grad_(False).to(self.device)
 
     def create_state(self) -> TrainState:
         head = RADNeRF(self.cfg, generator=torch.Generator().manual_seed(self.seed))
@@ -82,7 +124,8 @@ class SRHeadNeRFTask(HeadNeRFTask):
 
     def _device_frames(self) -> Dict[str, torch.Tensor]:
         """The head's store plus the 2x gt (the stored full-resolution image,
-        else the gt resized) and the lip crop's top-left."""
+        else the gt resized), the lip crop's top-left and the EG3D camera
+        label (zeros without a discriminator)."""
         if self._dev_frames is not None:
             return self._dev_frames
         frames = super()._device_frames()
@@ -101,8 +144,13 @@ class SRHeadNeRFTask(HeadNeRFTask):
             cy = int((rect[0] + rect[1]) / 2 * sc)
             cx = int((rect[2] + rect[3]) / 2 * sc)
             lip_l.append([int(np.clip(cy - win // 2, 0, H - win)), int(np.clip(cx - win // 2, 0, W - win))])
+        if self.disc_model is not None:
+            cams = eg3d_camera_from_euler_trans(np.asarray(ds.ds["euler"])[:T], np.asarray(ds.ds["trans"])[:T])
+        else:
+            cams = np.zeros((T, 25), np.float32)
         frames["gt2x"] = torch.from_numpy(np.stack(gt2_l)).to(self.device)
         frames["lip_xy0"] = torch.from_numpy(np.asarray(lip_l, np.int64)).to(self.device)
+        frames["camera"] = torch.from_numpy(cams).to(self.device)
         return frames
 
     def _gather(self, frames, idx: int) -> Dict[str, torch.Tensor]:
@@ -122,6 +170,7 @@ class SRHeadNeRFTask(HeadNeRFTask):
             "idx": t_idx,
             "eye_area_percent": frames["eye"][idx][None],
             "lip_xy0": frames["lip_xy0"][idx].tolist(),
+            "camera": frames["camera"][idx][None],
         }
 
     def sample_train_batch(self, global_step=None) -> Dict:
@@ -190,6 +239,17 @@ class SRHeadNeRFTask(HeadNeRFTask):
                 lp_lip = self.perceptual(crop(sr), crop(gt512))
                 total = total + lam * lp + 0.5 * lam * lp_sr + 0.5 * lam * lp_lip
                 metrics.update(lpips_loss=lp, sr_lpips_loss=lp_sr, sr_lip_lpips_loss=lp_lip)
+                if self.disc_model is not None:  # the frozen discriminator's feature matching
+                    def nchw(img):
+                        return img.permute(0, 3, 1, 2)
+
+                    cam = batch["camera"]
+                    _, fake = self.disc_model(nchw(sr), nchw(raw), cam)
+                    with torch.no_grad():
+                        _, real = self.disc_model(nchw(gt512), nchw(batch["gt_rgb"].reshape(1, H, W, 3)), cam)
+                    fm = feature_matching_loss(fake, real)
+                    total = total + tcfg.lambda_dual_fm * fm
+                    metrics["dual_feature_matching_loss"] = fm
         metrics["total_loss"] = total
         total.backward()
         named = [(n, p.grad if p.grad is not None else torch.zeros_like(p)) for n, p in state.opt.named]

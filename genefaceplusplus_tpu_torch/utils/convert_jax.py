@@ -11,7 +11,9 @@ its scalar `noise_strength` and its `buffers` collection (`noise_const`)
 land as they are. The audio-to-motion model's layers: flax's
 `ConvTranspose` kernel `[k, in, out]` becomes `ConvTranspose1d`'s `[in,
 out, k]` flipped along k (flax does not flip a transposed convolution's
-kernel, torch does); `BatchNorm` `scale`/`bias` become `weight`/`bias` and
+kernel, torch does), and a 2-D one `[kh, kw, in, out]` (the landmark
+detector's) `ConvTranspose2d`'s `[in, out, kh, kw]` flipped along both;
+`BatchNorm` `scale`/`bias` become `weight`/`bias` and
 its `batch_stats` collection's `mean`/`var` the `running_mean`/
 `running_var` buffers (`num_batches_tracked` keeps the port's value).
 Module paths map `Conv_i` -> `convs.i`, `ConvTranspose_i` -> `deconvs.i`,
@@ -71,6 +73,8 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     if parent.startswith("BatchNorm_"):
         return at(_BATCHNORM[name]), arr
     if name == "kernel" and parent.startswith("ConvTranspose_"):
+        if arr.ndim == 4:  # [kh, kw, in, out] -> ConvTranspose2d's [in, out, kh, kw], both axes flipped
+            return at("weight"), arr[::-1, ::-1].transpose(2, 3, 0, 1)
         return at("weight"), arr[::-1].transpose(1, 2, 0)
     if name == "kernel":
         if arr.ndim == 2:
@@ -184,9 +188,9 @@ def export_flax_params(model: torch.nn.Module,
     `convert_flax_params`): {'params': ...[, 'buffers': ...][,
     'batch_stats': ...]} of float32 numpy arrays. `Linear` weights go back
     to `Dense` kernels [in, out]; `Conv1d` weights to `Conv` kernels [k, in,
-    out] and `Conv2d` weights to [kh, kw, in, out]; `ConvTranspose1d`
-    weights to unflipped `ConvTranspose` kernels; `Embedding` weights to
-    `embedding`; BatchNorm's weight and bias to `scale` and `bias` and its
+    out] and `Conv2d` weights to [kh, kw, in, out]; `ConvTranspose1d` and
+    `ConvTranspose2d` weights to unflipped `ConvTranspose` kernels;
+    `Embedding` weights to `embedding`; BatchNorm's weight and bias to `scale` and `bias` and its
     running statistics to `batch_stats`; other modules' `weight` keeps its
     name (4-D ones go from OIHW to HWIO); other buffers land in `buffers`.
     BatchNorm's `num_batches_tracked` has no flax leaf.
@@ -224,6 +228,8 @@ def export_flax_params(model: torch.nn.Module,
             put("params", path, "kernel", layout(lambda w: w.t()))
         elif name == "weight" and isinstance(module, torch.nn.ConvTranspose1d):
             put("params", path, "kernel", layout(lambda w: w.flip(-1).permute(2, 0, 1)))
+        elif name == "weight" and isinstance(module, torch.nn.ConvTranspose2d):
+            put("params", path, "kernel", layout(lambda w: w.flip(-2, -1).permute(2, 3, 0, 1)))
         elif name == "weight" and isinstance(module, torch.nn.Conv1d):
             put("params", path, "kernel", layout(lambda w: w.permute(2, 1, 0)))
         elif name == "weight" and isinstance(module, torch.nn.Conv2d):

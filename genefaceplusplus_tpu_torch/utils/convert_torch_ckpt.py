@@ -23,9 +23,9 @@ carries `batch_stats`).
     spatial order (`ops/morton.py`)
 
 The audio-to-motion model (`convert_pitch_contour_vae`), the VGG towers
-(`convert_vgg19`, `convert_vggface`) and the grid-encoder head
-(`convert_radnerf_grid`) are mapped. The discriminator
-(`convert_eg3d_disc`) waits for the discriminators (ROADMAP queue A).
+(`convert_vgg19`, `convert_vggface`), the grid-encoder head
+(`convert_radnerf_grid`) and the EG3D dual discriminator
+(`convert_eg3d_disc`) are mapped.
 """
 
 from __future__ import annotations
@@ -222,6 +222,44 @@ def convert_vggface(state: Dict[str, np.ndarray]) -> Dict[str, Any]:
         params[f"Conv_{i}"] = {"kernel": conv2d_to_flax(np.asarray(w)),
                                "bias": np.asarray(b)}
     return {"params": params}
+
+
+def convert_eg3d_disc(state: Dict[str, np.ndarray], img_resolution: int = 512) -> Dict[str, Any]:
+    """The reference's `disc` sub-model (eg3d_baseline_run2) -> the
+    `EG3DDualDiscriminator` flax params and `n_mapping_layers`, the number
+    of `mapping.fc{i}` layers the state holds.
+
+    Torch layout: `b{res}.{fromrgb,conv0,conv1,skip}.{weight,bias}` with
+    conv weights [out, in, k, k] (to HWIO), `mapping.embed` and
+    `mapping.fc{i}` [out, in] (kept: `EqualDense` stores [out, in]),
+    `b4.{conv,fc,out}`."""
+    block_res = [2 ** i for i in range(int(np.log2(img_resolution)), 2, -1)]
+
+    def conv(prefix, bias=True):
+        out = {"weight": conv2d_to_flax(state[f"{prefix}.weight"])}
+        if bias and f"{prefix}.bias" in state:
+            out["bias"] = state[f"{prefix}.bias"]
+        return out
+
+    def dense(prefix):
+        return {"weight": state[f"{prefix}.weight"], "bias": state[f"{prefix}.bias"]}
+
+    params: Dict[str, Any] = {}
+    for i, r in enumerate(block_res):
+        blk = {"conv0": conv(f"b{r}.conv0"), "conv1": conv(f"b{r}.conv1"), "skip": conv(f"b{r}.skip", bias=False)}
+        if i == 0:
+            blk["fromrgb"] = conv(f"b{r}.fromrgb")
+        params[f"b{r}"] = blk
+    mapping: Dict[str, Any] = {"embed": dense("mapping.embed")}
+    i = 0
+    while f"mapping.fc{i}.weight" in state:
+        mapping[f"fc{i}"] = dense(f"mapping.fc{i}")
+        i += 1
+    params["mapping"] = mapping
+    params["b4_conv"] = conv("b4.conv")
+    params["b4_fc"] = dense("b4.fc")
+    params["b4_out"] = dense("b4.out")
+    return {"params": params, "n_mapping_layers": i}
 
 
 def convert_radnerf_grid(state: Dict[str, np.ndarray], grid_size: int = 128) -> Dict[str, Any]:

@@ -17,7 +17,9 @@ The grid head is `testing.reference_head_state`'s fake of the reference's
 RADNeRF at narrow widths (grid 16, tables of 2^10 rows a level): its
 condition encoders, grid tables, MLPs, individual codes, and the morton
 `density_grid` and packed `density_bitfield` of an ellipsoid, with the
-vestigial buffers JAX's converter ignores.
+vestigial buffers JAX's converter ignores. The discriminator is
+`testing.reference_disc_state`'s fake of the reference's `disc` sub-model
+at narrow widths (the map reads names only).
 
 Tolerances: the converted work dirs are equal exactly (keys, dtypes, the
 bytes of every array, `global_step`, `config.yaml`); the port's a2m loaded
@@ -39,9 +41,12 @@ from genefaceplusplus_tpu.models.audio2motion.vae_model import PitchContourVAEMo
 from genefaceplusplus_tpu_torch.config import set_hparams
 from genefaceplusplus_tpu_torch.inference.pipeline import _restore
 from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
-from genefaceplusplus_tpu_torch.testing import reference_a2m_state, reference_head_state, save_reference_ckpt
+from genefaceplusplus_tpu_torch.models.eg3d_discriminator import EG3DDualDiscriminator
+from genefaceplusplus_tpu_torch.testing import (reference_a2m_state, reference_disc_state, reference_head_state,
+                                                save_reference_ckpt)
 from genefaceplusplus_tpu_torch.tools import convert_ckpt, convert_vgg
 from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint
+from genefaceplusplus_tpu_torch.utils.convert_jax import convert_flax_params
 
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
 ATOL = 1e-4
@@ -229,8 +234,36 @@ def test_convert_vgg_writes_jaxs_tree(tmp_path, monkeypatch, names, widths, face
     assert open(tmp_path / "jax.msgpack", "rb").read() == open(tmp_path / "port.msgpack", "rb").read()
 
 
-@pytest.mark.parametrize("kind,waits_for", [("disc", "discriminators")])
-def test_head_and_disc_raise(released, tmp_path, kind, waits_for):
-    with pytest.raises(NotImplementedError, match=waits_for):
-        convert_ckpt.main(["--input", released[0], "--type", kind, "--out", str(tmp_path / kind)])
-    assert not os.path.exists(tmp_path / kind)
+@pytest.mark.parametrize("mapping_layers", [8, 2])
+def test_head_and_disc_raise(tmp_path, mapping_layers):
+    """--type disc (the test's name is from when the type raised): a fake of
+    the reference's `disc` sub-model (narrow widths at final_resolution 32
+    from the source's config.yaml; the map reads names only) converts to
+    JAX's tree bit for bit, `{'state_dict': {'disc': {'params': ...}}}`,
+    with JAX's config.yaml (its `disc_mapping_layers`); the port's
+    discriminator at that depth takes JAX's dir, every tensor accounted
+    for."""
+    src = str(tmp_path / "model_ckpt_steps_5000.ckpt")
+    widths = dict(img_resolution=32, channel_base=512, channel_max=64, mapping_layers=mapping_layers)
+    save_reference_ckpt(src, reference_disc_state(seed=mapping_layers, **widths), global_step=5000, sub_model="disc")
+    with open(tmp_path / "config.yaml", "w") as f:
+        f.write("final_resolution: 32\n")
+    jax_dir, port_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    _script("convert_ckpt").convert_file(src, "disc", jax_dir)
+    path = convert_ckpt.main(["--input", src, "--type", "disc", "--out", port_dir])
+    name = os.path.basename(path)
+    assert name == "model_ckpt_steps_5000.ckpt"
+    assert sorted(os.listdir(jax_dir)) == sorted(os.listdir(port_dir)) == ["config.yaml", name]
+    j_tree, t_tree = (_flat(_restore_file(os.path.join(d, name))) for d in (jax_dir, port_dir))
+    assert set(j_tree) == set(t_tree) and (("state_dict", "disc", "params", "mapping", "fc1", "weight") in t_tree)
+    for k, a in j_tree.items():
+        b = t_tree[k]
+        assert type(a) is type(b) and np.asarray(a).dtype == np.asarray(b).dtype, k
+        assert np.asarray(a).shape == np.asarray(b).shape and np.asarray(a).tobytes() == np.asarray(b).tobytes(), k
+    cfgs = [yaml.safe_load(open(os.path.join(d, "config.yaml"))) for d in (jax_dir, port_dir)]
+    assert cfgs[0] == cfgs[1] == {"final_resolution": 32, "disc_mapping_layers": mapping_layers}
+    disc = EG3DDualDiscriminator(**widths)
+    ckpt, _ = get_last_checkpoint(jax_dir)
+    disc.load_state_dict(convert_flax_params(ckpt["state_dict"]["disc"], disc))
+    np.testing.assert_array_equal(disc.mapping.embed.weight.detach().numpy(), reference_disc_state(
+        seed=mapping_layers, **widths)["mapping.embed.weight"])

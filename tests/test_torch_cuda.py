@@ -1022,3 +1022,92 @@ def test_perceptual_gradient_on_card_matches_cpu(cuda_setup):
           f"gradient max |d| / max |g| {rel:.3e}")
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     assert rel <= 1e-5, rel
+
+
+@pytest.mark.cuda
+def test_eg3d_discriminator_on_card_matches_cpu(cuda_setup):
+    """The EG3D dual discriminator at the reference's widths (channel_base
+    32768, channel_max 512, 8 mapping layers) at 64^2, batch 2, seeded
+    weights and inputs, with cuDNN's TF32 flag on: the logits and each
+    feature map within 1e-4 of their largest |value|, card vs CPU; the
+    feature-matching loss's gradients with respect to both images, the
+    card's and the CPU's float32 each against the CPU's float64: the card
+    within 4x the CPU's distance + 1e-4 (max |d| over the largest entry,
+    and the L2 distance): an L1 of lrelu features is not smooth, so float32
+    rounding flips some signs and kinks on either device (chip_smoke.py's
+    DISC_ORDER_K)."""
+    from genefaceplusplus_tpu_torch.models.eg3d_discriminator import EG3DDualDiscriminator, feature_matching_loss
+
+    assert cuda_setup  # skips without a card
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default; the float32 convolutions clear it
+    g = torch.Generator().manual_seed(21)
+    img, raw = torch.rand((2, 3, 64, 64), generator=g), torch.rand((2, 3, 32, 32), generator=g)
+    real, real_raw = torch.rand((2, 3, 64, 64), generator=g), torch.rand((2, 3, 32, 32), generator=g)
+    cam = torch.randn((2, 25), generator=g)
+    disc = EG3DDualDiscriminator(img_resolution=64, generator=torch.Generator().manual_seed(22)).requires_grad_(False)
+    out = {}
+    for name, dev, dt in (("cpu", "cpu", torch.float32), ("cuda", "cuda", torch.float32), ("f64", "cpu", torch.float64)):
+        d = disc.to(dev, dt)
+        x, r = img.to(dev, dt).detach().requires_grad_(True), raw.to(dev, dt).detach().requires_grad_(True)
+        logits, feats = d(x, r, cam.to(dev, dt))
+        _, target = d(real.to(dev, dt), real_raw.to(dev, dt), cam.to(dev, dt))
+        feature_matching_loss(feats, target).backward()
+        out[name] = {"logits": logits.detach().double().cpu(),
+                     **{f"feat{i}": f.detach().double().cpu() for i, f in enumerate(feats)},
+                     "grad_image": x.grad.double().cpu(), "grad_raw": r.grad.double().cpu()}
+    fwd = {k: v for k, v in _rel_errors(out["cuda"], out["cpu"]).items() if not k.startswith("grad")}
+    print(f"[eg3d disc] card vs cpu, max |d| / max |ref|: {fwd}")
+    assert max(fwd.values()) <= 1e-4, fwd
+    for k in ("grad_image", "grad_raw"):
+        g64 = out["f64"][k]
+        dist = {who: ((out[who][k] - g64).abs().max().item() / g64.abs().max().item(),
+                      ((out[who][k] - g64).norm() / g64.norm()).item()) for who in ("cuda", "cpu")}
+        print(f"[eg3d disc] {k} against float64 (max, L2): card {dist['cuda']}, cpu {dist['cpu']}")
+        assert all(dist["cuda"][i] <= 4.0 * dist["cpu"][i] + 1e-4 for i in (0, 1)), (k, dist)
+
+
+@pytest.mark.cuda
+def test_lmd_v2_on_card_matches_cpu(cuda_setup):
+    """The v2 landmark detector (seeded weights) on 4 seeded 512^2 frames
+    through detect_lmd, card vs CPU: landmarks within 1e-4 px-scale of
+    their largest, peak probabilities within 1e-5."""
+    from genefaceplusplus_tpu_torch.metrics import lmd
+    from genefaceplusplus_tpu_torch.utils.convert_jax import export_flax_params
+
+    assert cuda_setup  # skips without a card
+    params = export_flax_params(lmd.lm_detector("v2", generator=torch.Generator().manual_seed(5)))
+    frames = np.random.RandomState(6).randint(0, 255, (4, 512, 512, 3), dtype=np.uint8)
+    lms = {dev: lmd.detect_lms(frames, "", params=params, device=dev) for dev in ("cpu", "cuda")}
+    conf = {dev: lmd.detect_lmd(frames, lms["cpu"], "", arch="v2", per_landmark=True, with_conf=True,
+                                params=params, device=dev)[1] for dev in ("cpu", "cuda")}
+    d_lms = np.abs(lms["cuda"] - lms["cpu"]).max() / np.abs(lms["cpu"]).max()
+    d_conf = np.abs(conf["cuda"] - conf["cpu"]).max()
+    print(f"[lmd v2] card vs cpu: landmarks {d_lms:.3e} of the largest, peak probabilities {d_conf:.3e}")
+    assert d_lms <= 1e-4 and d_conf <= 1e-5
+
+
+@pytest.mark.cuda
+def test_sr_fm_step_on_card_matches_cpu(cuda_setup):
+    """test_sr_step_on_card_matches_cpu's step with the frozen EG3D
+    discriminator's feature matching on (lambda_dual_fm 0.1, the
+    discriminator seeded alike on both, at the SR's 128^2): the losses, the
+    feature-matching loss included, rtol 1e-4, updated parameters within
+    2e-5."""
+    from genefaceplusplus_tpu_torch.models.radnerf import MAY_LM3D_RADNERF_SR
+    from genefaceplusplus_tpu_torch.training.tasks.sr_task import SRHeadNeRFTask, SRTaskConfig
+
+    assert cuda_setup  # skips without a card
+    ds = _identity(128)
+    cfg = RADNeRFConfig.from_hparams({**MAY_LM3D_RADNERF_SR, "grid_size": 32, "individual_embedding_num": 16})
+    tcfg = SRTaskConfig(n_rays=ds.H * ds.W, lpips_start_iters=0, lip_window=32, sr_dtype="float32",
+                        lambda_dual_fm=0.1)
+    noise = torch.rand(ds.H * ds.W, generator=torch.Generator().manual_seed(5))
+
+    def prepare(task, state):
+        task.occupancy = _head_occupancy(32).to(task.device)
+
+    _card_vs_cpu(lambda dev: SRHeadNeRFTask(ds, cfg, tcfg, seed=5, device=dev), prepare,
+                 lambda dev: ({"frame_idx": 2}, noise.to(dev)),
+                 ["mse_loss", "sr_mse_loss", "lpips_loss", "sr_lpips_loss", "sr_lip_lpips_loss",
+                  "dual_feature_matching_loss", "total_loss"],
+                 1e-4, 2e-5, "sr + fm step")

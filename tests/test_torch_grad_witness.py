@@ -7,7 +7,9 @@ the card (absolute sums 23-67x the largest entry; 53x there), with the
 operands moved by float32 differences upstream, and fails a gradient moved
 by 1e-3 of its scale in one entry. `Float64Sums` redoes a grid head step's Linear and
 grid-table gradient sums in float64: they equal the step's float32
-gradients to 1e-5 of each tensor's largest entry."""
+gradients to 1e-5 of each tensor's largest entry; its sums for the Fourier
+projections' B and the SR's noise strengths (the SR + FM step's witness)
+equal autograd's gradients to 1e-6 of their terms' absolute sums."""
 
 import importlib.util
 import os
@@ -82,3 +84,45 @@ def test_float64_sums_of_a_grid_head_step():
         scale = float(ref.abs().max())
         err = float((grad - ref).abs().max())
         assert err <= 1e-5 * scale + 1e-5 * float(sums.spread[name].abs().max()) * 1e-2, (name, err / scale)
+
+
+@pytest.mark.parametrize("offset", [(0, 0), (2, 3)])
+def test_float64_sums_of_fourier_projections_and_noise_strengths(offset):
+    """The SR + FM step's extra sums: B of both Fourier encoders (x @ B^T)
+    and each SR layer's noise strength (the conv output's gradient times
+    the const noise, on a crop at `offset` too)."""
+    from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
+
+    cfg = RADNeRFConfig(individual_embedding_num=4, smo_win_size=3, hidden_dim_sigma=32, hidden_dim_ambient=32,
+                        hidden_dim_color=32, geo_feat_dim=16)
+    model = torch.nn.ModuleDict({"head": RADNeRF(cfg, generator=torch.Generator().manual_seed(0)),
+                                 "sr": Superresolution(3, 16, generator=torch.Generator().manual_seed(2))})
+    with torch.no_grad():
+        for i, (name, p) in enumerate(model["sr"].named_parameters()):
+            if name.endswith("noise_strength"):
+                p.fill_(0.1 * (i % 3 + 1))
+    g = torch.Generator().manual_seed(1)
+    xyz = torch.rand(2000, 3, generator=g) * 1.6 - 0.8
+    dirs = torch.nn.functional.normalize(torch.randn(2000, 3, generator=g), dim=-1)
+    cond = torch.randn(3, 1, 204, generator=g)
+    rgb_in = torch.rand(1, 8, 8, 3, generator=g)
+    with chip_smoke.Float64Sums(model) as sums:
+        head = model["head"]
+        sigma, rgb, amb = head.field(xyz, dirs, head.cal_cond_feat(cond), head.get_individual_code(1))
+        sr = model["sr"](rgb_in, noise_offset=offset)
+        w, w_sr = torch.randn(2000, 7, generator=g), torch.randn(sr.shape, generator=g)
+        ((torch.cat([sigma[:, None], rgb, amb], -1) * w).sum() + (sr * w_sr).sum()).backward()
+    named = dict(model.named_parameters())
+    extra = {n for n in sums.refs if n.endswith(("_embedder.B", "noise_strength"))}
+    assert extra == {"head.position_embedder.B", "head.ambient_embedder.B", "sr.block0.conv0.noise_strength",
+                     "sr.block0.conv1.noise_strength", "sr.block1.conv0.noise_strength",
+                     "sr.block1.conv1.noise_strength"}
+    for name in extra:
+        ref, grad = sums.refs[name], named[name].grad.double()
+        assert ref.shape == grad.shape, name
+        err = float((grad - ref).abs().max())
+        assert err <= 1e-6 * float(sums.spread[name].abs().max()), (name, err, float(ref.abs().max()))
+        assert bool((sums.spread[name] >= ref.abs()).all()), name
+    from genefaceplusplus_tpu_torch.models import superresolution
+    from genefaceplusplus_tpu_torch.ops import fourier_encoder
+    assert superresolution.modulated_conv2d is sums.modulated and fourier_encoder.project is sums.project  # restored

@@ -35,6 +35,8 @@ from genefaceplusplus_tpu_torch.config import set_hparams
 from genefaceplusplus_tpu_torch.data.dataset import synthetic
 from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer as TInfer
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRFConfig
+from genefaceplusplus_tpu_torch.testing import reference_disc_state, save_reference_ckpt
+from genefaceplusplus_tpu_torch.tools import convert_ckpt
 from genefaceplusplus_tpu_torch.training import run
 from genefaceplusplus_tpu_torch.training.tasks.torso_task import load_head
 from genefaceplusplus_tpu_torch.training.trainer import state_to_flax
@@ -305,10 +307,13 @@ def test_sigterm_checkpoints_and_the_rerun_continues(binary, tmp_path):
 
 
 def test_unported_tasks_and_no_card_raise(binary, tmp_path, monkeypatch):
-    """What the tasks do not port raises (the SR's dual discriminator);
-    train-side compaction, once refused, switches on at its step (the
-    budget telemetry in the log from that step on); without a card the
-    CLI raises unless --device names one."""
+    """The SR stage with lambda_dual_fm and a disc_model_dir that
+    `--type disc` converted (the reference's discriminator at the SR's
+    32^2, 2 mapping layers) logs the feature-matching loss from
+    lpips_start_iters on, leaves the dir's checkpoint as it was and writes
+    no discriminator leaf; train-side compaction, once refused, switches on
+    at its step (the budget telemetry in the log from that step on);
+    without a card the CLI raises unless --device names one."""
     work = str(tmp_path / "head")
     run.main(_argv(binary, "head", work, steps=4, train_compact_start=2))
     logged = [r for r in _metrics(work) if "total_loss" in r]
@@ -318,8 +323,22 @@ def test_unported_tasks_and_no_card_raise(binary, tmp_path, monkeypatch):
     assert any("compact/budget_frac" in r for r in logged)
     assert all(0.0 < r["compact/budget_frac"] <= 1.0 and 0.0 < r["compact/probe_live_frac"] <= 1.0
                for r in logged if "compact/budget_frac" in r)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        run.main(_argv(binary, "sr", str(tmp_path / "sr"), lambda_dual_fm=0.1))
+    src = str(tmp_path / "model_ckpt_steps_1000.ckpt")
+    save_reference_ckpt(src, reference_disc_state(seed=2, img_resolution=HW, mapping_layers=2), global_step=1000,
+                        sub_model="disc")
+    (tmp_path / "config.yaml").write_text(f"final_resolution: {HW}\n")  # the source's config, beside it
+    disc_dir = str(tmp_path / "disc")
+    disc_path = convert_ckpt.main(["--input", src, "--type", "disc", "--out", disc_dir])
+    with open(disc_path, "rb") as f:
+        disc_bytes = f.read()
+    sr = str(tmp_path / "sr")
+    state = run.main(_argv(binary, "sr", sr, lambda_dual_fm=0.1, disc_model_dir=disc_dir))
+    fm = [r.get("dual_feature_matching_loss") for r in _metrics(sr) if "total_loss" in r]
+    assert fm[0] is None and all(math.isfinite(x) and x > 0 for x in fm[1:]) and len(fm) == 2
+    with open(disc_path, "rb") as f:
+        assert f.read() == disc_bytes
+    ckpt, _ = get_last_checkpoint(sr)
+    assert set(ckpt["state_dict"]["params"]) == {"head", "sr"} and set(state_to_flax(state)["params"]) == {"head", "sr"}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = _argv(binary, "head", str(tmp_path / "card"))
     with pytest.raises(RuntimeError, match="device='cpu'"):

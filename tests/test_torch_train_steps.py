@@ -42,8 +42,12 @@ from genefaceplusplus_tpu_torch.training import schedulers as t_sched
 from genefaceplusplus_tpu_torch.training.tasks import head_task as t_head
 from genefaceplusplus_tpu_torch.training.tasks import sr_task as t_sr
 from genefaceplusplus_tpu_torch.training.tasks import torso_task as t_torso
+from genefaceplusplus_tpu_torch.data.eg3d_convention import eg3d_camera_from_euler_trans
+from genefaceplusplus_tpu_torch.models.eg3d_discriminator import EG3DDualDiscriminator
+from genefaceplusplus_tpu_torch.testing import reference_disc_state, save_reference_ckpt
+from genefaceplusplus_tpu_torch.tools import convert_ckpt
 from genefaceplusplus_tpu_torch.utils.convert_jax import (
-    convert_flax_params, export_flax_tree, flax_tree_leaves, load_flax_tree)
+    convert_flax_params, export_flax_tree, flax_leaves, flax_tree_leaves, load_flax_tree)
 
 G, HW = 16, 32
 WIDTHS = dict(smo_win_size=3, individual_embedding_num=8, grid_size=G, fourier_pos_max_scale=16.0,
@@ -289,27 +293,97 @@ def test_sr_step_matches_jax(sr_pair, dtype, rtol, atol):
 
 def test_sr_staging_validation_and_dual_fm(sr_pair, tmp_path):
     """use_sr / use_lpips follow the step (no SR or perceptual metric before
-    their start steps); validation reports val_sr_psnr against the stored
-    full-resolution gt and writes the SR renders as PNG; lambda_dual_fm > 0
-    raises, naming the discriminator."""
+    their start steps); with lambda_dual_fm > 0 the frozen discriminator's
+    feature matching joins the perceptual terms, its tensors bit-equal
+    after the steps, none requiring a gradient and none in the state's
+    model (so not in the optimizer or the checkpoint); the frame store's
+    camera labels are eg3d_camera_from_euler_trans of the record's poses;
+    validation reports val_sr_psnr against the stored full-resolution gt
+    and writes the SR renders as PNG."""
     _, task_t = sr_pair["float32"]
     ds = task_t.dataset
     task = t_sr.SRHeadNeRFTask(ds, TConfig(**WIDTHS), t_sr.SRTaskConfig(
         n_rays=256, num_samples=4, sr_start_iters=1, lpips_start_iters=2, lip_window=8,
-        sr_dtype="float32"), seed=5, device="cpu")
+        sr_dtype="float32", lambda_dual_fm=0.1), seed=5, device="cpu")
+    assert isinstance(task.disc_model, EG3DDualDiscriminator)
+    disc = {k: v.clone() for k, v in task.disc_model.state_dict().items()}
     state = task.create_state()
     seen = []
     for step in range(3):
         state, m = task.train_step(state, task.sample_train_batch(global_step=step))
-        seen.append(sorted(k for k in m if "sr" in k or "lpips" in k))
+        seen.append(sorted(k for k in m if "sr" in k or "lpips" in k or "dual" in k))
     assert seen[0] == [] and seen[1] == ["sr_mse_loss"]
-    assert seen[2] == ["lpips_loss", "sr_lip_lpips_loss", "sr_lpips_loss", "sr_mse_loss"]
+    assert seen[2] == ["dual_feature_matching_loss", "lpips_loss", "sr_lip_lpips_loss", "sr_lpips_loss",
+                       "sr_mse_loss"]
+    assert np.isfinite(float(m["dual_feature_matching_loss"])) and float(m["dual_feature_matching_loss"]) > 0
+    assert all(torch.equal(disc[k], v) for k, v in task.disc_model.state_dict().items())
+    assert not any(p.requires_grad for p in task.disc_model.parameters())
+    assert set(export_flax_tree(state.model)) == {"head", "sr"}
+    T = len(ds)
+    np.testing.assert_array_equal(task._device_frames()["camera"].numpy(), eg3d_camera_from_euler_trans(
+        np.asarray(ds.ds["euler"])[:T], np.asarray(ds.ds["trans"])[:T]))
     val = task.validate(state, max_frames=1, save_dir=str(tmp_path))
     assert np.isfinite(val["val_psnr"]) and np.isfinite(val["val_sr_psnr"])
     png = cv2.imread(str(tmp_path / "validation_results" / "val_sr_3_0.png"))
     assert png.shape == (HW, HW, 3)
-    with pytest.raises(NotImplementedError, match="discriminator"):
-        t_sr.SRHeadNeRFTask(ds, TConfig(**WIDTHS), t_sr.SRTaskConfig(lambda_dual_fm=0.1), device="cpu")
+
+
+def _jax_state_from_port(task_j, state_t):
+    """JAX's SR train state holding the port's params (flax's eager init of
+    a second head + SR costs ~40 s on the CPU)."""
+    params = jax.tree.map(jnp.asarray, export_flax_tree(state_t.model))
+    return j_sr.SRTrainState(params=params, opt_state=task_j.tx.init(params), global_step=jnp.asarray(0, jnp.int32),
+                             lambda_ambient=jnp.asarray(1.0, jnp.float32), rng=jax.random.PRNGKey(5))
+
+
+@pytest.mark.parametrize("arch", ["eg3d", "compact"])
+def test_sr_fm_step_matches_jax(ds_dict, arch, tmp_path):
+    """One SR step with every term on and the frozen discriminator's feature
+    matching (lambda_dual_fm 0.1) from the same state, noise, bg and mask.
+    eg3d: the reference's discriminator at the SR's 32^2 (its widths, 2
+    mapping layers; testing.reference_disc_state) converted by the port's
+    `--type disc`, which both tasks restore strictly from disc_model_dir;
+    compact: JAX's seeded init, loaded into the port's. Losses (FM
+    included) and gradient norms rtol 1e-4, updated params atol 1e-6 (the
+    float32 SR step's tolerances; Adam's moments seeded, so an update is a
+    smooth function of the gradient); the discriminators untouched. JAX
+    runs its own jitted train_step (its eager step costs 130-160 s of
+    per-primitive compiles on the CPU); its state is built from the port's
+    params (`_jax_state_from_port`)."""
+    ds_j = j_data.RADNeRFDataset(ds_dict, smo_win_size=3, with_sr=True)
+    ds_t = t_data.RADNeRFDataset(ds_dict, smo_win_size=3, with_sr=True)
+    kw = dict(n_rays=256, num_samples=4, lpips_start_iters=0, lip_window=8, lambda_lpips=0.5, sr_dtype="float32",
+              lambda_dual_fm=0.1, disc_arch=arch)
+    if arch == "eg3d":
+        src = str(tmp_path / "model_ckpt_steps_1000.ckpt")
+        save_reference_ckpt(src, reference_disc_state(seed=3, img_resolution=HW, mapping_layers=2),
+                            global_step=1000, sub_model="disc")
+        (tmp_path / "config.yaml").write_text(f"final_resolution: {HW}\n")  # the source's config, beside it
+        kw["disc_model_dir"] = str(tmp_path / "disc")
+        convert_ckpt.main(["--input", src, "--type", "disc", "--out", kw["disc_model_dir"]])
+    task_j = j_sr.SRHeadNeRFTask(ds_j, JConfig(**WIDTHS), j_sr.SRTaskConfig(**kw), seed=5)
+    task_t = t_sr.SRHeadNeRFTask(ds_t, TConfig(**WIDTHS), t_sr.SRTaskConfig(**kw), seed=5, device="cpu")
+    if arch == "compact":
+        task_t.disc_model.load_state_dict(convert_flax_params(_np(task_j.disc_params), task_t.disc_model))
+    disc_t = {k: v.clone() for k, v in task_t.disc_model.state_dict().items()}
+    for key, (_, arr) in flax_leaves(_np(task_j.disc_params)).items():
+        np.testing.assert_array_equal(disc_t[key].numpy(), arr, err_msg=key)
+    occ = _occupancy()
+    task_j.occupancy, task_t.occupancy = jnp.asarray(occ), torch.from_numpy(occ)
+    state_t = task_t.create_state()
+    state_j = _sync_states(_jax_state_from_port(task_j, state_t), state_t, seed=1)
+    load_flax_tree(task_t.perceptual.net, _np(task_j.perceptual.params))
+    frames_j, frames_t = task_j._device_frames(), task_t._device_frames()
+    np.testing.assert_allclose(frames_t["camera"].numpy(), np.asarray(frames_j["camera"]), atol=1e-6)
+    frames_t["bg"], frames_t["mask"] = torch.from_numpy(np.array(frames_j["bg"])), torch.from_numpy(
+        np.array(frames_j["mask"]))
+    noise = _noise(state_j, 256)
+    new_j, m_j = task_j.train_step(state_j, {"frame_idx": 2})
+    new_t, m_t = task_t.train_step(state_t, {"frame_idx": 2}, noise=torch.from_numpy(noise))
+    assert float(m_j["dual_feature_matching_loss"]) > 0
+    _assert_metrics_close(m_t, m_j, 1e-4)
+    _assert_params_close(new_t, new_j.params, 1e-6, f"SR + FM step ({arch})")
+    assert all(torch.equal(disc_t[k], v) for k, v in task_t.disc_model.state_dict().items())
 
 
 # ---------------------------------------------------------------- the torso step
