@@ -220,6 +220,32 @@ Phases (any failure exits non-zero, and no result line is printed):
               rerun on the CPU from the card's a2m output through the postnet;
               timed (ms/step, peak memory, the postnet by CUDA events,
               audio2secc with and without it, ms a frame)
+  onboard     a new identity from video to served frames without JAX: a
+              512^2 synthetic identity (data/synthetic_face.py, ONBOARD_FRAMES
+              frames) written as the port's AVI
+              with a voiced aud.wav, segmaps/ from the render's own head and
+              torso masks and lms_2d.npy from its 68 landmarks (mediapipe is
+              absent); data/process.py's frames, audio, segment, fit (on the
+              card), debug_fit and binarize; every file JAX's binarize reads
+              and each sample's images exist, the fit's mean landmark error
+              under ONBOARD_FIT_PX; the same fit on the CPU in float32 and
+              float64: the card within FIT_ORDER_K x the CPU's float32
+              distance from float64 (losses and reprojected landmarks;
+              the coefficients too, loosely for exp and trans, which lie
+              on flat directions); training/fleet.py trains the head + SR and torso
+              stages (egs/datasets/May/lm3d_radnerf{,_torso}_sr.yaml, full
+              width, ONBOARD_STEPS steps each) on the card, then skips both on a
+              second run; inference/cli.py serves ONBOARD_SERVE_FRAMES frames
+              from the fleet's dirs (a seeded full-width a2m), plain and with
+              --debug: the debug frames 512 x 1536, their first panel the plain
+              frame bit for bit, one B1 launch a frame; each step's wall
+  fit         the 3DMM fit at a real identity's size (FIT_T = 6,000 frames, a
+              4-minute video, x FIT_K = 468 mediapipe key points on the
+              stand-in basis, 200 + 200 iterations) on the card: wall, ms an
+              iteration, kernels and device busy an iteration (torch.profiler),
+              peak memory; the CPU's first FIT_CPU_ITERS iterations at the same
+              size as a yardstick; card vs CPU (and CPU float64) on the first
+              FIT_SLICE frames at the defaults
 
 `python3 chip_smoke.py --reference PATH` writes PARENT_REFERENCE's contents
 for the tree it sits in (run it from a copy of an older tree to compare
@@ -2995,7 +3021,8 @@ TRAIN_GRID_BAND_ROWS = 32  # the hashgrid and converted heads' band, card vs CPU
 # trained state that varies run to run. Where the step's own sums can be
 # redone in float64 on the CPU (every nn.Linear's weight and bias gradient
 # from its captured float32 operands, every grid table's gradient from
-# GridEncodeFunction's backward on its saved inputs), with the sums of their
+# GridEncodeFunction's backward on its saved inputs, the individual codes'
+# from the color net's first layer's output gradient), with the sums of their
 # terms' absolute values beside them, each entry of the card's gradient must
 # lie within GRID_GRAD_ABS of its terms' absolute sum plus GRID_GRAD_REL of
 # the tensor's largest entry from the float64 sum. An entry whose terms
@@ -3166,9 +3193,12 @@ class Float64Sums:
     accumulated in float64 from the same rows and weights; for every
     Fourier projection x @ B^T, B's gradient (output gradient)^T x; for
     every SR layer's const noise, its strength's gradient, the sum of the
-    conv output's gradient times the noise. `refs` maps parameter names to
-    those sums; `spread` to the same sums of the terms' absolute values (how
-    far an entry's terms cancel)."""
+    conv output's gradient times the noise; for every head's individual
+    code, its row's gradient, the sum over the points of the color net's
+    first layer's output gradient times that layer's weight columns that
+    take the code. `refs` maps parameter names to those sums; `spread` to
+    the same sums of the terms' absolute values (how far an entry's terms
+    cancel)."""
 
     def __init__(self, model):
         from genefaceplusplus_tpu_torch.models import superresolution
@@ -3179,6 +3209,13 @@ class Float64Sums:
         self.sr, self.fourier = superresolution, fourier_encoder
         self.names = {p.data_ptr(): n for n, p in model.named_parameters()}
         self.layers = {m: n for n, m in model.named_modules() if isinstance(m, superresolution.SynthesisLayer)}
+        # a head's code enters its color net's first layer as the input's last
+        # columns, tiled over the points (RADNeRF.field_color)
+        self.codes, self.heads, self.rows = {}, {}, {}
+        for n, m in model.named_modules():
+            if getattr(m, "individual_embeddings", None) is not None:
+                name = (n + "." if n else "") + "individual_embeddings"
+                self.codes[m.color_net.dense[0]], self.heads[name] = name, m
         self.refs, self.spread, self.hooks, self.layer = {}, {}, [], None
 
     def _add(self, name, ref, spread):
@@ -3198,10 +3235,25 @@ class Float64Sums:
                 self._add(mod + ".weight", g.t() @ a, g.abs().t() @ a.abs())
                 if layer.bias is not None:
                     self._add(mod + ".bias", g.sum(0), g.abs().sum(0))
+                name = self.codes.get(layer)
+                if name is not None:
+                    table = self.heads[name].individual_embeddings
+                    t = g @ layer.weight.detach()[:, -table.shape[1]:].double()  # each point's term
+                    ref = torch.zeros(table.shape, dtype=torch.float64, device=t.device)
+                    spread = torch.zeros_like(ref)
+                    ref[self.rows[name]], spread[self.rows[name]] = t.sum(0), t.abs().sum(0)
+                    self._add(name, ref, spread)
             output.register_hook(on_grad)
 
         self.hooks = [m.register_forward_hook(on_forward) for m in self.model.modules()
                       if isinstance(m, torch.nn.Linear)]
+        for name, head in self.heads.items():
+            def coded(index, name=name, head=head, get=head.get_individual_code):
+                n = head.individual_embeddings.shape[0]
+                i = int(index)  # the row JAX's gather reads: a negative index wraps once, then clamps
+                self.rows[name] = min(max(i + n if i < 0 else i, 0), n - 1)
+                return get(index)
+            head.get_individual_code = coded
         backward = self.backward = self.fn.backward
 
         def recorded(ctx, grad_out):
@@ -3259,6 +3311,8 @@ class Float64Sums:
             h.remove()
         self.fn.backward = staticmethod(self.backward)
         self.fourier.project, self.sr.modulated_conv2d = self.project, self.modulated
+        for head in self.heads.values():
+            del head.get_individual_code
 
 
 def grid_grads_card_vs_cpu(cfg, ckpt, dev) -> dict:
@@ -3523,9 +3577,13 @@ DISC_ORDER_K = 4.0
 # read 1.1e-4-2.26e-4 of their largest entry (failing `grad_witness` against
 # the CPU's float64 sums), the SR's noise strengths up to 2.73e-2 of
 # themselves, the noise_const buffers 4e-2-1.7e-1 (L2 1.5e-3-3.5e-3).
+# The individual codes' gradient, a sum over every point of the color net's
+# input gradient, read 3.1e-5-6.3e-5 of its largest entry in earlier runs and
+# 1.14e-4 in one whole run, which then failed under GRID_GRAD_REL.
 # Held: each parameter within GRID_GRAD_REL of its largest entry, the
 # tensors whose sums `Float64Sums` redoes (the head's nn.Linear layers, both
-# Fourier projections) within FM_GRAD_REL and the card within GRID_GRAD_REL
+# Fourier projections, the individual codes) within FM_GRAD_REL and the card
+# within GRID_GRAD_REL
 # of float64 sums of its own operands; the noise strengths (scalar sums
 # whose terms cancel ~10^3-10^4x) by `grad_witness` against the CPU step's
 # float64 sums; the noise_const buffers (per-pixel sums over a layer's
@@ -3814,8 +3872,9 @@ def phase_train_disc(dev, binary: str, root: str) -> int:
         part = next((p for p, names in parts.items() if k.startswith(names) or k.endswith(names)), "other")
         if part not in worst or row["max"] > worst[part][1]["max"]:
             worst[part] = (k, row)
-    check(all("own" in rows[k] for k in rows if k.endswith(("noise_strength", "_embedder.B"))),
-          "train_disc: a noise strength or Fourier projection without its float64 sum")
+    summed = ("noise_strength", "_embedder.B", "individual_embeddings")
+    check(all("own" in rows[k] for k in rows if k.endswith(summed)),
+          "train_disc: a noise strength, Fourier projection or individual code without its float64 sum")
     failed = [k for k, row in rows.items() if not row["ok"]]
     witnessed = {k: row for k, row in rows.items() if "own" in row}
     print(f"[train_disc] one SR + FM step (float32 SR) card vs CPU from the trained state, frame 3, one noise draw "
@@ -3828,8 +3887,8 @@ def phase_train_disc(dev, binary: str, root: str) -> int:
           + f" (parameters within {GRID_GRAD_REL}, those with float64 sums within {FM_GRAD_REL}; the noise_const "
             f"buffers' L2 within {FM_CONST_L2})")
     print(f"[train_disc] the same gradients against the CPU step's sums redone in float64 ({len(witnessed)} tensors: "
-          f"the head's nn.Linear layers, both Fourier projections, the SR's noise strengths), each part's worst "
-          f"tensor above: " + "; ".join(
+          f"the head's nn.Linear layers, both Fourier projections, the individual codes, the SR's noise strengths), "
+          f"each part's worst tensor above: " + "; ".join(
               f"{p} card {row['w_card']:.3e}, CPU {row['w_cpu']:.3e} of the largest entry (the card against its own "
               f"operands' float64 sums {row['own']:.3e}), the terms' absolute sum {row['spread']:.1f}x it"
               for p, (k, row) in worst.items() if "own" in row)
@@ -4299,6 +4358,340 @@ def phase_train_audio(dev):
     return launches
 
 
+# onboard: a new identity from video to served frames, the port alone
+ONBOARD_FRAMES = 66  # 60 train + 6 val samples
+ONBOARD_STEPS = 20  # each fleet stage
+ONBOARD_SERVE_FRAMES = 8
+ONBOARD_HPARAMS = "update_extra_interval=8,tb_log_interval=1"  # the fleet's, beside the data dir and validation
+# the fit's mean landmark error in pixels at 512^2: the stand-in basis is 68
+# random points, not a face, so the fit cannot follow the synthetic face's
+# landmarks closely (CPU rehearsal, 22 frames: 72.6 px, against 117.4 px at
+# zero coefficients); the bounds say the fit ran and moved the landmarks
+# toward the detections, not how good a fit is
+ONBOARD_FIT_PX, ONBOARD_FIT_GAIN = 90.0, 0.75
+# the card's fit against the CPU's: each reading (coefficients relative to
+# their largest entry, losses relative, reprojected landmarks in pixels)
+# within FIT_ORDER_K x the CPU float32 fit's distance from the CPU float64
+# fit, plus FIT_FLOOR of it (Adam normalises gradient entries near its eps,
+# so float32 rounding moves a 400-iteration fit along the loss's flat
+# directions: the reading is the order of that motion, not a fixed bound).
+# The losses and the reprojected landmarks decide the check. exp and trans
+# move along the stand-in basis's flat directions (exp against the pose) by
+# ~0.1 of their largest entry in float32 (PR 20's T = 250 fits), so 4x that
+# passes almost any exp or trans: their readings are printed and held only
+# that loosely; id and euler read ~1e-3 and are held in earnest
+FIT_ORDER_K, FIT_FLOOR = 4.0, 1e-6
+FIT_T, FIT_K, FIT_CPU_ITERS, FIT_SLICE, FIT_PROFILE_ITERS = 6000, 468, 20, 250, 10
+
+
+def onboard_identity(data: str, vid: str) -> dict:
+    """The raw video and the precomputed inputs mediapipe would give:
+    raw/videos/<vid>.avi, processed/videos/<vid>/{aud.wav, segmaps/*.png,
+    lms_2d.npy}. Returns the synthetic identity's dict."""
+    from genefaceplusplus_tpu_torch.data.audio import save_wav_16k
+    from genefaceplusplus_tpu_torch.data.image_io import write_png
+    from genefaceplusplus_tpu_torch.data.segmenter import encode_segmap_image, onehot_from_categories
+    from genefaceplusplus_tpu_torch.data.synthetic_face import synthetic_face
+    from genefaceplusplus_tpu_torch.data.video import StreamingVideoWriter
+
+    ds = synthetic_face(num_frames=ONBOARD_FRAMES, size=SIZE, seed=5, head_masks=True)
+    samples = ds["train_samples"] + ds["val_samples"]
+    os.makedirs(os.path.join(data, "raw", "videos"))
+    writer = StreamingVideoWriter(os.path.join(data, "raw", "videos", f"{vid}.avi"), fps=25)
+    for s in samples:
+        writer.append(s["gt_img"])
+    writer.close()
+    proc = os.path.join(data, "processed", "videos", vid)
+    os.makedirs(os.path.join(proc, "segmaps"))
+    save_wav_16k(voiced_wav(ONBOARD_FRAMES / 25.0, 140.0, 200.0, seed=9), os.path.join(proc, "aud.wav"))
+    for i, s in enumerate(samples):
+        # classes: head -> face-skin; the torso layer's skin-coloured neck ->
+        # body-skin, its cloth -> clothes; the rest background
+        cat = np.zeros((SIZE, SIZE), np.int64)
+        torso = s["torso_img"]
+        alpha = torso[..., 3] > 127
+        skin = torso[..., 0].astype(np.int64) > torso[..., 2]
+        cat[alpha & skin], cat[alpha & ~skin], cat[s["head_mask"]] = 2, 4, 3
+        write_png(os.path.join(proc, "segmaps", f"{i:08d}.png"), encode_segmap_image(onehot_from_categories(cat)))
+    np.save(os.path.join(proc, "lms_2d.npy"), (np.stack([s["lms"] for s in samples]) * SIZE).astype(np.float32))
+    return ds
+
+
+def fit_distances(fit, ref, helper) -> dict:
+    """Per reading, how far `fit` lies from `ref`: each coefficient tensor
+    relative to ref's largest entry, both losses relative, and the
+    reprojected landmarks' largest distance in pixels at SIZE."""
+    out = {k: float(np.abs(fit[k] - ref[k]).max() / max(np.abs(ref[k]).max(), 1e-30))
+           for k in ("id", "exp", "euler", "trans")}
+    for k in ("final_loss", "pose_loss"):
+        out[k] = abs(fit[k] - ref[k]) / abs(ref[k])
+
+    def reproj(c):
+        t = [torch.as_tensor(np.asarray(c[k], np.float32)) for k in ("id", "exp", "euler", "trans")]
+        return helper.reconstruct_lm2d(*t).numpy() * SIZE
+
+    out["lm_px"] = float(np.abs(reproj(fit) - reproj(ref)).max())
+    return out
+
+
+def fit_card_vs_cpu(lm2d, dev, mode: str, what: str) -> dict:
+    """The default fit of `lm2d` on the card, the CPU in float32 and the CPU
+    in float64; fails where a card reading exceeds FIT_ORDER_K x the CPU
+    float32 one's (plus FIT_FLOOR). The losses and the reprojected landmarks
+    (lm_px) are what a wrong card fit fails; exp and trans are printed but
+    sit on flat directions, so their bound is loose (FIT_ORDER_K's comment).
+    Returns the distances."""
+    from genefaceplusplus_tpu_torch.data.face3d import Face3DHelper
+    from genefaceplusplus_tpu_torch.data.fit_3dmm import fit_3dmm_for_video
+
+    cpu = Face3DHelper.synthetic(mode)
+    f64 = Face3DHelper.synthetic(mode)
+    for name in ("key_mean_shape", "key_id_base", "key_exp_base", "persc_proj"):
+        setattr(f64, name, getattr(f64, name).double())
+    fits = {"card": fit_3dmm_for_video(lm2d, Face3DHelper.synthetic(mode, device=dev)),
+            "cpu": fit_3dmm_for_video(lm2d, cpu), "f64": fit_3dmm_for_video(lm2d, f64)}
+    d_card, d_cpu = fit_distances(fits["card"], fits["f64"], cpu), fit_distances(fits["cpu"], fits["f64"], cpu)
+    d_pair = fit_distances(fits["card"], fits["cpu"], cpu)
+    print(f"[{what}] fit card vs CPU ({lm2d.shape[0]} frames x {lm2d.shape[1]} points, 200 + 200 iterations): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d_pair.items()) + "; from the CPU's float64 fit: card "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d_card.items()) + "; CPU float32 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d_cpu.items())
+          + f" (bound: {FIT_ORDER_K} x the CPU float32's + {FIT_FLOOR}; the losses and lm_px decide, exp and "
+            f"trans lie on flat directions)")
+    for k, v in d_card.items():
+        check(v <= FIT_ORDER_K * d_cpu[k] + FIT_FLOOR, f"{what}: the card's fit {k} {v:.3e} from float64 against "
+                                                         f"the CPU float32's {d_cpu[k]:.3e}")
+    return {"pair": d_pair, "card": d_card, "cpu": d_cpu}
+
+
+def phase_onboard(dev) -> int:
+    """onboard (module docstring). Returns its B1 launches."""
+    from genefaceplusplus_tpu_torch.data import fit_3dmm, process
+    from genefaceplusplus_tpu_torch.data.audio import extract_f0
+    from genefaceplusplus_tpu_torch.data.face3d import Face3DHelper
+    from genefaceplusplus_tpu_torch.data.video import read_avi
+    from genefaceplusplus_tpu_torch.inference import cli
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.training import fleet, run
+    from genefaceplusplus_tpu_torch.utils.ckpt import get_all_ckpts, save_flax_checkpoint
+    from genefaceplusplus_tpu_torch.utils.convert_jax import export_flax_params
+    from genefaceplusplus_tpu_torch.config import load_config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_onboard_")
+    walls = {}
+    cwd = os.getcwd()
+    os.chdir(repo)  # the configs' base_config paths are relative to the repository root
+    try:
+        data, vid = os.path.join(root, "data"), "Onboard"
+        t0 = time.perf_counter()
+        ds = onboard_identity(data, vid)
+        walls["identity"] = time.perf_counter() - t0
+        proc = os.path.join(data, "processed", "videos", vid)
+
+        # data preparation, the fit timed on the card and its device checked
+        fits = []
+        fit = fit_3dmm.fit_3dmm_for_video
+
+        def watched_fit(lm2d, helper, *a, **kw):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fit(lm2d, helper, *a, **kw)
+            torch.cuda.synchronize()
+            fits.append((helper.key_mean_shape.device, (time.perf_counter() - start) * 1e3))
+            return out
+
+        fit_3dmm.fit_3dmm_for_video = watched_fit
+        try:
+            steps = process.main(["--video_id", vid, "--data_dir", data, "--device", str(dev), "--size", str(SIZE),
+                                  "--steps", "frames,audio,segment,fit,debug_fit,binarize"])
+        finally:
+            fit_3dmm.fit_3dmm_for_video = fit
+        walls.update({f"process {k}": v for k, v in steps.items()})
+        check(len(fits) == 1 and fits[0][0].type == dev.type, f"onboard: the fit ran on {[f[0] for f in fits]}")
+        T = ONBOARD_FRAMES
+        for name, n in (("gt_imgs", T), ("head_imgs", T), ("com_imgs", T), ("inpaint_torso_imgs", T),
+                        ("torso_imgs", T), ("person_imgs", T), ("segmaps", T)):
+            check(len(os.listdir(os.path.join(proc, name))) == n, f"onboard: {name} holds "
+                                                                    f"{len(os.listdir(os.path.join(proc, name)))}")
+        for f in ("bg.jpg", "coeff_fit_mp.npy", "lms_2d.npy", "aud_mel_f0.npy"):
+            check(os.path.exists(os.path.join(proc, f)), f"onboard: {f} missing")
+        debug_frames, _ = read_avi(os.path.join(proc, "debug_fit.avi"))
+        check(debug_frames.shape == (T, SIZE, 2 * SIZE, 3), f"onboard: debug_fit.avi {debug_frames.shape}")
+        binary = os.path.join(data, "binary", "videos")
+        rec = np.load(os.path.join(binary, vid, "trainval_dataset.npy"), allow_pickle=True).tolist()
+        n_train = T // 11 * 10  # 60 of 66
+        check(len(rec["train_samples"]) == n_train and len(rec["val_samples"]) == T - n_train,
+              "onboard: the record's split")
+        for smp in rec["train_samples"] + rec["val_samples"]:
+            for k in ("head_img_fname", "torso_img_fname", "gt_img_fname"):
+                check(os.path.exists(smp[k]), f"onboard: {smp[k]} missing")
+        coeff = np.load(os.path.join(proc, "coeff_fit_mp.npy"), allow_pickle=True).tolist()
+        lms = np.load(os.path.join(proc, "lms_2d.npy"))
+        helper = Face3DHelper.synthetic("lm68")
+        pred = helper.reconstruct_lm2d(*(torch.as_tensor(coeff[k]) for k in ("id", "exp", "euler", "trans"))).numpy()
+        err_px = float(np.linalg.norm(pred * 512.0 - lms, axis=-1).mean())  # step_fit's 512 scale
+        zeros = helper.reconstruct_lm2d(*(torch.zeros(T, n) for n in (80, 64, 3, 3))).numpy()
+        err0_px = float(np.linalg.norm(zeros * 512.0 - lms, axis=-1).mean())
+        print(f"[onboard] {card_line()}; {T} frames of {SIZE}^2 through data/process.py: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items())
+              + f"; the fit on {fits[0][0]} {fits[0][1]:.1f} ms (400 iterations, {fits[0][1] / 400:.3f} ms an "
+                f"iteration, host wall synchronised), final loss {coeff['final_loss']:.4e}, mean landmark error "
+                f"{err_px:.2f} px against {err0_px:.2f} at zero coefficients (bounds {ONBOARD_FIT_PX} px and "
+                f"{ONBOARD_FIT_GAIN} x that); debug_fit.avi {debug_frames.shape}")
+        check(err_px < ONBOARD_FIT_PX and err_px < ONBOARD_FIT_GAIN * err0_px,
+              f"onboard: the fit's mean landmark error {err_px:.2f} px ({err0_px:.2f} at zero coefficients)")
+        t0 = time.perf_counter()
+        fit_card_vs_cpu((lms / 512.0).astype(np.float32), dev, "lm68", "onboard")
+        walls["fit card vs CPU"] = time.perf_counter() - t0
+
+        # the fleet: head + SR, then torso, on the card; a second run skips both
+        stages = []
+        main = run.main
+
+        def watched_main(argv):
+            t1 = time.perf_counter()
+            state = main(argv)
+            stages.append((argv[argv.index("--exp_name") + 1], time.perf_counter() - t1, int(state.global_step),
+                           next(state.model.parameters()).device))
+            return state
+
+        argv = ["--video_ids", vid, "--head_config", os.path.join(repo, "egs/datasets/May/lm3d_radnerf_sr.yaml"),
+                "--torso_config", os.path.join(repo, "egs/datasets/May/lm3d_radnerf_torso_sr.yaml"),
+                "--data_dir", data, "--ckpt_root", os.path.join(root, "checkpoints"),
+                "--max_updates_head", str(ONBOARD_STEPS), "--max_updates_torso", str(ONBOARD_STEPS),
+                "--hparams", f"binary_data_dir={binary},val_check_interval={ONBOARD_STEPS},{ONBOARD_HPARAMS}",
+                "--device", str(dev)]
+        run.main = watched_main
+        try:
+            t0 = time.perf_counter()
+            dirs = fleet.main(argv)[vid]
+            walls["fleet"] = time.perf_counter() - t0
+            out = io_capture(lambda: fleet.main(argv))
+        finally:
+            run.main = main
+        check([s[0] for s in stages] == [f"{vid}_head", f"{vid}_torso"], f"onboard: fleet stages {stages}")
+        for name, wall, step, d in stages:
+            check(step == ONBOARD_STEPS and d.type == dev.type, f"onboard: {name} ended at step {step} on {d}")
+            check(bool(get_all_ckpts(os.path.join(root, "checkpoints", name))), f"onboard: {name} has no checkpoint")
+        for stage in ("preprocess", "head", "torso"):
+            check(re.search(rf"\[{vid}\] {stage}: .*skipping", out) is not None,
+                  f"onboard: the second fleet run did not skip {stage}")
+        print(f"[onboard] training/fleet.py: " + "; ".join(f"{n} {w:.1f} s ({s} steps on {d})" for n, w, s, d in stages)
+              + "; the second run skipped preprocess, head and torso")
+
+        # serving from the fleet's dirs through the CLI, plain and --debug
+        hp = a2m_hparams()
+        from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
+
+        a2m = a2m_model_from_hparams(hp)
+        a2m.load_state_dict(seeded_a2m_params(hp, 4))
+        a2m_dir = os.path.join(root, "a2m")
+        a2m_yaml = load_config("egs/datasets/May/audio2motion_vae.yaml")
+        save_flax_checkpoint(a2m_dir, 40000, {"state_dict": {"variables": export_flax_params(a2m), "opt_state": {}}},
+                             config=a2m_yaml)
+        wav = voiced_wav(ONBOARD_SERVE_FRAMES / 25.0, 150.0, 170.0, seed=11)
+        n_hub = 2 * ONBOARD_SERVE_FRAMES
+        feats = {"hubert": np.random.RandomState(12).randn(n_hub, 1024).astype(np.float32),
+                 "f0": extract_f0(wav, mel_len=n_hub), "wav16k": wav}
+        fpath = os.path.join(root, "request.npy")
+        np.save(fpath, feats, allow_pickle=True)
+        served, launches = {}, 0
+        for how, extra in (("plain", []), ("debug", ["--debug"])):
+            torch.cuda.synchronize()
+            ff.fused_field.launches = 0  # count only the main path's launches
+            t0 = time.perf_counter()
+            path = cli.main(["--a2m_ckpt", a2m_dir, "--torso_ckpt", dirs["torso"], "--drv_aud_features", fpath,
+                             "--out_name", os.path.join(root, f"{how}.mp4"), "--device", str(dev)] + extra)
+            walls[f"serve {how}"] = time.perf_counter() - t0
+            n = ff.fused_field.launches
+            check(n == ONBOARD_SERVE_FRAMES, f"onboard: fused_field launched {n} times for {ONBOARD_SERVE_FRAMES} "
+                                             f"{how} frames")
+            launches += n
+            served[how] = read_avi(path)[0]
+        plain, debug = served["plain"], served["debug"]
+        check(plain.shape == (ONBOARD_SERVE_FRAMES, SIZE, SIZE, 3), f"onboard: plain frames {plain.shape}")
+        check(debug.shape == (ONBOARD_SERVE_FRAMES, SIZE, 3 * SIZE, 3), f"onboard: debug frames {debug.shape}")
+        check(np.array_equal(debug[:, :, :SIZE], plain), "onboard: the debug frames' first panel vs the plain frames")
+        check(debug[:, :, SIZE:2 * SIZE].any(), "onboard: an empty SECC panel")
+        check(any(not np.array_equal(plain[0], f) for f in plain[1:]), "onboard: the served frames do not vary")
+        print(f"[onboard] inference/cli.py from the fleet's dirs: {ONBOARD_SERVE_FRAMES} frames of {SIZE}^2 plain "
+              f"({walls['serve plain']:.1f} s) and with --debug ({walls['serve debug']:.1f} s, "
+              f"{debug.shape[1]}x{debug.shape[2]}, the first panel equal to the plain frame bit for bit; lit pixels "
+              f"a frame: SECC {int(debug[:, :, SIZE:2 * SIZE].any(-1).sum()) / ONBOARD_SERVE_FRAMES:.0f}, lm68 "
+              f"{int(debug[:, :, 2 * SIZE:].any(-1).sum()) / ONBOARD_SERVE_FRAMES:.0f}), "
+              f"{launches} fused_field launches")
+        del ds
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[onboard] wall by step (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return launches
+
+
+def io_capture(fn) -> str:
+    """What `fn()` prints to stdout (it is also passed through)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    return text
+
+
+def phase_fit(dev) -> dict:
+    """fit (module docstring)."""
+    from genefaceplusplus_tpu_torch.data.face3d import Face3DHelper
+    from genefaceplusplus_tpu_torch.data.fit_3dmm import FitConfig, fit_3dmm_for_video
+
+    cpu = Face3DHelper.synthetic("mediapipe")
+    card = Face3DHelper.synthetic("mediapipe", device=dev)
+    rng = np.random.RandomState(13)
+    T = FIT_T
+    t = np.arange(T, dtype=np.float32)[:, None] / 25.0
+    true = {"id": np.tile(rng.randn(1, 80).astype(np.float32) * 0.3, (T, 1)),
+            "exp": (0.2 * np.sin(2 * np.pi * (0.3 + rng.rand(1, 64)) * t + rng.rand(1, 64) * 6)).astype(np.float32),
+            "euler": (0.1 * np.sin(2 * np.pi * 0.1 * t + rng.rand(1, 3) * 6)).astype(np.float32),
+            "trans": (0.05 * np.sin(2 * np.pi * 0.07 * t + rng.rand(1, 3) * 6)).astype(np.float32)}
+    lm2d = cpu.reconstruct_lm2d(*(torch.as_tensor(true[k]) for k in ("id", "exp", "euler", "trans"))).numpy()
+    lm2d = (lm2d + rng.randn(*lm2d.shape).astype(np.float32) * 0.002).astype(np.float32)
+    check(lm2d.shape == (FIT_T, FIT_K, 2), f"fit: landmarks {lm2d.shape}")
+
+    fit_3dmm_for_video(lm2d[:50], card, FitConfig(iters_pose=2, iters_joint=2))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    fit = fit_3dmm_for_video(lm2d, card)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    check(all(np.isfinite(fit[k]).all() for k in ("id", "exp", "euler", "trans")) and fit["final_loss"]
+          < fit["pose_loss"], f"fit: final loss {fit['final_loss']} against the pose phase's {fit['pose_loss']}")
+    n_prof = FIT_PROFILE_ITERS // 2
+    acts, kernels, busy, top = profile_device(lambda: (fit_3dmm_for_video(
+        lm2d, card, FitConfig(iters_pose=n_prof, iters_joint=FIT_PROFILE_ITERS - n_prof)), FIT_PROFILE_ITERS)[1])
+    t0 = time.perf_counter()
+    fit_3dmm_for_video(lm2d, cpu, FitConfig(iters_pose=FIT_CPU_ITERS, iters_joint=0))
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / FIT_CPU_ITERS
+    ms_iter = wall * 1e3 / 400
+    print(f"[fit] {card_line()}; {FIT_T} frames x {FIT_K} points, 200 + 200 iterations on the card: "
+          f"{wall:.3f} s of host wall ({ms_iter:.3f} ms an iteration), final loss {fit['final_loss']:.4e} (pose "
+          f"phase {fit['pose_loss']:.4e}), peak allocated {peak:.3f} GiB above the phase's start; under torch.profiler "
+          f"({FIT_PROFILE_ITERS} iterations): "
+          + (f"{kernels:.1f} kernels and {busy:.3f} ms of device busy an iteration ({acts:.1f} activities); top: "
+             + "; ".join(f"{n} x{c:.1f} {ms:.4f} ms" for n, c, ms in top[:5]) if acts is not None
+             else "no device activity")
+          + f"; the CPU's first {FIT_CPU_ITERS} iterations at the same size: {cpu_ms:.1f} ms an iteration "
+            f"({host_cpu()})")
+    dist = fit_card_vs_cpu(lm2d[:FIT_SLICE], dev, "mediapipe", "fit")
+    return {"ms_iter": ms_iter, "wall_s": wall, "kernels": kernels, "busy_ms": busy, "peak_gib": peak,
+            "cpu_ms_iter": cpu_ms, "dist": dist}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4360,6 +4753,8 @@ def main() -> int:
     finally:
         shutil.rmtree(train_root, ignore_errors=True)
     refined_launches = timed("train_audio", phase_train_audio, dev)
+    onboard_launches = timed("onboard", phase_onboard, dev)
+    timed("fit", phase_fit, dev)
     print(f"[done] {time.perf_counter() - t0:.1f} s; by phase (host wall): "
           + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()))
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
@@ -4369,7 +4764,8 @@ def main() -> int:
           f"{convert_launches} from the converted a2m + {app_launches} web app (serve_grid: none, its grid heads "
           f"run the float32 field) + {trained_launches} serving from CLI-trained dirs + {disc_launches} serving from "
           f"the FM-trained head + SR dir + {refined_launches} serving "
-          f"through the trained postnet; in train mode: {train_fwd} training; fused_field_bwd_chain: {train_chain} "
+          f"through the trained postnet + {onboard_launches} served from the onboarded identity's fleet dirs "
+          f"(plain and --debug); in train mode: {train_fwd} training; fused_field_bwd_chain: {train_chain} "
           f"training; fused_field_wgrad: {train_wgrad} training ({train_compacted} of each of the three on the "
           f"compact buffer; serve_grid and train_grid launch none: grid heads run the float32 field)")
     source = "genefaceplusplus_tpu_torch/csrc/"
@@ -4377,7 +4773,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda", "source": source + "fused_field.cu", "replaces": pallas + "156",
         "launches": (serve_launches + full_launches + compact_launches + audio_launches + cli_launches + long_launches
-                     + convert_launches + app_launches + trained_launches + disc_launches + refined_launches),
+                     + convert_launches + app_launches + trained_launches + disc_launches + refined_launches
+                     + onboard_launches),
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {

@@ -22,7 +22,15 @@ CUDA forward kernel `csrc/fused_field.cu`; training's backward is
 `csrc/fused_field_bwd.cu` (`ops/fused_field.py`). A head trained by the
 reference (tiled or hash grid encoders, `ops/grid_encoder.py`), converted
 by `tools/convert_ckpt.py --type head`, is served with the float32 field.
-ROADMAP.md lists what is still to port.
+A new identity goes from video to served frames without JAX: data
+preparation (`data/process.py`: frames from the port's AVI, audio features,
+segmentation with the background and the inpainted torso
+(`data/segmenter.py`), the 3DMM fit on the card (`data/fit_3dmm.py`), the
+fit's check video, the binarizer), the training fleet
+(`training/fleet.py`: head + SR, then torso) and `inference/cli.py
+--debug`'s SECC and landmark panels. The package imports no cv2, imageio
+or mediapipe at import time (mediapipe is imported lazily, and absent, by
+`data/mp_extract.py`). ROADMAP.md lists what is still to port.
 """
 
 import torch

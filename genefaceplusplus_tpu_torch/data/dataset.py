@@ -79,6 +79,19 @@ def get_boundary_mask(lm2d: np.ndarray, H: int, W: int) -> np.ndarray:
     return mask
 
 
+def get_face_rect(lm68: np.ndarray, H: int, W: int, margin: float = 0.1):
+    """[top, bottom, left, right] of the landmarks (pixel or [0, 1]
+    coordinates) widened by `margin` of their extent, clipped to the image."""
+    xs = lm68[:, 0] * W if lm68.max() <= 1.5 else lm68[:, 0]
+    ys = lm68[:, 1] * H if lm68.max() <= 1.5 else lm68[:, 1]
+    mx = (xs.max() - xs.min()) * margin
+    my = (ys.max() - ys.min()) * margin
+    return [
+        int(max(0, ys.min() - my)), int(min(H, ys.max() + my)),
+        int(max(0, xs.min() - mx)), int(min(W, xs.max() + mx)),
+    ]
+
+
 def resize_bilinear(img: np.ndarray, H: int, W: int) -> np.ndarray:
     """[h, w, c] float image -> [H, W, c]: bilinear with half-pixel centres
     and no antialiasing, sampling where cv2.resize's INTER_LINEAR does."""

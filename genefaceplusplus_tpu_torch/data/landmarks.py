@@ -1,10 +1,10 @@
 """Landmark index tables, eye-area measures and blink editing (numpy copy
-of the parts of `genefaceplusplus_tpu/data/landmarks.py` that audio-driven
-serving uses).
+of `genefaceplusplus_tpu/data/landmarks.py`).
 
-`INDEX_LM68_FROM_LM478` is the standard MediaPipe FaceMesh -> 68-point
-subset; blink injection follows the reference's inference
-(genefacepp_infer.py:81-114).
+The tables are the standard MediaPipe FaceMesh topology: the 478 -> 68,
+131 and 141-point subsets, and the eye, lip and unmatched-boundary sets the
+3DMM fit weights (`data/fit_3dmm.py`); blink injection follows the
+reference's inference (genefacepp_infer.py:81-114).
 """
 
 from __future__ import annotations
@@ -18,6 +18,28 @@ INDEX_LM68_FROM_LM478 = [
     33, 160, 158, 133, 153, 144, 362, 385, 387, 263, 373, 380, 61, 40, 37, 0, 267, 270,
     291, 321, 314, 17, 84, 91, 78, 81, 13, 311, 308, 402, 14, 178,
 ]
+INDEX_LM131_FROM_LM478 = (
+    [70, 63, 105, 66, 107, 55, 65, 52, 53, 46]
+    + [300, 293, 334, 296, 336, 285, 295, 282, 283, 276]
+    + [33, 246, 161, 160, 159, 158, 157, 173, 133, 155, 154, 153, 145, 144, 163, 7]
+    + [263, 466, 388, 387, 386, 385, 384, 398, 362, 382, 381, 380, 374, 373, 390, 249]
+    + [78, 191, 80, 81, 82, 13, 312, 311, 310, 415, 308, 324, 318, 402, 317, 14, 87, 178, 88, 95]
+    + [61, 185, 40, 39, 37, 0, 267, 269, 270, 409, 291, 375, 321, 405, 314, 17, 84, 181, 91, 146]
+    + [10, 338, 297, 332, 284, 251, 389, 356, 454, 323, 361, 288, 397, 365, 379, 378, 400, 377,
+       152, 148, 176, 149, 150, 136, 172, 58, 132, 93, 234, 127, 162, 21, 54, 103, 67, 109]
+    + [64, 4, 294]
+)
+INDEX_LM141_FROM_LM478 = (
+    INDEX_LM131_FROM_LM478[:-3]
+    + [468, 469, 470, 471, 472] + [473, 474, 475, 476, 477] + [64, 4, 294]
+)
+INDEX_EYE_FROM_LM478 = (
+    [33, 246, 161, 160, 159, 158, 157, 173, 133, 155, 154, 153, 145, 144, 163, 7]
+    + [263, 466, 388, 387, 386, 385, 384, 398, 362, 382, 381, 380, 374, 373, 390, 249]
+)
+INDEX_INNERLIP_FROM_LM478 = [78, 191, 80, 81, 82, 13, 312, 311, 310, 415, 308, 324, 318, 402, 317, 14, 87, 178, 88, 95]
+INDEX_OUTERLIP_FROM_LM478 = [61, 185, 40, 39, 37, 0, 267, 269, 270, 409, 291, 375, 321, 405, 314, 17, 84, 181, 91, 146]
+UNMATCH_MASK_FROM_LM478 = [93, 127, 132, 234, 323, 356, 361, 454]
 # fmt: on
 
 INDEX_YAW_FROM_LM68 = list(range(0, 17))

@@ -11,9 +11,9 @@ is an uncompressed AVI with the audio (`<stem>.avi` for an .mp4 name).
 `--postnet_ckpt` names a postnet work dir: its refiner runs on the a2m's
 landmarks. `--color_topk K` runs the colour MLP on the K samples of highest
 weight a ray; `--compact_frac` runs the head field on a budget of live
-samples (a float, or "auto" to measure the request's poses). Flags whose
-function the port lacks raise when set away from their default: `--debug`
-and `--n_devices` above 1.
+samples (a float, or "auto" to measure the request's poses). `--debug`
+writes each frame beside its SECC panel and its 68 landmarks (three panels
+side by side). `--n_devices` above 1 raises: the port serves on one card.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
                    type=float, default=1e-2, help="transmittance early-out")
     p.add_argument("--fast", action="store_true", help="T_thresh=0.05 for more fps")
     p.add_argument("--low_memory_usage", action="store_true", default=True)
-    p.add_argument("--debug", action="store_true")
+    p.add_argument("--debug", action="store_true",
+                   help="write frame | SECC | lm68 panels side by side (3x the width)")
     p.add_argument("--head_crop", type=str, default="auto", help="auto | off")
     p.add_argument("--torso_crop", type=str, default="auto", help="auto | off")
     p.add_argument("--sr_crop", type=str, default="auto", help="auto | off")
@@ -59,8 +60,6 @@ def build_parser() -> argparse.ArgumentParser:
 def unported_flags(args) -> None:
     """Raise for a flag set away from its default whose function is not
     ported (ROADMAP.md names each item)."""
-    if args.debug:
-        raise NotImplementedError("--debug: the SECC and landmark panels are not ported (ROADMAP queue A5)")
     if args.n_devices > 1:
         raise NotImplementedError("--n_devices: the port serves on one card; ray sharding over several is "
                                   "not ported (ROADMAP queue A, not ported on purpose: parallel/mesh.py)")

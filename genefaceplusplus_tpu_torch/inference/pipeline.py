@@ -157,6 +157,8 @@ class GeneFaceInfer:
             self.postnet_model.to(self.device).eval()
         self.generator = torch.Generator(device=self.device).manual_seed(42)
         self.face3d_helper = Face3DHelper.load(bfm_dir, keypoint_mode="mediapipe", device=self.device)
+        self.bfm_dir = bfm_dir
+        self._secc_renderer: Any = _UNSET  # made at the first --debug frame
         eaps = dataset.eye_area_percents
         self.opened_eye_area_percent = float(np.quantile(eaps, 0.97))
         self.closed_eye_area_percent = float(np.quantile(eaps, 0.03))
@@ -659,23 +661,69 @@ class GeneFaceInfer:
         yield from self.drain_frames(c for start in range(0, T, chunk)
                                      for c in self.launch_secc2video(batch, inp, start, start + chunk))
 
+    def secc_debug_frame(self, batch: Mapping[str, Any], i: int, size: int) -> np.ndarray:
+        """The SECC panel [size, size, 3] uint8 of the request's frame i (the
+        reference's --debug, genefacepp_infer.py:313-331): the BFM mesh
+        rasterised with NCC vertex colours where `BFM_model_front.mat` is in
+        `bfm_dir` (`data/bfm_render.py:SECCRenderer`), else an NCC-coloured
+        splat of the driven key points (`data/secc.py`)."""
+        from genefaceplusplus_tpu_torch.data.secc import ncc_colors, render_secc
+
+        if self._secc_renderer is _UNSET:
+            self._secc_renderer = None
+            mat = os.path.join(self.bfm_dir, "BFM_model_front.mat")
+            if os.path.exists(mat):
+                from scipy.io import loadmat
+
+                from genefaceplusplus_tpu_torch.data.bfm_render import SECCRenderer
+
+                m = loadmat(mat)
+                mean_shape = m["meanshape"].reshape(-1, 3).astype(np.float32)
+                mean_shape -= mean_shape.mean(0, keepdims=True)
+                self._secc_renderer = SECCRenderer(mean_shape, m["idBase"].astype(np.float32),
+                                                   m["exBase"].astype(np.float32),
+                                                   m["tri"].astype(np.int64) - 1, size=size)
+        idc, exp = batch["id_coeff"][i], batch["exp"][i]
+        euler, trans = batch["eulers"][i], batch["transs"][i]
+        if self._secc_renderer is not None:
+            _, secc = self._secc_renderer.render(idc, exp, euler, trans)
+            return ((secc * 0.5 + 0.5) * 255).astype(np.uint8)
+        lm3d_cam = self.face3d_helper.reconstruct_key_lm3d(
+            self._tensor(idc[None]), self._tensor(exp[None]), self._tensor(euler[None]),
+            self._tensor(trans[None]))[0].cpu().numpy()
+        cano = self.face3d_helper.key_mean_shape.cpu().numpy()
+        return render_secc(lm3d_cam, ncc_colors(cano), size=size, splat=max(2, size // 128))
+
+    def debug_panel(self, batch: Mapping[str, Any], i: int, frame: np.ndarray) -> np.ndarray:
+        """frame | SECC | lm68 overlay, side by side (the reference's debug
+        layout, genefacepp_infer.py:313-331, 489-495): [S, 3S, 3] uint8."""
+        from genefaceplusplus_tpu_torch.data.visualization import draw_landmarks, side_by_side
+
+        size = frame.shape[0]
+        panel = draw_landmarks(np.zeros_like(frame), batch["lm68"][i], color=(64, 255, 64),
+                               radius=max(1, size // 128))
+        return side_by_side(frame, self.secc_debug_frame(batch, i, size), panel)
+
     def infer_once(self, inp: Mapping[str, Any]) -> str:
         """One request, features to a video file: `prepare_batch_from_inp`,
         `forward_audio2secc`, the frames of `forward_secc2video` written with
         the request's 16 kHz audio (`batch['wav16k']`) as an uncompressed AVI
         (`<stem>.avi` for an `.mp4` `out_name`; AVI 2.0, so of any length up
-        to the super-indexes' capacity). Returns the path written. A clip past
-        that capacity raises before its first frame is rendered."""
+        to the super-indexes' capacity). With `debug` each frame is written
+        as `debug_panel` (three times as wide; the rendered frame unchanged
+        in the first panel). Returns the path written. A clip past the
+        capacity raises before its first frame is rendered."""
         inp = default_inp(**inp)
         batch = self.prepare_batch_from_inp(inp)
         batch = self.forward_audio2secc(batch, inp)
         path = avi_path(inp["out_name"])
         writer = StreamingVideoWriter(path, fps=25, audio=batch["wav16k"])
+        debug = bool(inp.get("debug", False))
         up = 2 if self.sr_model is not None else 1
-        avi_bytes(int(batch["T"]), up * self.dataset.H, up * self.dataset.W, len(batch["wav16k"]),
-                  segment_bytes=writer.segment_bytes)  # raises past the capacity
-        for frame in self.forward_secc2video(batch, inp):
-            writer.append(frame)
+        avi_bytes(int(batch["T"]), up * self.dataset.H, (3 if debug else 1) * up * self.dataset.W,
+                  len(batch["wav16k"]), segment_bytes=writer.segment_bytes)  # raises past the capacity
+        for i, frame in enumerate(self.forward_secc2video(batch, inp)):
+            writer.append(self.debug_panel(batch, i, frame) if debug else frame)
         return writer.close()
 
 

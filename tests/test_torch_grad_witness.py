@@ -9,7 +9,8 @@ by 1e-3 of its scale in one entry. `Float64Sums` redoes a grid head step's Linea
 grid-table gradient sums in float64: they equal the step's float32
 gradients to 1e-5 of each tensor's largest entry; its sums for the Fourier
 projections' B and the SR's noise strengths (the SR + FM step's witness)
-equal autograd's gradients to 1e-6 of their terms' absolute sums."""
+equal autograd's gradients to 1e-6 of their terms' absolute sums, and so do
+its sums for a head's individual code, on the row that the step read."""
 
 import importlib.util
 import os
@@ -126,3 +127,32 @@ def test_float64_sums_of_fourier_projections_and_noise_strengths(offset):
     from genefaceplusplus_tpu_torch.models import superresolution
     from genefaceplusplus_tpu_torch.ops import fourier_encoder
     assert superresolution.modulated_conv2d is sums.modulated and fourier_encoder.project is sums.project  # restored
+
+
+@pytest.mark.parametrize("index", [2, -1])
+def test_float64_sums_of_individual_codes(index):
+    """The individual code's gradient, a sum over the points of the color
+    net's input gradient, redone in float64 on the row JAX's gather reads
+    (a negative index wraps), under a ModuleDict's prefix; the head's
+    get_individual_code is its class's again afterwards."""
+    cfg = RADNeRFConfig(individual_embedding_num=5, smo_win_size=3, hidden_dim_sigma=32, hidden_dim_ambient=32,
+                        hidden_dim_color=32, geo_feat_dim=16)
+    model = torch.nn.ModuleDict({"head": RADNeRF(cfg, generator=torch.Generator().manual_seed(0))})
+    head = model["head"]
+    g = torch.Generator().manual_seed(3)
+    xyz = torch.rand(3000, 3, generator=g) * 1.6 - 0.8
+    dirs = torch.nn.functional.normalize(torch.randn(3000, 3, generator=g), dim=-1)
+    cond = torch.randn(3, 1, 204, generator=g)
+    with chip_smoke.Float64Sums(model) as sums:
+        sigma, rgb, amb = head.field(xyz, dirs, head.cal_cond_feat(cond), head.get_individual_code(index))
+        w = torch.randn(3000, 7, generator=g)
+        (torch.cat([sigma[:, None], rgb, amb], -1) * w).sum().backward()
+    assert "get_individual_code" not in vars(head)  # restored
+    ref, spread = sums.refs["head.individual_embeddings"], sums.spread["head.individual_embeddings"]
+    grad = head.individual_embeddings.grad.double()
+    row = index % cfg.individual_embedding_num
+    assert ref.shape == grad.shape and float(grad[row].abs().max()) > 0
+    assert bool((ref[torch.arange(len(ref)) != row] == 0).all())
+    err = float((grad - ref).abs().max())
+    assert err <= 1e-6 * float(spread.abs().max()), (err, float(ref.abs().max()))
+    assert bool((spread >= ref.abs()).all())

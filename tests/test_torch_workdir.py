@@ -488,12 +488,18 @@ def test_cli_renders_with_compaction_flags(dirs, cli_plain, tmp_path, capsys, ar
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--debug"], "panels"),
     (["--n_devices", "2"], "one card"),
 ])
 def test_unported_flags_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--device", "cpu", "--head_ckpt", "unused"] + argv)
+
+
+def test_debug_flag_is_accepted():
+    """--debug (the SECC and landmark panels) is ported: it passes the check
+    and its help names the panels; test_torch_debug_panels.py renders them."""
+    cli.unported_flags(cli.build_parser().parse_args(["--debug"]))
+    assert "panels" in cli.build_parser().format_help()
 
 
 def test_a_bare_wav_raises_and_the_cli_needs_a_card(dirs, tmp_path, monkeypatch):
