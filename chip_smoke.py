@@ -113,6 +113,25 @@ Phases (any failure exits non-zero, and no result line is printed):
               Fourier frame of the serve phase, the grid encoders by CUDA
               events, kernels a frame, peak memory). The grid heads run the
               float32 field: neither B1 nor B2 is launched
+  hubert      HuBERT on the card (models/hubert.py): a seeded full-width
+              fake of facebook/hubert-large-ls960-ft (1024 wide, 24 layers,
+              16 heads, FFN 4096, conv_dim 512 x 7, positional kernel 128 in
+              16 groups, layer-norm extractor, stable LayerNorm; 315 M
+              parameters) written as the released checkpoint lays it out
+              (pytorch_model.bin with hubert. keys, lm_head, weight_g /
+              weight_v, config.json, preprocessor_config.json) into a
+              temporary Hugging Face hub cache and read by the port's own
+              reader; a 2 s wav card vs CPU (each against a CPU float64 run:
+              the card within 4x the CPU float32's distance + 1e-5 of the
+              largest feature); a 45 s wav (two window seams and a tail: T as
+              expected, finite, each window's rows equal to the window run
+              alone); serve_cli's work dirs: the CLI on a bare 4 s wav
+              (--drv_aud; frames equal to the direct GeneFaceInfer's for the
+              same draw, one B1 launch a frame, frame 1 vs the plain field)
+              and stream_infer on a bare 6 s wav (HuBERT per chunk, no
+              drift); step_audio writes aud_hubert.npy; timed (ms a 2 s
+              chunk and a 20 s window by CUDA events beside the bound at the
+              float32 peak, the CPU's float32, kernels a chunk, peak memory)
   quality     the quality instruments on serve_full's 32 served frames of
               512^2: the v1 and v2 landmark detectors (metrics/lmd.py, seeded
               weights) card vs CPU (landmarks 1e-4 of the largest, v2's peak
@@ -1155,6 +1174,24 @@ def voiced_wav(seconds: float, f_start: float, f_end: float, seed: int) -> np.nd
     return (wav + 0.003 * np.random.RandomState(seed).randn(len(t))).astype(np.float32)
 
 
+def plain_first_frame(infer, batch, dev) -> np.ndarray:
+    """The batch's first frame through the plain field (uint8)."""
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+
+    ds = infer.dataset
+    with torch.no_grad():
+        ro, rd = pixel_rays(torch.as_tensor(batch["poses"][:1], dtype=torch.float32, device=dev), ds.intrinsics,
+                            ds.H, ds.W)
+        conds = torch.as_tensor(batch["cond"], device=dev)
+        win = get_audio_features_batch(conds, torch.arange(batch["T"], device=dev), infer.head_cfg.smo_win_size)[0]
+        eye = torch.as_tensor(batch["eye_area_percent"][:1], device=dev)
+        lm68 = torch.as_tensor(batch["lm68"][:1], device=dev)
+        plain = infer.render_frame(ro[0], rd[0], win, eye, lm68, fused_fn=ff.fused_field_plain).sr_rgb_map
+        return (torch.clamp(plain, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+
+
 def phase_serve_audio(dev):
     from genefaceplusplus_tpu_torch.data.audio import extract_f0
     from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
@@ -1163,8 +1200,6 @@ def phase_serve_audio(dev):
     from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_batch, a2m_model_from_hparams
     from genefaceplusplus_tpu_torch.models.postnet import lle
     from genefaceplusplus_tpu_torch.ops import fused_field as ff
-    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
-    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
 
     cfg, tcfg, hp = sr_head_config(), torso_config(), a2m_hparams()
     models = seeded_audio_models(cfg, tcfg, hp)
@@ -1294,14 +1329,7 @@ def phase_serve_audio(dev):
     check(np.array_equal(b0["eye_area_percent"], cpu_b0["eye_area_percent"]), "eye areas on the card vs the CPU")
 
     # the first audio-driven frame again, through the plain field
-    with torch.no_grad():
-        ro, rd = pixel_rays(torch.as_tensor(b0["poses"][:1], dtype=torch.float32, device=dev), ds.intrinsics, H, W)
-        conds = torch.as_tensor(b0["cond"], device=dev)
-        win = get_audio_features_batch(conds, torch.arange(b0["T"], device=dev), cfg.smo_win_size)[0]
-        eye = torch.as_tensor(b0["eye_area_percent"][:1], device=dev)
-        lm68 = torch.as_tensor(b0["lm68"][:1], device=dev)
-        plain = infer.render_frame(ro[0], rd[0], win, eye, lm68, fused_fn=ff.fused_field_plain).sr_rgb_map
-        plain = (torch.clamp(plain, 0.0, 1.0) * 255.0).to(torch.uint8).cpu().numpy()
+    plain = plain_first_frame(infer, b0, dev)
     p_plain = psnr(plain, frames_all[0][0], 255.0)
     print(f"[serve_audio] audio-driven frame, kernel vs plain field: PSNR {p_plain:.2f} dB (>= "
           f"{PLAIN_FRAME_MIN_PSNR}), mean |d| {np.abs(plain.astype(np.int16) - frames_all[0][0]).mean():.5f}")
@@ -2149,6 +2177,275 @@ def phase_serve_app(dev, served) -> int:
           f"{(ws_times[-1] - ws_sent) * 1e3:.1f} ms, MJPEG {(mj_times[-1] - mj_sent) * 1e3:.1f} ms; POST /infer "
           f"{infer_ms:.1f} ms")
     return launches
+
+
+# hubert: facebook/hubert-large-ls960-ft's architecture at full width (1024
+# wide, 24 layers, 16 heads, FFN 4096, conv_dim 512 x 7, positional kernel
+# 128 in 16 groups, layer-norm extractor, stable LayerNorm), seeded weights
+# written as the released checkpoint lays them out. Card vs CPU on a 2 s
+# wav: both float32 runs against a CPU float64 run of the same module and
+# input, the card's distance from it within HUBERT_ORDER_K x the CPU
+# float32's + HUBERT_FLOOR of the largest |feature| (the rule of
+# train_disc's feature-matching gradients and of the fit). A 45 s wav
+# crosses two window seams; each window's rows are held to that window
+# run again alone, to HUBERT_SEAM_REL of the largest |feature| (the same
+# products on the same card, at another address). The bound counts the
+# products' and convolutions' multiply-adds (2 FLOPs each) at the H100's
+# float32 peak outside the tensor cores (TF32 is off), against the
+# weights, input and output bytes at its HBM rate.
+HUBERT_SEED = 11
+HUBERT_SHORT_SECONDS, HUBERT_LONG_SECONDS = 2.0, 45.0
+HUBERT_REQUEST_SECONDS, HUBERT_STREAM_SECONDS, HUBERT_ONBOARD_SECONDS = 4.0, 6.0, 3.0
+HUBERT_REPS, HUBERT_CPU_REPS = 10, 3
+HUBERT_ORDER_K, HUBERT_FLOOR, HUBERT_SEAM_REL = 4.0, 1e-5, 1e-5
+PEAK_FP32_FLOPS = 67e12
+
+
+def hubert_work(cfg, n: int, params: int) -> tuple:
+    """(FLOPs, bytes) of one HuBERT window of `n` samples: the
+    convolutions', products' and attention's multiply-adds x 2; the weights,
+    the input and the output in float32, each moved once."""
+    t, c_in, flops = n, 1, 0
+    for c, k, s in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
+        t = (t - k) // s + 1
+        flops += 2 * t * c * c_in * k
+        c_in = c
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    flops += 2 * t * c_in * h  # the feature projection
+    flops += 2 * t * h * (h // cfg.num_conv_pos_embedding_groups) * cfg.num_conv_pos_embeddings
+    flops += cfg.num_hidden_layers * (2 * t * 4 * h * h + 2 * t * 2 * h * inter + 2 * 2 * t * t * h)
+    return flops, 4 * (params + n + t * h)
+
+
+def phase_hubert(dev, served) -> int:
+    """hubert (module docstring); returns its B1 launches."""
+    import copy
+
+    from genefaceplusplus_tpu_torch.data import audio
+    from genefaceplusplus_tpu_torch.data.process import step_audio
+    from genefaceplusplus_tpu_torch.data.video import read_avi
+    from genefaceplusplus_tpu_torch.inference import cli
+    from genefaceplusplus_tpu_torch.inference.pipeline import default_inp
+    from genefaceplusplus_tpu_torch.inference.serving import stream_infer
+    from genefaceplusplus_tpu_torch.models.hubert import HUBERT_LARGE_LS960_FT, HUBERT_PREPROCESSOR
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+    from genefaceplusplus_tpu_torch.testing import write_hubert_snapshot
+
+    card, work, infer = card_line(), served["work"], served["infer"]
+    cache = tempfile.mkdtemp(prefix="chip_smoke_hub_")
+    prev_cache = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = cache
+    try:
+        t0 = time.perf_counter()
+        snap = write_hubert_snapshot(cache, audio.HUBERT_MODEL, HUBERT_LARGE_LS960_FT, HUBERT_PREPROCESSOR,
+                                     seed=HUBERT_SEED)
+        write_s = time.perf_counter() - t0
+        check(audio.hubert_available(), "the written snapshot is not found")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, do_normalize = audio.load_hubert(device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cfg = model.cfg
+        params = sum(p.numel() for p in model.parameters())
+        check(next(model.parameters()).device.type == "cuda" and do_normalize, "HuBERT on the card, normalising")
+        t0 = time.perf_counter()
+        cpu32, _ = audio.load_hubert(device="cpu")
+        cpu64 = copy.deepcopy(cpu32).double()
+        cpu_load_s = time.perf_counter() - t0
+        print(f"[hubert] {audio.HUBERT_MODEL}'s architecture, seeded (seed {HUBERT_SEED}): {params} parameters, "
+              f"{cfg.num_hidden_layers} layers x {cfg.hidden_size}, {cfg.num_attention_heads} heads, FFN "
+              f"{cfg.intermediate_size}; pytorch_model.bin ({os.path.getsize(os.path.join(snap, 'pytorch_model.bin')) / 2 ** 30:.2f} "
+              f"GiB, hubert. keys, lm_head, weight_g/weight_v) written in {write_s:.1f} s; loaded on the card "
+              f"{load_s:.1f} s, on the CPU (float32 and a float64 copy) {cpu_load_s:.1f} s")
+
+        def normalised(wav):
+            x = np.asarray(wav, np.float32)
+            return (x - x.mean()) / np.sqrt(x.var() + 1e-7)
+
+        # card vs CPU on a 2 s wav, both against the CPU's float64
+        wav2 = voiced_wav(HUBERT_SHORT_SECONDS, 110.0, 190.0, seed=21)
+        got = audio.get_hubert_from_16k_speech(wav2, device=dev)
+        t0 = time.perf_counter()
+        cpu = audio.get_hubert_from_16k_speech(wav2, device="cpu")
+        cpu_wall_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            ref64 = cpu64(torch.from_numpy(normalised(wav2)).double()[None])[0].numpy()
+        scale = float(np.abs(ref64).max())
+        d_card = float(np.abs(got - ref64).max()) / scale
+        d_cpu = float(np.abs(cpu - ref64).max()) / scale
+        d_pair = float(np.abs(got - cpu).max()) / scale
+        n_frames = (len(wav2) - 80) // 320
+        check(got.shape == (n_frames, cfg.hidden_size) and got.dtype == np.float32 and np.isfinite(got).all(),
+              f"HuBERT features {got.shape} {got.dtype} for {len(wav2)} samples")
+        print(f"[hubert] {HUBERT_SHORT_SECONDS} s wav ({n_frames} frames, |feature| up to {scale:.4f}): max |d| / max "
+              f"|float64| card {d_card:.3e}, CPU float32 {d_cpu:.3e} (card <= {HUBERT_ORDER_K} x CPU + "
+              f"{HUBERT_FLOOR}); card vs CPU {d_pair:.3e}")
+        check(d_card <= HUBERT_ORDER_K * d_cpu + HUBERT_FLOOR, "HuBERT on the card vs the CPU's float64")
+
+        # 45 s: two window seams and a tail; each window against itself run alone
+        wav45 = voiced_wav(HUBERT_LONG_SECONDS, 100.0, 240.0, seed=22)
+        t0 = time.perf_counter()
+        long = audio.get_hubert_from_16k_speech(wav45, device=dev)
+        long_ms = (time.perf_counter() - t0) * 1e3
+        windows, expected_T = audio.hubert_windows(len(wav45))
+        check(long.shape == (expected_T, cfg.hidden_size) and np.isfinite(long).all(),
+              f"45 s features {long.shape}, {expected_T} frames expected")
+        x45 = torch.from_numpy(normalised(wav45)).to(dev)
+        row, seam_err = 0, 0.0
+        with torch.no_grad():
+            for s, e in windows:
+                alone = model(x45[s:e].clone()[None])[0].cpu().numpy()
+                seam_err = max(seam_err, float(np.abs(long[row:row + len(alone)] - alone).max()))
+                row += len(alone)
+        seam_err /= float(np.abs(long).max())
+        check(len(windows) == 3 and row == expected_T, f"windows {windows} give {row} frames, {expected_T} expected")
+        print(f"[hubert] {HUBERT_LONG_SECONDS} s wav: {expected_T} frames from windows {windows} (seams at frames "
+              f"1000 and 2000), all finite, {long_ms:.1f} ms host wall; each window's rows vs the window run "
+              f"alone: max |d| / max {seam_err:.3e} (<= {HUBERT_SEAM_REL})")
+        check(seam_err <= HUBERT_SEAM_REL, "HuBERT window seams vs each window alone")
+
+        # timing: a 2 s chunk and a whole 20 s window on the card, the CPU's float32 beside
+        x2 = torch.from_numpy(normalised(wav2)).to(dev)[None]
+        x20 = x45[windows[0][0]:windows[0][1]][None]
+        with torch.no_grad():
+            for _ in range(2):
+                model(x2), model(x20)
+            ms2 = cuda_ms(lambda: model(x2), HUBERT_REPS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms20 = cuda_ms(lambda: model(x20), HUBERT_REPS)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            events, kernels, busy, top = profile_device(lambda: (model(x2), 1)[1])
+            x2c, x20c = x2.cpu(), x20.cpu()
+            cpu_ms2, cpu_ms20 = [], []
+            for _ in range(HUBERT_CPU_REPS):
+                t0 = time.perf_counter()
+                cpu32(x2c)
+                cpu_ms2.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            cpu32(x20c)
+            cpu_ms20.append((time.perf_counter() - t0) * 1e3)
+        walls = []
+        for _ in range(HUBERT_REPS):
+            t0 = time.perf_counter()
+            audio.get_hubert_from_16k_speech(wav2, device=dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        for what, n, ms in (("2 s chunk", x2.shape[1], ms2), ("20 s window", x20.shape[1], ms20)):
+            flops, nbytes = hubert_work(cfg, n, params)
+            ops_ms, bytes_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(ops_ms, bytes_ms)
+            print(f"[hubert] {card}; {what} ({n} samples): {statistics.median(ms):.3f} ms on the card by CUDA "
+                  f"events (median of {len(ms)}, min {min(ms):.3f}, max {max(ms):.3f}); bound {bound:.3f} ms by "
+                  f"{'operations' if ops_ms >= bytes_ms else 'bytes'} ({flops / 1e9:.1f} GFLOP at 67 TFLOP/s float32 "
+                  f"{ops_ms:.3f} ms, {nbytes / 1e9:.3f} GB at 3.35 TB/s {bytes_ms:.3f} ms): "
+                  f"{100 * bound / statistics.median(ms):.1f} % of it, {flops / statistics.median(ms) / 1e9:.1f} "
+                  f"TFLOP/s")
+        print(f"[hubert] {card}; CPU float32 ({torch.get_num_threads()} threads): 2 s chunk "
+              f"{', '.join(f'{x:.1f}' for x in cpu_ms2)} ms, 20 s window {cpu_ms20[0]:.1f} ms; "
+              f"get_hubert_from_16k_speech on the 2 s wav, host wall: card {statistics.median(walls):.3f} ms "
+              f"(median of {len(walls)}, min {min(walls):.3f}, max {max(walls):.3f}), CPU {cpu_wall_ms:.1f} ms; peak "
+              f"memory over the 20 s window {peak:.2f} GiB above the {base / 2 ** 30:.2f} GiB held")
+        if kernels is None:
+            print("[hubert] profiler: no device activity recorded; kernels a chunk not measured")
+        else:
+            print(f"[hubert] profiler, one 2 s chunk: {kernels:.0f} kernels ({events:.0f} device activities), "
+                  f"device busy {busy:.3f} ms")
+            for name, count, ms in top[:5]:
+                print(f"[hubert] profiler top kernel: {ms:.4f} ms in {count:.0f} launches: {name}")
+
+        # a bare wav through the CLI, and through the direct GeneFaceInfer for the same draw
+        req = os.path.join(work, "hubert_request.wav")
+        audio.save_wav_16k(voiced_wav(HUBERT_REQUEST_SECONDS, 120.0, 200.0, seed=23), req)
+        torch.cuda.synchronize()
+        ff.fused_field.launches = 0  # count only the main path's launches
+        t0 = time.perf_counter()
+        out = cli.main(["--a2m_ckpt", served["a2m"], "--torso_ckpt", served["torso"], "--drv_aud", req,
+                        "--out_name", os.path.join(work, "hubert_cli.mp4")])
+        cli_ms = (time.perf_counter() - t0) * 1e3
+        cli_launches = ff.fused_field.launches
+        frames, pcm = read_avi(out)
+        padded, _ = audio.extract_mel(audio.load_wav_16k(req))
+        T = (len(padded) - 80) // 320 // 8 * 8 // 2
+        H, W = 2 * infer.dataset.H, 2 * infer.dataset.W
+        check(frames.shape == (T, H, W, 3), f"CLI frames {frames.shape}, {T} expected")
+        check(np.array_equal(pcm, audio.pcm16(padded)), "the CLI's AVI audio vs pcm16 of the padded wav")
+        check(cli_launches == T, f"fused_field launched {cli_launches} times for {T} CLI frames")
+        check(any(not np.array_equal(frames[0], f) for f in frames[1:]), "CLI frames do not vary")
+        infer.generator.manual_seed(42)  # the CLI's GeneFaceInfer draws from a fresh generator seeded 42
+        inp = default_inp(drv_aud=req)
+        batch = infer.forward_audio2secc(infer.prepare_batch_from_inp(inp), inp)
+        ref = np.stack(list(infer.forward_secc2video(batch, inp)))
+        check(batch["hubert"].shape == (2 * T, cfg.hidden_size) and np.isfinite(batch["hubert"]).all(),
+              f"the request's features {batch['hubert'].shape}")
+        check(np.isfinite(batch["cond"]).all() and batch["cond"].shape == (T, 1, 204), "condition")
+        differ = [i for i in range(T) if not np.array_equal(frames[i], ref[i])]
+        check(not differ, f"the CLI's frames {differ[:10]} vs the direct GeneFaceInfer's for the same wav and draw")
+        p_plain = psnr(plain_first_frame(infer, batch, dev), frames[0], 255.0)
+        check(p_plain >= PLAIN_FRAME_MIN_PSNR, "the bare-wav CLI frame vs its plain-field frame")
+        print(f"[hubert] {card}; CLI on a bare {HUBERT_REQUEST_SECONDS} s wav (--drv_aud): {T} frames of {H}x{W}, "
+              f"{cli_launches} fused_field launches, equal to the direct GeneFaceInfer's bit for bit, PCM equal to "
+              f"the padded wav's, frame 1 vs the plain field PSNR {p_plain:.2f} dB (>= {PLAIN_FRAME_MIN_PSNR}); wall "
+              f"{cli_ms:.1f} ms (work-dir load, HuBERT, audio2secc, render, AVI)")
+
+        # a bare wav streamed: HuBERT per chunk, no inp['hubert_full']
+        swav = voiced_wav(HUBERT_STREAM_SECONDS, 110.0, 220.0, seed=24)
+        chunk_ms, chunk_T = [], []
+        compute = audio.get_hubert_from_16k_speech
+
+        def timed_hubert(wav, *a, **kw):
+            start = time.perf_counter()
+            out = compute(wav, *a, **kw)
+            chunk_ms.append((time.perf_counter() - start) * 1e3)
+            chunk_T.append((len(out), (len(wav) - 80) // 320, bool(np.isfinite(out).all())))
+            return out
+
+        audio.get_hubert_from_16k_speech = timed_hubert
+        try:
+            torch.cuda.synchronize()
+            ff.fused_field.launches = 0
+            stamps = []
+            t0 = time.perf_counter()
+            for f in stream_infer(infer, swav, {}, chunk_seconds=STREAM_CHUNK_SECONDS):
+                check(f.shape == (H, W, 3) and f.dtype == np.uint8, f"streamed frame {f.shape} {f.dtype}")
+                stamps.append(time.perf_counter())
+            stream_launches = ff.fused_field.launches
+        finally:
+            audio.get_hubert_from_16k_speech = compute
+        n = len(stamps)
+        tail = len(swav) - n * 2 * 320
+        check(all(t == want and ok for t, want, ok in chunk_T), f"per-chunk features {chunk_T}")
+        check(0 <= tail < 16000 // 5, f"{n} frames for {len(swav)} samples: {tail} samples unconsumed (drift)")
+        check(stream_launches == n, f"fused_field launched {stream_launches} times for {n} streamed frames")
+        print(f"[hubert] {card}; stream_infer on a bare {HUBERT_STREAM_SECONDS} s wav in {STREAM_CHUNK_SECONDS} s "
+              f"chunks: {n} frames, {len(chunk_ms)} chunks of HuBERT ({', '.join(str(t[0]) for t in chunk_T)} "
+              f"frames), {tail} samples unconsumed, {stream_launches} fused_field launches; time to first frame "
+              f"{(stamps[0] - t0) * 1e3:.1f} ms; HuBERT host wall a chunk {', '.join(f'{x:.1f}' for x in chunk_ms)} "
+              f"ms (from chunk 2 on it waits for the last chunk's render, queued before it)")
+
+        # onboarding: step_audio writes aud_hubert.npy
+        proc = os.path.join(work, "hubert_onboard")
+        os.makedirs(proc)
+        audio.save_wav_16k(voiced_wav(HUBERT_ONBOARD_SECONDS, 130.0, 170.0, seed=25), os.path.join(proc, "aud.wav"))
+        t0 = time.perf_counter()
+        step_audio(proc, device=dev)
+        step_s = time.perf_counter() - t0
+        written = np.load(os.path.join(proc, "aud_hubert.npy"))
+        padded, _ = audio.extract_mel(audio.load_wav_16k(os.path.join(proc, "aud.wav")))
+        check(np.array_equal(written, audio.get_hubert_from_16k_speech(padded, device=dev)),
+              "aud_hubert.npy vs HuBERT of the step's padded wav")
+        print(f"[hubert] step_audio on a {HUBERT_ONBOARD_SECONDS} s aud.wav: aud_hubert.npy {written.shape} "
+              f"{written.dtype}, equal to HuBERT of the padded wav; {step_s:.2f} s")
+        return cli_launches + stream_launches
+    finally:
+        if prev_cache is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = prev_cache
+        audio._HUBERT_CACHE.clear()
+        shutil.rmtree(cache, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 def grad_stats(a, b):
@@ -4739,6 +5036,7 @@ def main() -> int:
         convert_launches = timed("convert", phase_convert, dev, served)
         app_launches = timed("serve_app", phase_serve_app, dev, served)
         timed("serve_grid", phase_serve_grid, dev, served, fourier_ms)
+        hubert_launches = timed("hubert", phase_hubert, dev, served)
         del served
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4762,7 +5060,8 @@ def main() -> int:
           f"{audio_launches} audio-driven serving + {cli_launches} CLI (plain and with --compact_frac auto) and "
           f"streaming + {long_launches} long clip + "
           f"{convert_launches} from the converted a2m + {app_launches} web app (serve_grid: none, its grid heads "
-          f"run the float32 field) + {trained_launches} serving from CLI-trained dirs + {disc_launches} serving from "
+          f"run the float32 field) + {hubert_launches} from bare wavs through HuBERT (the CLI and the stream) + "
+          f"{trained_launches} serving from CLI-trained dirs + {disc_launches} serving from "
           f"the FM-trained head + SR dir + {refined_launches} serving "
           f"through the trained postnet + {onboard_launches} served from the onboarded identity's fleet dirs "
           f"(plain and --debug); in train mode: {train_fwd} training; fused_field_bwd_chain: {train_chain} "
@@ -4773,8 +5072,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda", "source": source + "fused_field.cu", "replaces": pallas + "156",
         "launches": (serve_launches + full_launches + compact_launches + audio_launches + cli_launches + long_launches
-                     + convert_launches + app_launches + trained_launches + disc_launches + refined_launches
-                     + onboard_launches),
+                     + convert_launches + app_launches + hubert_launches + trained_launches + disc_launches
+                     + refined_launches + onboard_launches),
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
         "library_ms": None}, {

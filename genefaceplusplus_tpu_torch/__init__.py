@@ -28,9 +28,12 @@ segmentation with the background and the inpainted torso
 (`data/segmenter.py`), the 3DMM fit on the card (`data/fit_3dmm.py`), the
 fit's check video, the binarizer), the training fleet
 (`training/fleet.py`: head + SR, then torso) and `inference/cli.py
---debug`'s SECC and landmark panels. The package imports no cv2, imageio
-or mediapipe at import time (mediapipe is imported lazily, and absent, by
-`data/mp_extract.py`). ROADMAP.md lists what is still to port.
+--debug`'s SECC and landmark panels. HuBERT-large (`models/hubert.py`)
+runs on the card from a local Hugging Face snapshot
+(`utils/hf_snapshot.py`), so a bare 16 kHz wav drives every audio entry
+point. The package imports no cv2, imageio, transformers or safetensors,
+and mediapipe only lazily (absent, in `data/mp_extract.py`). ROADMAP.md
+lists what is still to port.
 """
 
 import torch

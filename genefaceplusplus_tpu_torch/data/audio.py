@@ -9,13 +9,19 @@ copy of `genefaceplusplus_tpu/data/audio.py`).
   normalised by the window's, parabolic peak interpolation, voicing
   threshold 0.6, 80-750 Hz), one value per mel hop; unvoiced frames 0.
 
-HuBERT features are not computed here (its weights are not in the
-repository): audio-driven serving takes them precomputed
-(`GeneFaceInfer.prepare_batch_from_inp`'s `drv_aud_features`).
+- HuBERT: `get_hubert_from_16k_speech` runs the port's HuBERT
+  (`models/hubert.py`, the card unless `device="cpu"`) from a local
+  Hugging Face snapshot (`utils/hf_snapshot.py`; the default
+  `facebook/hubert-large-ls960-ft`, 1024-wide features at 50 Hz) over
+  the JAX package's windows (extract_hubert.py:41-78: kernel 400, stride
+  320, windows of 1,000 frames that overlap by one kernel); without a
+  snapshot `hubert_available` is false and callers take precomputed
+  features. Nothing is downloaded.
 """
 
 from __future__ import annotations
 
+import os
 import wave
 from typing import Optional, Tuple
 
@@ -184,3 +190,83 @@ def extract_f0(
             f0 = np.concatenate([f0, np.full(mel_len - len(f0), last, np.float32)])
         f0 = f0[:mel_len]
     return f0
+
+
+# ---------------------------------------------------------------------------
+# HuBERT
+# ---------------------------------------------------------------------------
+
+HUBERT_MODEL = "facebook/hubert-large-ls960-ft"
+HUBERT_KERNEL, HUBERT_STRIDE = 400, 320  # the feature encoder's receptive field and hop
+HUBERT_CLIP = HUBERT_STRIDE * 1000  # samples a window advances: 1,000 frames
+
+_HUBERT_CACHE = {}  # (snapshot dir, device) -> (HubertModel, do_normalize)
+
+
+def hubert_available(model_name: str = HUBERT_MODEL) -> bool:
+    """True where a local snapshot of `model_name` with weights is found."""
+    from genefaceplusplus_tpu_torch.utils.hf_snapshot import snapshot_dir, weights_file
+
+    snap = snapshot_dir(model_name)
+    return snap is not None and weights_file(snap) is not None
+
+
+def load_hubert(model_name: str = HUBERT_MODEL, device=None):
+    """(the port's HubertModel of the local snapshot on `device`, the
+    preprocessor's do_normalize), loaded once per snapshot and device.
+    Raises FileNotFoundError without a snapshot."""
+    from genefaceplusplus_tpu_torch.models.hubert import HubertConfig, HubertModel
+    from genefaceplusplus_tpu_torch.utils.device import resolve_device
+    from genefaceplusplus_tpu_torch.utils.hf_snapshot import hubert_state_dict, read_json, read_weights, snapshot_dir
+
+    dev = resolve_device(device)
+    snap = snapshot_dir(model_name)
+    if snap is None:
+        raise FileNotFoundError(f"no local snapshot of {model_name} (a directory with config.json, or the "
+                                "Hugging Face hub cache: $HF_HUB_CACHE, $HF_HOME/hub, ~/.cache/huggingface/hub)")
+    key = (os.path.realpath(snap), str(dev))
+    if key not in _HUBERT_CACHE:
+        cfg, pre = read_json(snap, "config.json"), read_json(snap, "preprocessor_config.json")
+        if pre.get("sampling_rate", SAMPLE_RATE) != SAMPLE_RATE:
+            raise ValueError(f"{snap}: the preprocessor's sampling_rate {pre['sampling_rate']}, not {SAMPLE_RATE}")
+        model = HubertModel.from_state(HubertConfig.from_json(cfg), hubert_state_dict(read_weights(snap)))
+        _HUBERT_CACHE[key] = (model.to(dev), bool(pre.get("do_normalize", True)))
+    return _HUBERT_CACHE[key]
+
+
+def hubert_windows(n: int) -> Tuple[list, int]:
+    """([(start, end)] of the windows HuBERT runs on for `n` samples, the
+    frame count they must give), as extract_hubert.py:41-78: window i
+    starts at i * HUBERT_CLIP and spans HUBERT_CLIP - HUBERT_STRIDE +
+    HUBERT_KERNEL samples, the tail from the last whole window's end;
+    windows shorter than HUBERT_KERNEL are skipped."""
+    num_iter = n // HUBERT_CLIP
+    span = HUBERT_CLIP - HUBERT_STRIDE + HUBERT_KERNEL
+    windows = [(HUBERT_CLIP * i, min(HUBERT_CLIP * i + span, n)) for i in range(num_iter)]
+    windows.append((HUBERT_CLIP * num_iter, n))
+    expected_T = (n - (HUBERT_KERNEL - HUBERT_STRIDE)) // HUBERT_STRIDE
+    return [(s, e) for s, e in windows if e - s >= HUBERT_KERNEL], expected_T
+
+
+def get_hubert_from_16k_speech(wav: np.ndarray, model_name: str = HUBERT_MODEL, device=None) -> np.ndarray:
+    """wav [S] at 16 kHz -> HuBERT's last hidden states [T at 50 Hz, H] in
+    the model's float type (JAX's `get_hubert_from_16k_speech`: the processor's
+    normalisation over the whole input where the snapshot asks for it,
+    then `hubert_windows`). Runs on the card unless `device` names
+    another."""
+    import torch
+
+    model, do_normalize = load_hubert(model_name, device)
+    x = np.asarray(wav, np.float32)
+    if do_normalize:  # Wav2Vec2FeatureExtractor.zero_mean_unit_var_norm
+        x = (x - x.mean()) / np.sqrt(x.var() + 1e-7)
+    windows, expected_T = hubert_windows(len(x))
+    if not windows:
+        raise ValueError(f"{len(x)} samples: fewer than HuBERT's kernel of {HUBERT_KERNEL}")
+    p = next(model.parameters())
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(p.device, p.dtype)
+    with torch.no_grad():
+        out = torch.cat([model(x[None, s:e])[0] for s, e in windows])
+    if abs(out.shape[0] - expected_T) > 1:
+        raise RuntimeError(f"HuBERT gave {out.shape[0]} frames for {len(x)} samples, {expected_T} expected")
+    return out.cpu().numpy()

@@ -14,9 +14,10 @@ check video), binarize; `background` is the segmentation-free fallback.
 Where the JAX package reads `raw/videos/<id>.mp4` with cv2, this reads the
 port's AVI, `raw/videos/<id>.avi` (`data/video.py:read_avi`); an .mp4
 raises NotImplementedError (neither machine has a decoder: ROADMAP.md queue
-A item 11). mediapipe (landmarks, segmentation) and HuBERT's weights are
-absent: those steps take precomputed `lms_2d.npy`, `segmaps/*.png` and
-`aud_hubert.npy` as JAX's do.
+A item 11). mediapipe (landmarks, segmentation) is absent: those steps take
+precomputed `lms_2d.npy` and `segmaps/*.png` as JAX's do. The audio step
+writes `aud_hubert.npy` with the port's HuBERT on `--device` where a local
+snapshot is found (`data/audio.py`), and otherwise asks for the file.
 """
 
 from __future__ import annotations
@@ -51,9 +52,10 @@ def step_frames(video_path: str, out_dir: str, size: int = 512, fps: int = 25) -
     return len(frames)
 
 
-def step_audio(out_dir: str) -> None:
-    """aud.wav -> aud_mel_f0.npy (mel and f0). The port computes no HuBERT:
-    aud_hubert.npy must be supplied."""
+def step_audio(out_dir: str, device=None) -> None:
+    """aud.wav -> aud_mel_f0.npy (mel and f0), and aud_hubert.npy (HuBERT on
+    `device`, the card unless named) where a local snapshot is found;
+    otherwise aud_hubert.npy must be supplied."""
     from genefaceplusplus_tpu_torch.data import audio as audio_lib
 
     wav_path = os.path.join(out_dir, "aud.wav")
@@ -65,7 +67,10 @@ def step_audio(out_dir: str) -> None:
     wav, mel = audio_lib.extract_mel(wav)
     f0 = audio_lib.extract_f0(wav, mel_len=len(mel))
     np.save(os.path.join(out_dir, "aud_mel_f0.npy"), {"mel": mel, "f0": f0}, allow_pickle=True)
-    print("| hubert weights unavailable: provide aud_hubert.npy separately")
+    if audio_lib.hubert_available():
+        np.save(os.path.join(out_dir, "aud_hubert.npy"), audio_lib.get_hubert_from_16k_speech(wav, device=device))
+    else:
+        print("| hubert weights unavailable: provide aud_hubert.npy separately")
 
 
 def _frame_names(out_dir: str):
@@ -205,7 +210,7 @@ def main(argv=None) -> Dict[str, float]:
     p.add_argument("--bfm_dir", type=str, default="deep_3drecon/BFM")
     p.add_argument("--size", type=int, default=512, help="frame resize target (the reference pipeline is 512)")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device of the fit (default: the CUDA card; 'cpu' to run on the CPU)")
+                   help="torch device of HuBERT and the fit (default: the CUDA card; 'cpu' to run on the CPU)")
     args = p.parse_args(argv)
 
     raw = os.path.join(args.data_dir, "raw/videos", f"{args.video_id}.avi")
@@ -224,7 +229,7 @@ def main(argv=None) -> Dict[str, float]:
         if step == "frames":
             print(f"| {step_frames(raw, out_dir, size=args.size)} frames")
         elif step == "audio":
-            step_audio(out_dir)
+            step_audio(out_dir, device=args.device)
         elif step == "segment":
             step_segment(out_dir, os.path.join(mp_dir, "selfie_multiclass_256x256.tflite") if mp_dir else None)
         elif step == "background":

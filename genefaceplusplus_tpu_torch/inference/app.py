@@ -16,6 +16,12 @@ live MJPEG stream and a WebSocket frame push (port of
 - `POST /infer` (multipart form): the whole clip, as the file that
   `infer_once` writes (an AVI, `video/x-msvideo`).
 
+A request names a wav (the `wav` upload, or `drv_aud` in the WebSocket's
+`inp`) or precomputed features (`feats`, `drv_aud_features`). A bare wav
+gets its HuBERT features from the port's HuBERT on the infer device
+(`data/audio.py`, a local snapshot): per chunk in the stream, over the
+whole clip for `POST /infer`.
+
 Renders are serialised by one lock; `FramePusher` drops the oldest frame
 for a slow client and stops the render when the client is gone. JPEG
 frames come from `data/image_io.py:jpeg_bytes`, bit-equal to the

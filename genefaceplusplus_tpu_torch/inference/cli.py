@@ -5,8 +5,11 @@
 
 The flags and defaults of `genefaceplusplus_tpu/inference/cli.py`, plus
 `--device` (the CUDA card unless named; `--device cpu` runs on the CPU).
-`--drv_aud_features` is an .npy of {'hubert' [2T, C], 'f0' [2T][, 'wav16k']}
-(the port computes no HuBERT, so a bare `--drv_aud` wav raises). The output
+`--drv_aud_features` is an .npy of {'hubert' [2T, C], 'f0' [2T][, 'wav16k']};
+a bare `--drv_aud` wav gets its HuBERT features from the port's HuBERT on
+`--device`, read from a local Hugging Face snapshot of
+facebook/hubert-large-ls960-ft (`data/audio.py`; it raises where none is
+found). The output
 is an uncompressed AVI with the audio (`<stem>.avi` for an .mp4 name).
 `--postnet_ckpt` names a postnet work dir: its refiner runs on the a2m's
 landmarks. `--color_topk K` runs the colour MLP on the K samples of highest

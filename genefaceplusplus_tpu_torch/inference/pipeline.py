@@ -2,8 +2,9 @@
 `genefaceplusplus_tpu/inference/pipeline.py`).
 
 Audio-driven: `prepare_batch_from_inp` reads a request's features (HuBERT
-[2T, 1024] and f0 [2T] at 50 Hz, precomputed) and sets its driving-pose
-schedule; `forward_audio2secc` samples the motion from the flow-VAE
+[2T, 1024] and f0 [2T] at 50 Hz, precomputed, or computed from a bare
+16 kHz wav with the port's HuBERT on the infer device) and sets its
+driving-pose schedule; `forward_audio2secc` samples the motion from the flow-VAE
 audio-to-motion model, reconstructs the 68 landmarks through the 3DMM
 basis, refines them with the pitch-conditioned postnet where one is
 loaded, blends them onto the identity's landmarks (LLE), normalises,
@@ -302,17 +303,23 @@ class GeneFaceInfer:
     def prepare_batch_from_inp(self, inp: Mapping[str, Any]) -> Dict[str, Any]:
         """A request's features and driving-pose schedule. The features come
         from `inp['drv_aud_features']`, an .npy of {'hubert' [2T, C], 'f0'
-        [2T][, 'wav16k']}; a bare wav (`inp['drv_aud']`) raises, since the
-        port computes no HuBERT features."""
+        [2T][, 'wav16k']}, or from a bare wav (`inp['drv_aud']`): its mel
+        (which pads the wav), F0, and HuBERT on the padded wav on this
+        instance's device, from the local snapshot (`data/audio.py`; raises
+        where none is found)."""
         batch: Dict[str, Any] = {}
         if inp.get("drv_aud_features"):
             feats = np.load(inp["drv_aud_features"], allow_pickle=True).tolist()
             hubert, f0 = np.asarray(feats["hubert"], np.float32), np.asarray(feats["f0"], np.float32)
             wav16k = feats.get("wav16k")
         else:
-            audio_lib.load_wav_16k(inp["drv_aud"])  # a missing or unreadable file raises first
-            raise RuntimeError("HuBERT features are not computed by the port; pass "
-                               "inp['drv_aud_features'] = npy with {'hubert','f0'} instead.")
+            wav16k = audio_lib.load_wav_16k(inp["drv_aud"])
+            wav16k, mel = audio_lib.extract_mel(wav16k)
+            f0 = audio_lib.extract_f0(wav16k, mel_len=len(mel))
+            if not audio_lib.hubert_available():
+                raise RuntimeError("HuBERT weights unavailable in this environment; pass "
+                                   "inp['drv_aud_features'] = npy with {'hubert','f0'} instead.")
+            hubert = audio_lib.get_hubert_from_16k_speech(wav16k, device=self.device)
         # trim to a multiple of 8 frames at 50 Hz, as the reference does
         t_x = hubert.shape[0] // 8 * 8
         hubert = hubert[:t_x]

@@ -3,15 +3,16 @@
 reconnect cursor, `FramePusher` and `ClientGone`).
 
 - Audio streams in chunks of `chunk_seconds`. Each chunk's mel and F0 are
-  computed here; its HuBERT features are the matching rows of
-  `inp['hubert_full']` (the port computes no HuBERT). Each chunk runs the
+  computed here, and its HuBERT features on the infer device from the
+  local snapshot (`data/audio.py`) where one is found, else they are the
+  matching rows of `inp['hubert_full']`. Each chunk runs the
   audio-to-motion once (`forward_audio2secc`, with the postnet refiner on
   the chunk's own F0 where one is loaded) and renders its frames, so
   frames come out with a chunk's latency, not a clip's.
 - One-chunk pipeline: chunk k's frames are rendered into uint8 tensors on
   the card (`GeneFaceInfer.launch_secc2video`) and stay there, uncopied,
-  until chunk k+1's render has been launched; then they are copied and
-  yielded (`drain_frames`).
+  while chunk k+1's features and motion are computed and until its render
+  has been launched; then they are copied and yielded (`drain_frames`).
 - The cursor advances by the audio a chunk consumed (its frames), so frames
   and audio never drift, and `inp['resume_from_frame'] = k` restarts a
   stream at frame k's audio and pose.
@@ -51,9 +52,10 @@ def stream_infer(infer, wav16k: np.ndarray, inp: Optional[Dict] = None,
     budget is measured on a request's poses, which a stream does not know
     ahead."""
     inp = default_inp(**(inp or {}))
-    if "hubert_full" not in inp:
-        raise RuntimeError("the port computes no HuBERT features: pass inp['hubert_full'], the request's "
-                           "features [2T, C] at 50 Hz")
+    own_hubert = audio_lib.hubert_available()
+    if not own_hubert and "hubert_full" not in inp:
+        raise RuntimeError("no hubert source for streaming: no local HuBERT snapshot, and no inp['hubert_full'] "
+                           "(the request's features [2T, C] at 50 Hz)")
     sr = audio_lib.SAMPLE_RATE
     hop_frames = int(chunk_seconds * 25)  # motion frames per chunk
     chunk_samples = hop_frames * 2 * audio_lib.HOP_SIZE  # 50 Hz features
@@ -68,8 +70,11 @@ def stream_infer(infer, wav16k: np.ndarray, inp: Optional[Dict] = None,
             break
         chunk_padded, mel = audio_lib.extract_mel(chunk.astype(np.float32))
         f0 = audio_lib.extract_f0(chunk_padded, mel_len=len(mel))
-        start = frame_offset * 2
-        hubert = inp["hubert_full"][start:start + len(f0)]
+        if own_hubert:
+            hubert = audio_lib.get_hubert_from_16k_speech(chunk_padded, device=infer.device)
+        else:
+            start = frame_offset * 2
+            hubert = inp["hubert_full"][start:start + len(f0)]
 
         t8 = len(hubert) // 8 * 8  # the a2m takes a multiple of 8 feature frames
         if t8 == 0:

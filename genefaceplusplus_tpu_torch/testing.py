@@ -1,11 +1,15 @@
 """Seeded stand-ins for checking the port without downloads: the
 reference's audio-to-motion, grid-head and discriminator checkpoints in
-their released layout (for the converter), a small CPU `GeneFaceInfer`
-(for the writer and the app) and a synthetic audio-mouth clip (for the
-sync scorer). Used by the tests and by `chip_smoke.py`."""
+their released layout (for the converter), a HuBERT snapshot in the
+released facebook/hubert-large-ls960-ft layout (for the weight reader), a
+small CPU `GeneFaceInfer` (for the writer and the app) and a synthetic
+audio-mouth clip (for the sync scorer). Used by the tests and by
+`chip_smoke.py`."""
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -216,3 +220,68 @@ def tiny_infer():
     occupancy = (xx ** 2 + (2.2 * yy) ** 2 + (1.4 * zz) ** 2) < 0.16
     return GeneFaceInfer(cfg, RADNeRF(cfg, generator=g).state_dict(), ds, occupancy, device="cpu",
                          a2m_hparams=a2m, a2m_params=a2m_model_from_hparams(a2m, generator=g).state_dict())
+
+
+def reference_hubert_state(config: Mapping, seed: int) -> Dict[str, torch.Tensor]:
+    """A HubertForCTC state dict of `config` (a HuBERT config.json dict) in
+    the layout of facebook/hubert-large-ls960-ft's pytorch_model.bin,
+    seeded: every key under `hubert.`, the positional convolution's weight
+    norm as `weight_g` [1, 1, K] and `weight_v`, `masked_spec_embed`, and
+    the CTC head `lm_head`. Linear weights N(0, 0.02) (transformers' init),
+    convolutions Kaiming normal, the norms' gains and every bias drawn
+    away from 1 and 0, the weight-norm gains from the norm of `weight_v`
+    times U(0.5, 1.5)."""
+    from genefaceplusplus_tpu_torch.models.hubert import HubertConfig, HubertModel
+    from genefaceplusplus_tpu_torch.utils.hf_snapshot import POS_CONV
+
+    cfg = HubertConfig.from_json(config)
+    with torch.device("meta"):
+        model = HubertModel(cfg)
+    g = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, p in model.named_parameters():
+        if name.endswith("bias"):
+            value = torch.randn(p.shape, generator=g) * 0.02
+        elif "norm" in name:
+            value = 1.0 + 0.1 * torch.randn(p.shape, generator=g)
+        elif p.dim() == 3:  # a convolution: Kaiming normal over its fan-in
+            value = torch.randn(p.shape, generator=g) * (2.0 / (p.shape[1] * p.shape[2])) ** 0.5
+        else:
+            value = torch.randn(p.shape, generator=g) * 0.02
+        if name == f"{POS_CONV}.weight":  # weight norm over all dims but 2
+            state[f"hubert.{POS_CONV}.weight_v"] = value
+            norm = value.square().sum(dim=(0, 1), keepdim=True).sqrt()
+            state[f"hubert.{POS_CONV}.weight_g"] = norm * (0.5 + torch.rand(norm.shape, generator=g))
+        else:
+            state[f"hubert.{name}"] = value
+    state["hubert.masked_spec_embed"] = torch.rand(cfg.hidden_size, generator=g)
+    vocab = config.get("vocab_size", 32)
+    state["lm_head.weight"] = torch.randn(vocab, cfg.hidden_size, generator=g) * 0.02
+    state["lm_head.bias"] = torch.zeros(vocab)
+    return state
+
+
+def hub_snapshot(cache: str, model_name: str, revision: str = "0" * 40) -> str:
+    """An empty snapshot directory of `model_name` as the Hugging Face hub
+    cache `cache` lays it out (`models--<org>--<name>/refs/main` naming
+    `snapshots/<revision>/`). Returns the snapshot directory."""
+    repo = os.path.join(cache, "models--" + model_name.replace("/", "--"))
+    snap = os.path.join(repo, "snapshots", revision)
+    os.makedirs(snap)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(revision)
+    return snap
+
+
+def write_hubert_snapshot(cache: str, model_name: str, config: Mapping, preprocessor: Mapping, seed: int) -> str:
+    """`reference_hubert_state(config, seed)` as the hub cache `cache`
+    holds `model_name` (`hub_snapshot`: config.json,
+    preprocessor_config.json and pytorch_model.bin). Returns the snapshot
+    directory."""
+    snap = hub_snapshot(cache, model_name)
+    for name, content in (("config.json", config), ("preprocessor_config.json", preprocessor)):
+        with open(os.path.join(snap, name), "w") as f:
+            json.dump(dict(content), f, indent=2)
+    torch.save(reference_hubert_state(config, seed), os.path.join(snap, "pytorch_model.bin"))
+    return snap

@@ -54,11 +54,13 @@ def load_torch_state_dict(path: str, sub_model: str = "model") -> Tuple[Dict[str
     return {k: _np(v) for k, v in state.items()}, int(ckpt.get("global_step", 0))
 
 
-def fold_weight_norm(state: Dict[str, np.ndarray], prefix: str) -> np.ndarray:
-    """g * v / ||v|| with the norm over all dims but 0 (torch weight_norm)."""
+def fold_weight_norm(state: Dict[str, np.ndarray], prefix: str, dim: int = 0) -> np.ndarray:
+    """g * v / ||v|| with the norm over all dims but `dim` (torch
+    weight_norm's `dim`: 0 for the WN convs, 2 for HuBERT's positional
+    convolution)."""
     g = state[f"{prefix}.weight_g"]
     v = state[f"{prefix}.weight_v"]
-    axes = tuple(range(1, v.ndim))
+    axes = tuple(a for a in range(v.ndim) if a != dim % v.ndim)
     norm = np.sqrt((v ** 2).sum(axis=axes, keepdims=True))
     return g * v / np.maximum(norm, 1e-12)
 

@@ -34,6 +34,18 @@ def cudnn_tf32_off():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+@contextlib.contextmanager
+def matmul_tf32_off():
+    """cuBLAS's float32 products in full float32 for the block, whatever
+    `torch.backends.cuda.matmul.allow_tf32` says."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 class _Float32Convolution(torch.autograd.Function):
     """`aten.convolution` whose forward and backward both run under
     `cudnn_tf32_off`: autograd runs a backward after the caller's block has
@@ -90,3 +102,7 @@ class Float32Conv:
 
 class Conv2d(Float32Conv, nn.Conv2d):
     """`nn.Conv2d` in full float32 (`conv_f32`)."""
+
+
+class Conv1d(Float32Conv, nn.Conv1d):
+    """`nn.Conv1d` in full float32 (`conv_f32`)."""

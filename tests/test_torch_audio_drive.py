@@ -403,8 +403,12 @@ def test_audio_driven_frames_match_jax(pair, tmp_path):
     assert any(not np.array_equal(got[0], f) for f in got[1:])
 
 
-def test_what_the_port_cannot_do_raises(pair, tmp_path):
+def test_what_the_port_cannot_do_raises(pair, tmp_path, monkeypatch):
+    """Without a local HuBERT snapshot (an empty hub cache, whatever the
+    machine holds) a bare wav raises JAX's message; without an a2m, or with
+    a broken one, audio2secc raises."""
     j_inf, t_inf = pair
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty_hub"))
     path = str(tmp_path / "a.wav")
     wavfile.write(path, 16000, (_voiced_wav(0.5) * 32767).astype(np.int16))
     with pytest.raises(RuntimeError, match="drv_aud_features"):

@@ -198,8 +198,11 @@ def test_chunk_k_is_drained_after_chunk_k_plus_1_is_launched(pair, monkeypatch):
     assert len(frames) == 24 * 3 + 4
 
 
-def test_stream_needs_features(pair):
+def test_stream_needs_features(pair, tmp_path, monkeypatch):
+    """No local HuBERT snapshot (an empty hub cache) and no
+    inp['hubert_full']: the stream raises before its first frame."""
     _, t_inf = pair
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty_hub"))
     wav, _ = _audio(1.0)
     with pytest.raises(RuntimeError, match="hubert_full"):
         next(serving.stream_infer(t_inf, wav, {}))
