@@ -132,3 +132,20 @@ def fit_3dmm_for_video(
     out["final_loss"] = joint_loss
     out["pose_loss"] = pose_loss
     return out
+
+
+def exp_displacement_px(helper: Face3DHelper, fit: Dict[str, np.ndarray], ref: Dict[str, np.ndarray],
+                        size: int) -> float:
+    """The largest landmark displacement, in pixels of a `size` frame, that
+    `fit`'s exp alone makes against `ref`'s: both reprojected through
+    `helper` with ref's id, euler and trans. Where exp moves along
+    directions that the pose takes up, the coefficients differ while this
+    stays small: it reads what the expression does to the landmarks."""
+    base = helper.key_exp_base
+
+    def lm(exp):
+        t = [torch.as_tensor(np.asarray(x), dtype=base.dtype, device=base.device)
+             for x in (ref["id"], exp, ref["euler"], ref["trans"])]
+        return helper.reconstruct_lm2d(*t).cpu().double().numpy()
+
+    return float(np.abs(lm(fit["exp"]) - lm(ref["exp"])).max() * size)

@@ -13,8 +13,9 @@ check video), binarize; `background` is the segmentation-free fallback.
 
 Where the JAX package reads `raw/videos/<id>.mp4` with cv2, this reads the
 port's AVI, `raw/videos/<id>.avi` (`data/video.py:read_avi`); an .mp4
-raises NotImplementedError (neither machine has a decoder: ROADMAP.md queue
-A item 11). mediapipe (landmarks, segmentation) is absent: those steps take
+raises NotImplementedError (a camera's mp4 needs a general H.264 decoder,
+which neither machine has and the port does not write: ROADMAP.md queue A
+item 11; `data/h264.py:decode_own` reads only the port's own subset). mediapipe (landmarks, segmentation) is absent: those steps take
 precomputed `lms_2d.npy` and `segmaps/*.png` as JAX's do. The audio step
 writes `aud_hubert.npy` with the port's HuBERT on `--device` where a local
 snapshot is found (`data/audio.py`), and otherwise asks for the file.
@@ -40,9 +41,9 @@ def step_frames(video_path: str, out_dir: str, size: int = 512, fps: int = 25) -
 
     if not video_path.lower().endswith(".avi"):
         raise NotImplementedError(
-            f"{video_path}: the port decodes only its own uncompressed AVI (data/video.py); mp4 needs a "
-            "decoder neither machine has (ROADMAP.md queue A item 11). Convert the video to "
-            "raw/videos/<id>.avi first")
+            f"{video_path}: the port decodes only its own uncompressed AVI (data/video.py); a camera's mp4 "
+            "needs a general H.264 decoder (High profile, CABAC, inter prediction, deblocking) that neither "
+            "machine has (ROADMAP.md queue A item 11). Convert the video to raw/videos/<id>.avi first")
     os.makedirs(os.path.join(out_dir, "gt_imgs"), exist_ok=True)
     frames, _ = read_avi(video_path)
     for i, frame in enumerate(frames):

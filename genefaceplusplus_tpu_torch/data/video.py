@@ -1,9 +1,15 @@
-"""Video output without a codec: an uncompressed RIFF AVI of any length, in
-pure Python (the JAX package writes mp4 through imageio or cv2 and muxes the
-audio with ffmpeg, `genefaceplusplus_tpu/data/video.py`; the port needs none
-of them).
+"""Video output without a codec library: H.264 in mp4, or an uncompressed
+RIFF AVI, in the port's own code (the JAX package writes mp4 through
+imageio or cv2 and muxes the audio with ffmpeg,
+`genefaceplusplus_tpu/data/video.py`; the port needs none of them).
 
-The file is AVI 2.0 (OpenDML 1.02):
+`video_path` takes JAX's rule from the output name: `.mp4` writes an mp4
+(`Mp4Writer`: each chunk of frames encoded by `ops/h264_encode.py` on the
+chunk's device, the card's kernel or the plain version on the CPU, and
+muxed by `data/mp4.py` with 16 kHz PCM), `.avi` the AVI below
+(`StreamingVideoWriter`); `video_writer` opens either.
+
+The AVI is AVI 2.0 (OpenDML 1.02):
 
 - `RIFF AVI `: a `hdrl` list (the main header; a video stream of 24-bit
   frames stored bottom-up in BGR, rows padded to 4 bytes; an audio stream of
@@ -38,8 +44,11 @@ import struct
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from genefaceplusplus_tpu_torch.data.audio import SAMPLE_RATE, pcm16
+from genefaceplusplus_tpu_torch.data.h264 import sps_pps
+from genefaceplusplus_tpu_torch.data.mp4 import Mp4Muxer
 
 AVI_MAX_BYTES = 1 << 30  # the default segment size; AVI 1.0 readers stop at the first RIFF's 1 GiB
 SUPER_INDEX_ENTRIES = 256
@@ -51,15 +60,26 @@ _AUDIO_STRL_BYTES = 12 + (8 + 56) + (8 + 18) + _INDX_BYTES
 _ODML_BYTES = 12 + 8 + _DMLH_BYTES
 _AVIX_OPEN_BYTES = 24  # 'RIFF' size 'AVIX' 'LIST' size 'movi'
 _AVIF_HASINDEX, _AVIF_ISINTERLEAVED, _AVIIF_KEYFRAME = 0x10, 0x100, 0x10
+MP4_CHUNK = 8  # host frames sent to the device a chunk, as the renderer's frames_per_dispatch
 
 
-def avi_path(out_name: str) -> str:
-    """The path the writer uses for `out_name`: itself for `.avi`, and
-    `<stem>.avi` for `.mp4` (an mp4 needs a codec)."""
+def video_path(out_name: str) -> Tuple[str, str]:
+    """(path, "mp4" or "avi") of the video that `out_name` names: H.264
+    mp4 for `.mp4`, the uncompressed AVI for `.avi` (the extension in lower
+    case)."""
     stem, ext = os.path.splitext(out_name)
     if ext.lower() in (".avi", ".mp4"):
-        return stem + ".avi"
-    raise ValueError(f"{out_name!r}: the port writes uncompressed AVI; name the output .avi or .mp4")
+        return stem + ext.lower(), ext.lower()[1:]
+    raise ValueError(f"{out_name!r}: the port writes H.264 mp4 or uncompressed AVI; name the output .mp4 or .avi")
+
+
+def video_writer(out_name: str, fps: int = 25, audio=None, device="cpu"):
+    """The writer of `video_path(out_name)`: an `Mp4Writer` encoding on
+    `device`, or a `StreamingVideoWriter`."""
+    path, kind = video_path(out_name)
+    if kind == "mp4":
+        return Mp4Writer(path, fps=fps, audio=audio, device=device)
+    return StreamingVideoWriter(path, fps=fps, audio=audio)
 
 
 def _frame_bytes(height: int, width: int) -> int:
@@ -296,6 +316,60 @@ class StreamingVideoWriter:
         self._f = None
         os.replace(self.path + ".part", self.path)
         return self.path
+
+
+class Mp4Writer:
+    """H.264 + PCM in mp4, written as frames come. `append_chunk` takes a
+    [B, H, W, 3] uint8 tensor and encodes it on its own device (the card's
+    kernel for a CUDA tensor, so only the bitstream is copied to the host;
+    the plain version for a CPU one); `append` takes [H, W, 3] host frames
+    (uint8, or floats in [0, 1]) and sends them to `device` in chunks of
+    `MP4_CHUNK`. `close` writes the index and returns the path; the file
+    appears under its name only when closed."""
+
+    def __init__(self, path: str, fps: int = 25, audio=None, rate: int = SAMPLE_RATE, device="cpu"):
+        self.muxer = Mp4Muxer(path, fps=fps, audio=audio, rate=rate)
+        self.path, self.fps, self.device = path, int(fps), torch.device(device)
+        self._pending: List[np.ndarray] = []
+        self._shape = None
+
+    @property
+    def n_frames(self) -> int:
+        return self.muxer.n_frames + len(self._pending)
+
+    def append_chunk(self, frames: torch.Tensor):
+        from genefaceplusplus_tpu_torch.ops.h264_encode import encode_access_units
+
+        if frames.dim() != 4 or frames.shape[-1] != 3:
+            raise ValueError(f"a chunk must be [B, H, W, 3], got {tuple(frames.shape)}")
+        height, width = frames.shape[1:3]
+        if self._shape is None:
+            self._shape = (height, width)
+            self.muxer.open(height, width, *sps_pps(height, width, self.fps))
+        elif (height, width) != self._shape:
+            raise ValueError(f"frames of {(height, width)}, the video {self._shape}")
+        for au in encode_access_units(frames, self.muxer.n_frames):
+            self.muxer.append(au)
+
+    def _flush(self):
+        if self._pending:
+            self.append_chunk(torch.from_numpy(np.stack(self._pending)).to(self.device))
+            self._pending = []
+
+    def append(self, frame: np.ndarray):
+        if frame.dtype != np.uint8:
+            frame = (np.clip(frame, 0, 1) * 255).astype(np.uint8)
+        if frame.ndim != 3 or frame.shape[2] != 3:
+            raise ValueError(f"a frame must be [H, W, 3], got {frame.shape}")
+        if self._pending and frame.shape != self._pending[0].shape:
+            raise ValueError(f"frame {self.n_frames} is {frame.shape[:2]}, the video {self._pending[0].shape[:2]}")
+        self._pending.append(frame)
+        if len(self._pending) == MP4_CHUNK:
+            self._flush()
+
+    def close(self) -> str:
+        self._flush()
+        return self.muxer.close()
 
 
 def _children(mm, lo: int, hi: int, path: str) -> Iterator[Tuple[bytes, int, int]]:

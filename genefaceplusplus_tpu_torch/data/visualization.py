@@ -320,7 +320,8 @@ def debug_fit_video(
 ) -> str:
     """The fit's check video: fitted (green) over detected (red) landmarks
     on the gt frames beside the camera-trajectory panel, written as the
-    port's AVI (`debug_fit.avi`; an `.mp4` name becomes `.avi`), and the
+    video `data/video.py:video_writer` makes of the name (`debug_fit.mp4`:
+    H.264 encoded on `device`; an `.avi` name the uncompressed AVI), and the
     mean landmark error in pixels printed (the reference's
     fit_3dmm_landmark.py --debug video, :373-451). The landmarks are
     reprojected on `device` (the card unless named)."""
@@ -329,11 +330,11 @@ def debug_fit_video(
     from genefaceplusplus_tpu_torch.data.binarizer import deep3d_to_nerf_c2w
     from genefaceplusplus_tpu_torch.data.face3d import Face3DHelper
     from genefaceplusplus_tpu_torch.data.image_io import read_image
-    from genefaceplusplus_tpu_torch.data.video import StreamingVideoWriter, avi_path
+    from genefaceplusplus_tpu_torch.data.video import video_path, video_writer
     from genefaceplusplus_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    out_path = avi_path(out_path or os.path.join(processed_dir, "debug_fit.mp4"))
+    out_path = video_path(out_path or os.path.join(processed_dir, "debug_fit.mp4"))[0]
     coeff = np.load(os.path.join(processed_dir, "coeff_fit_mp.npy"), allow_pickle=True).tolist()
     lms = np.load(os.path.join(processed_dir, "lms_2d.npy"))
     frame_dir = os.path.join(processed_dir, "gt_imgs")
@@ -349,7 +350,7 @@ def debug_fit_video(
     pred2d = helper.reconstruct_lm2d(t("id"), t("exp"), t("euler"), t("trans")).cpu().numpy()
     c2ws = deep3d_to_nerf_c2w(np.asarray(coeff["euler"][:T]), np.asarray(coeff["trans"][:T]))
 
-    writer = StreamingVideoWriter(out_path, fps=25)
+    writer = video_writer(out_path, fps=25, device=dev)
     errs = []
     for i in range(T):
         img = read_image(os.path.join(frame_dir, names[i]))[..., :3]

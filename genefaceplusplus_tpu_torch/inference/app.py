@@ -14,7 +14,8 @@ live MJPEG stream and a WebSocket frame push (port of
 - `POST /stream` (multipart form): frames as `multipart/x-mixed-replace`
   JPEG parts, as the stream renders them.
 - `POST /infer` (multipart form): the whole clip, as the file that
-  `infer_once` writes (an AVI, `video/x-msvideo`).
+  `infer_once` writes (an H.264 mp4 with PCM audio, `video/mp4`, as JAX's
+  app replies).
 
 A request names a wav (the `wav` upload, or `drv_aud` in the WebSocket's
 `inp`) or precomputed features (`feats`, `drv_aud_features`). A bare wav
@@ -279,7 +280,7 @@ def make_server(infer, host: str = "0.0.0.0", port: int = 7860) -> ThreadingHTTP
                 f = open(infer.infer_once(inp), "rb")
             with f:
                 self.send_response(200)
-                self.send_header("Content-Type", "video/x-msvideo")
+                self.send_header("Content-Type", "video/mp4")
                 self.send_header("Content-Length", str(os.fstat(f.fileno()).st_size))
                 self.end_headers()
                 shutil.copyfileobj(f, self.wfile)

@@ -10,7 +10,8 @@ a bare `--drv_aud` wav gets its HuBERT features from the port's HuBERT on
 `--device`, read from a local Hugging Face snapshot of
 facebook/hubert-large-ls960-ft (`data/audio.py`; it raises where none is
 found). The output
-is an uncompressed AVI with the audio (`<stem>.avi` for an .mp4 name).
+has the audio: an `.mp4` name writes H.264 + PCM mp4 (its frames encoded on
+`--device`), an `.avi` name an uncompressed AVI.
 `--postnet_ckpt` names a postnet work dir: its refiner runs on the a2m's
 landmarks. `--color_topk K` runs the colour MLP on the K samples of highest
 weight a ray; `--compact_frac` runs the head field on a budget of live

@@ -28,8 +28,9 @@ one chunk of audio while the last one's frames are drained.
 
 `GeneFaceInfer.from_work_dirs` builds all of it from the JAX package's work
 dirs (each a `config.yaml` and flax msgpack checkpoints), and `infer_once`
-runs a request from features to a video file (an uncompressed AVI with the
-audio, `data/video.py`).
+runs a request from features to a video file with the audio
+(`data/video.py`): an H.264 mp4 whose frames are encoded on the device
+chunk by chunk, or an uncompressed AVI.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ import torch
 from genefaceplusplus_tpu_torch.config import set_hparams
 from genefaceplusplus_tpu_torch.data import audio as audio_lib
 from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset
-from genefaceplusplus_tpu_torch.data.video import StreamingVideoWriter, avi_bytes, avi_path
+from genefaceplusplus_tpu_torch.data.mp4 import mp4_bytes
+from genefaceplusplus_tpu_torch.data.video import Mp4Writer, StreamingVideoWriter, avi_bytes, video_path
 from genefaceplusplus_tpu_torch.data.face3d import Face3DHelper
 from genefaceplusplus_tpu_torch.data.landmarks import (
     INDEX_LM68_FROM_LM478, inject_blink_to_lm68, recompose_lm68_regions)
@@ -630,28 +632,32 @@ class GeneFaceInfer:
         return launched
 
     @staticmethod
-    def drain_frames(launched: Iterable[Launched]) -> Iterator[np.ndarray]:
-        """Copy launched frames to the host, one chunk at a time, and yield
-        them as uint8 arrays; warn where the head left the head crop."""
+    def watch_crop(launched: Iterable[Launched]) -> Iterator[Launched]:
+        """Pass launched chunks through; at the end, warn where the head left
+        the head crop."""
         frames = misses = 0
         for imgs, fits, n in launched:
-            host = imgs.cpu().numpy()
             frames += n
             if fits is not None:
                 misses += int((~fits).sum())
-            yield from host
+            yield imgs, fits, n
         if misses:
             print(f"| WARNING: head exceeded the auto head-crop window on {misses}/{frames} frames "
                   "(driving poses outside the dataset envelope); rerun with "
                   "head_crop='off' for these poses")
 
-    def forward_secc2video(self, batch: Mapping[str, Any],
-                           inp: Optional[Mapping[str, Any]] = None) -> Iterator[np.ndarray]:
-        """Yield the batch's frames as uint8 arrays, [2H, 2W, 3] with SR and
-        [H, W, 3] without, rendered through the head field one chunk at a
-        time. A `compact_frac` of "auto" becomes the budget that
-        `_auto_compact_frac` measures on the batch's poses; the active
-        render options are printed first."""
+    @staticmethod
+    def drain_frames(launched: Iterable[Launched]) -> Iterator[np.ndarray]:
+        """Copy launched frames to the host, one chunk at a time, and yield
+        them as uint8 arrays; warn where the head left the head crop."""
+        for imgs, _, _ in GeneFaceInfer.watch_crop(launched):
+            yield from imgs.cpu().numpy()
+
+    def launch_all(self, batch: Mapping[str, Any], inp: Optional[Mapping[str, Any]] = None) -> Iterator[Launched]:
+        """Launch the batch's frames one chunk at a time (`launch_secc2video`),
+        the frames left on the device. A `compact_frac` of "auto" becomes
+        the budget that `_auto_compact_frac` measures on the batch's poses;
+        the active render options are printed first."""
         inp = dict(inp or {})
         ds = self.dataset
         T = int(batch["T"])
@@ -665,8 +671,15 @@ class GeneFaceInfer:
               f"color_topk={opts.color_topk} compact_frac={opts.compact_frac} T_thresh={opts.T_thresh} "
               f"head_crop={head_crop} torso_crop={resolve_crop(inp, 'torso_crop', self.torso_crop)} "
               f"sr_crop={'on' if resolve_crop(inp, 'sr_crop', self.sr_crop) else None}")
-        yield from self.drain_frames(c for start in range(0, T, chunk)
-                                     for c in self.launch_secc2video(batch, inp, start, start + chunk))
+        for start in range(0, T, chunk):
+            yield from self.launch_secc2video(batch, inp, start, start + chunk)
+
+    def forward_secc2video(self, batch: Mapping[str, Any],
+                           inp: Optional[Mapping[str, Any]] = None) -> Iterator[np.ndarray]:
+        """Yield the batch's frames as uint8 arrays, [2H, 2W, 3] with SR and
+        [H, W, 3] without, rendered through the head field one chunk at a
+        time (`launch_all`) and copied to the host."""
+        yield from self.drain_frames(self.launch_all(batch, inp))
 
     def secc_debug_frame(self, batch: Mapping[str, Any], i: int, size: int) -> np.ndarray:
         """The SECC panel [size, size, 3] uint8 of the request's frame i (the
@@ -713,24 +726,36 @@ class GeneFaceInfer:
 
     def infer_once(self, inp: Mapping[str, Any]) -> str:
         """One request, features to a video file: `prepare_batch_from_inp`,
-        `forward_audio2secc`, the frames of `forward_secc2video` written with
-        the request's 16 kHz audio (`batch['wav16k']`) as an uncompressed AVI
-        (`<stem>.avi` for an `.mp4` `out_name`; AVI 2.0, so of any length up
-        to the super-indexes' capacity). With `debug` each frame is written
-        as `debug_panel` (three times as wide; the rendered frame unchanged
-        in the first panel). Returns the path written. A clip past the
-        capacity raises before its first frame is rendered."""
+        `forward_audio2secc`, then the frames written with the request's
+        16 kHz audio (`batch['wav16k']`) as `video_path(out_name)` says: an
+        `.mp4` as H.264 + PCM mp4, each launched chunk encoded on the
+        device before anything is copied (only the bitstream reaches the
+        host; the plain encoder on the CPU), an `.avi` as an uncompressed
+        AVI 2.0 of the frames of `forward_secc2video`. With `debug` each
+        frame is written as `debug_panel` (three times as wide; the
+        rendered frame unchanged in the first panel), composed on the host
+        and, for an mp4, encoded on the device. Returns the path written. A
+        clip past the file's capacity raises before its first frame is
+        rendered."""
         inp = default_inp(**inp)
         batch = self.prepare_batch_from_inp(inp)
         batch = self.forward_audio2secc(batch, inp)
-        path = avi_path(inp["out_name"])
-        writer = StreamingVideoWriter(path, fps=25, audio=batch["wav16k"])
+        path, kind = video_path(inp["out_name"])
         debug = bool(inp.get("debug", False))
         up = 2 if self.sr_model is not None else 1
-        avi_bytes(int(batch["T"]), up * self.dataset.H, (3 if debug else 1) * up * self.dataset.W,
-                  len(batch["wav16k"]), segment_bytes=writer.segment_bytes)  # raises past the capacity
-        for i, frame in enumerate(self.forward_secc2video(batch, inp)):
-            writer.append(self.debug_panel(batch, i, frame) if debug else frame)
+        T, H, W = int(batch["T"]), up * self.dataset.H, (3 if debug else 1) * up * self.dataset.W
+        if kind == "mp4":
+            mp4_bytes(T, H, W, len(batch["wav16k"]))  # raises past the capacity
+            writer = Mp4Writer(path, fps=25, audio=batch["wav16k"], device=self.device)
+        else:
+            writer = StreamingVideoWriter(path, fps=25, audio=batch["wav16k"])
+            avi_bytes(T, H, W, len(batch["wav16k"]), segment_bytes=writer.segment_bytes)
+        if kind == "mp4" and not debug:
+            for imgs, _, _ in self.watch_crop(self.launch_all(batch, inp)):
+                writer.append_chunk(imgs)
+        else:
+            for i, frame in enumerate(self.forward_secc2video(batch, inp)):
+                writer.append(self.debug_panel(batch, i, frame) if debug else frame)
         return writer.close()
 
 

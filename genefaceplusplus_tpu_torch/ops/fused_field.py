@@ -638,7 +638,7 @@ def chain_weights(w: FieldWeights) -> torch.Tensor:
 # The CUDA kernels: build, load, launch
 # ---------------------------------------------------------------------------
 
-def _find_nvcc() -> str:
+def _find_nvcc(what: str = "the fused-field kernels") -> str:
     cands = [shutil.which("nvcc")]
     for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), *NVCC_HOMES):
         if home:
@@ -647,8 +647,8 @@ def _find_nvcc() -> str:
         if c and os.path.isfile(c) and os.access(c, os.X_OK):
             return c
     raise RuntimeError(
-        "cannot build the fused-field kernels: nvcc not found (looked on PATH, "
-        "$CUDA_HOME/bin, /usr/local/cuda/bin). The CUDA field needs the CUDA "
+        f"cannot build {what}: nvcc not found (looked on PATH, "
+        "$CUDA_HOME/bin, /usr/local/cuda/bin). The CUDA kernels need the CUDA "
         "toolkit; CPU tensors take the plain versions instead.")
 
 

@@ -32,7 +32,7 @@ import pytest
 
 from genefaceplusplus_tpu_torch.data.audio import pcm16
 from genefaceplusplus_tpu_torch.data.image_io import jpeg_bytes
-from genefaceplusplus_tpu_torch.data.video import read_avi
+from genefaceplusplus_tpu_torch.data.mp4 import read_mp4
 from genefaceplusplus_tpu_torch.inference import app
 from genefaceplusplus_tpu_torch.inference.serving import stream_infer
 from genefaceplusplus_tpu_torch.testing import tiny_infer
@@ -269,14 +269,14 @@ def test_the_app_serves_a_cpu_geneface_infer(tmp_path, monkeypatch):
         assert _mjpeg_parts(body) == direct
         status, headers, body = _split(_exchange(port, _post("/infer", {"temperature": "0", "blink_mode": "none"},
                                                              upload)))
-        assert status == "HTTP/1.0 200 OK" and headers["Content-Type"] == "video/x-msvideo"
+        assert status == "HTTP/1.0 200 OK" and headers["Content-Type"] == "video/mp4"
         assert int(headers["Content-Length"]) == len(body)
-        with open(tmp_path / "reply.avi", "wb") as f:
+        with open(tmp_path / "reply.mp4", "wb") as f:
             f.write(body)
-        frames, pcm = read_avi(str(tmp_path / "reply.avi"))
+        frames, pcm = read_mp4(str(tmp_path / "reply.mp4"))
         assert frames.shape == (16, 16, 16, 3)
         np.testing.assert_array_equal(pcm, pcm16(feats["wav16k"]))
-        assert body == open(tmp_path / "webui_out.avi", "rb").read()
+        assert body == open(tmp_path / "webui_out.mp4", "rb").read()
         metrics = json.loads(_split(_exchange(port, b"GET /metrics HTTP/1.1\r\nHost: x\r\n\r\n"))[2])
         assert metrics["streams"]["completed"] >= 2 and metrics["frames"]["pushed"] >= 32
         status, _, _ = _split(_exchange(port, b"POST /infer HTTP/1.1\r\nHost: x\r\nContent-Type: text/plain\r\n"

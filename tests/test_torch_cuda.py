@@ -1111,3 +1111,23 @@ def test_sr_fm_step_on_card_matches_cpu(cuda_setup):
                  ["mse_loss", "sr_mse_loss", "lpips_loss", "sr_lpips_loss", "sr_lip_lpips_loss",
                   "dual_feature_matching_loss", "total_loss"],
                  1e-4, 2e-5, "sr + fm step")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,qp", [((3, 64, 96), 22), ((2, 136, 200), 22), ((2, 48, 64), 4)])
+def test_h264_intra_writes_the_plain_bytes(shape, qp):
+    """The H.264 kernel's slices equal encode_plain's byte for byte (integer
+    arithmetic throughout), cropped sizes and the I_PCM escape included;
+    one launch counted per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from genefaceplusplus_tpu_torch.data import h264
+    from genefaceplusplus_tpu_torch.ops import h264_encode as he
+
+    frames = torch.from_numpy(np.random.RandomState(sum(shape)).randint(0, 256, shape + (3,)).astype(np.uint8))
+    plain = h264.encode_plain(frames, 1, qp)
+    before = he.h264_intra.launches
+    rows, bits = he.h264_intra(frames.cuda(), 1, qp)
+    torch.cuda.synchronize()
+    assert he.h264_intra.launches == before + 1
+    assert torch.equal(rows.cpu(), plain.rows) and torch.equal(bits.cpu(), plain.bits)

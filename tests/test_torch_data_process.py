@@ -301,7 +301,8 @@ def test_process_main_runs_every_step(tmp_path):
     from genefaceplusplus_tpu_torch.data.image_io import write_png
     from genefaceplusplus_tpu_torch.data.segmenter import encode_segmap_image, onehot_from_categories
     from genefaceplusplus_tpu_torch.data.synthetic_face import synthetic_face
-    from genefaceplusplus_tpu_torch.data.video import StreamingVideoWriter, read_avi
+    from genefaceplusplus_tpu_torch.data.mp4 import read_mp4
+    from genefaceplusplus_tpu_torch.data.video import StreamingVideoWriter
 
     T, S, vid = 12, 64, "Tiny"
     ds = synthetic_face(num_frames=T, size=S, seed=3, head_masks=True)
@@ -322,7 +323,7 @@ def test_process_main_runs_every_step(tmp_path):
     walls = PP.main(["--video_id", vid, "--data_dir", data, "--device", "cpu", "--size", str(S),
                      "--steps", "frames,audio,segment,landmarks,fit,debug_fit,background,binarize"])
     assert list(walls) == ["frames", "audio", "segment", "landmarks", "fit", "debug_fit", "background", "binarize"]
-    debug, _ = read_avi(os.path.join(proc, "debug_fit.avi"))
+    debug, _ = read_mp4(os.path.join(proc, "debug_fit.mp4"))  # the default name: an H.264 mp4
     assert debug.shape == (T, S, 2 * S, 3)
     rec = os.path.join(data, "binary", "videos", vid, "trainval_dataset.npy")
     for cls in (RADNeRFDataset, JDataset):

@@ -206,7 +206,7 @@ def test_debug_fit_video_matches_jax_outside_the_labels(tmp_path):
     np.save(os.path.join(d, "coeff_fit_mp.npy"), coeff, allow_pickle=True)
     lms = (rs.rand(T, 68, 2) * S).astype(np.float32)
     np.save(os.path.join(d, "lms_2d.npy"), lms)
-    path = PV.debug_fit_video(d, bfm_dir="unused", device="cpu")
+    path = PV.debug_fit_video(d, out_path=os.path.join(d, "debug_fit.avi"), bfm_dir="unused", device="cpu")
     assert path == os.path.join(d, "debug_fit.avi")
     frames, _ = read_avi(path)
     assert frames.shape == (T, S, 2 * S, 3)
@@ -240,7 +240,7 @@ def test_infer_once_debug_panels(tmp_path):
     out = {}
     for debug in (False, True):
         infer.generator.manual_seed(42)
-        out[debug] = read_avi(infer.infer_once(dict(inp, debug=debug, out_name=str(tmp_path / f"{debug}.mp4"))))[0]
+        out[debug] = read_avi(infer.infer_once(dict(inp, debug=debug, out_name=str(tmp_path / f"{debug}.avi"))))[0]
     T, S = T50 // 2, 16
     assert out[False].shape == (T, S, S, 3) and out[True].shape == (T, S, 3 * S, 3)
     np.testing.assert_array_equal(out[True][:, :, :S], out[False])

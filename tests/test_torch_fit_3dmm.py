@@ -155,3 +155,28 @@ def test_init_and_float64():
     np.testing.assert_array_equal(port["exp"], 0.0)
     assert np.isnan(P.fit_3dmm_for_video(lm, PHelper.synthetic("lm68"), P.FitConfig(iters_pose=0, iters_joint=0))
                     ["final_loss"])
+
+
+def test_exp_displacement_px():
+    """chip_smoke.py's hold on exp: the landmark displacement that one
+    fit's exp alone makes against another's, with the other's id and pose,
+    in pixels at 512^2; equal to the same reprojection through JAX's helper,
+    zero for equal exp, and shrinking with the change of exp (the
+    landmarks are linear in exp before the projection)."""
+    rng = np.random.RandomState(3)
+    T = 5
+    ref = {"id": rng.randn(T, 80).astype(np.float32) * 0.2, "exp": rng.randn(T, 64).astype(np.float32) * 0.3,
+           "euler": rng.randn(T, 3).astype(np.float32) * 0.05, "trans": rng.randn(T, 3).astype(np.float32) * 0.05}
+    fit = dict(ref, exp=ref["exp"] + rng.randn(T, 64).astype(np.float32) * 0.01,
+               euler=ref["euler"] + 0.2, trans=ref["trans"] - 0.3)  # the fit's pose is not read
+    h, jh = PHelper.synthetic("lm68"), JHelper.synthetic("lm68")
+    got = P.exp_displacement_px(h, fit, ref, 512)
+
+    def j_lm(exp):
+        return np.asarray(jh.reconstruct_lm2d(*(jnp.asarray(v) for v in (ref["id"], exp, ref["euler"], ref["trans"]))))
+
+    want = float(np.abs(j_lm(fit["exp"]).astype(np.float64) - j_lm(ref["exp"])).max() * 512)
+    assert want > 0.05 and abs(got - want) <= 1e-3 * want + 1e-3
+    assert P.exp_displacement_px(h, ref, ref, 512) == 0.0
+    small = dict(ref, exp=ref["exp"] + (fit["exp"] - ref["exp"]) * 1e-3)
+    assert 0 < P.exp_displacement_px(h, small, ref, 512) <= 2e-3 * got

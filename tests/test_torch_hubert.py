@@ -278,7 +278,7 @@ def test_cli_request_from_bare_wav_matches_jax(pair, with_hubert, tmp_path):
     padded wav's PCM."""
     j_inf, t_inf = pair
     with_hubert("post-bin")
-    inp = default_inp(drv_aud=_wav_file(tmp_path, 0.4, seed=1), temperature=0.0, out_name=str(tmp_path / "o.mp4"))
+    inp = default_inp(drv_aud=_wav_file(tmp_path, 0.4, seed=1), temperature=0.0, out_name=str(tmp_path / "o.avi"))
     frames, pcm = read_avi(t_inf.infer_once(inp))
     jb = j_inf.forward_audio2secc(j_inf.prepare_batch_from_inp(inp), inp)
     assert len(frames) == jb["T"] == 8

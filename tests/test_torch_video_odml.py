@@ -235,7 +235,7 @@ def test_infer_once_past_a_small_segment_size(tmp_path, monkeypatch):
     forward = infer.forward_secc2video
     monkeypatch.setattr(infer, "forward_secc2video", lambda *a: (rendered.append(f) or f for f in forward(*a)))
     _small_segments(monkeypatch, 12_000)
-    path = infer.infer_once(dict(inp, out_name=str(tmp_path / "long.mp4")))
+    path = infer.infer_once(dict(inp, out_name=str(tmp_path / "long.avi")))
     assert path == str(tmp_path / "long.avi")
     frames, pcm = video.read_avi(path)
     T = T50 // 2
@@ -255,7 +255,7 @@ def test_infer_once_past_the_capacity_raises_before_rendering(tmp_path, monkeypa
     monkeypatch.setattr(infer, "launch_secc2video", lambda *a, **k: pytest.fail("rendered"))
     _small_segments(monkeypatch, 12_000)
     with pytest.raises(ValueError, match="capacity"):
-        infer.infer_once(dict(inp, out_name=str(tmp_path / "long.mp4")))
+        infer.infer_once(dict(inp, out_name=str(tmp_path / "long.avi")))
     assert os.listdir(tmp_path) == ["f.npy"]
 
 

@@ -84,6 +84,10 @@ HEAD_SR = {"with_sr": True, "sr_dtype": "bfloat16", "grid_size": 16, "smo_win_si
 TORSO = {"with_sr": True, "torso_head_aware": True, "torso_individual_embedding_dim": 8,
          "individual_embedding_num": 16, "grid_size": 16}
 MIN_PSNR, MAX_MEAN_ABS = 42.0, 1.5
+# dB, the mp4's luma vs the AVI's at the default QP: these 32x32 renders of a
+# 3-step head are noise-like (39.5-40.0 dB measured); synthetic_face frames
+# hold 40 dB (tests/test_torch_h264.py, tests/test_torch_mp4.py)
+MP4_MIN_PSNR = 38.0
 
 
 def _np(tree):
@@ -400,7 +404,7 @@ def _psnr_ok(got, ref):
 def test_infer_once_and_the_cli_write_the_frames(trained, dirs, tmp_path, monkeypatch):
     """Both write an AVI whose frames are the port's frames for the same
     draw (JAX's), exactly, and >= 42 dB against JAX's; its PCM is
-    pcm16(wav16k); `.mp4` becomes `.avi`."""
+    pcm16(wav16k), for an `.avi` name."""
     j_inf, t_inf = trained
     path, feats = _features(tmp_path)
     inp = default_inp(drv_aud_features=path)
@@ -416,10 +420,10 @@ def test_infer_once_and_the_cli_write_the_frames(trained, dirs, tmp_path, monkey
     assert len(got) == len(ref) == T
     _psnr_ok(got, ref)
 
-    out = t_inf.infer_once(dict(inp, out_name=str(tmp_path / "once.mp4")))
-    assert out == str(tmp_path / "once.avi") and not os.path.exists(str(tmp_path / "once.mp4"))
+    out = t_inf.infer_once(dict(inp, out_name=str(tmp_path / "once.AVI")))
+    assert out == str(tmp_path / "once.avi") and not os.path.exists(str(tmp_path / "once.AVI"))
     printed = cli.main(["--device", "cpu", "--a2m_ckpt", dirs["a2m"], "--head_ckpt", dirs["trained"],
-                        "--drv_aud_features", path, "--out_name", str(tmp_path / "cli.mp4")])
+                        "--drv_aud_features", path, "--out_name", str(tmp_path / "cli.avi")])
     assert printed == str(tmp_path / "cli.avi")
     for p in (out, printed):
         frames, pcm = read_avi(p)
@@ -459,7 +463,7 @@ def cli_plain(dirs, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("cli_plain")
     path, _ = _features(tmp)
     out = cli.main(["--device", "cpu", "--a2m_ckpt", dirs["a2m"], "--head_ckpt", dirs["trained"],
-                    "--drv_aud_features", path, "--out_name", str(tmp / "plain.mp4")])
+                    "--drv_aud_features", path, "--out_name", str(tmp / "plain.avi")])
     return path, read_avi(out)[0]
 
 
@@ -478,7 +482,7 @@ def test_cli_renders_with_compaction_flags(dirs, cli_plain, tmp_path, capsys, ar
     path, plain = cli_plain
     capsys.readouterr()
     out = cli.main(["--device", "cpu", "--a2m_ckpt", dirs["a2m"], "--head_ckpt", dirs["trained"],
-                    "--drv_aud_features", path, "--out_name", str(tmp_path / "o.mp4")] + argv)
+                    "--drv_aud_features", path, "--out_name", str(tmp_path / "o.avi")] + argv)
     assert re.search(printed, capsys.readouterr().out)
     frames = read_avi(out)[0]
     assert frames.shape == plain.shape and frames.dtype == np.uint8
@@ -545,9 +549,9 @@ def test_avi_round_trip(tmp_path, T, h, w, n):
 
 
 def test_avi_names_and_segments(tmp_path):
-    assert t_video.avi_path("a/b.mp4") == "a/b.avi" and t_video.avi_path("c.AVI") == "c.avi"
+    assert t_video.video_path("a/b.mp4") == ("a/b.mp4", "mp4") and t_video.video_path("c.AVI") == ("c.avi", "avi")
     with pytest.raises(ValueError, match="uncompressed AVI"):
-        t_video.avi_path("x.mkv")
+        t_video.video_path("x.mkv")
     # the first 1 GiB RIFF holds 1,362 frames of 512^2 with their audio (AVI 1.0 readers read it
     # alone); 1,400 frames, chip_smoke.py's long clip, take two RIFFs
     assert t_video.avi_bytes(1362, 512, 512, 1362 * 640) <= t_video.AVI_MAX_BYTES < \
@@ -565,3 +569,56 @@ def test_avi_names_and_segments(tmp_path):
     with pytest.raises(ValueError, match="does not fit"):
         writer.append(frames[0])
     assert os.listdir(tmp_path) == ["v.avi"]
+
+
+def test_infer_once_writes_an_mp4_as_jax_does(trained, tmp_path):
+    """An `.mp4` name writes H.264 + PCM mp4: FFmpeg (cv2) reads JAX's frame
+    count, size and fps from it, as from JAX's infer_once of the same
+    request (cv2 mp4v, the audio left beside it as a wav without ffmpeg);
+    its PCM is JAX's wav sample for sample; its frames, decoded by
+    decode_own, stand within the codec's bound of the same draw's `.avi`
+    frames (luma PSNR >= MP4_MIN_PSNR), and FFmpeg's luma equals
+    decode_own's."""
+    cv2 = pytest.importorskip("cv2")
+    from scipy.io import wavfile
+
+    from genefaceplusplus_tpu_torch.data import h264
+    from genefaceplusplus_tpu_torch.data.mp4 import read_mp4, read_mp4_track
+
+    j_inf, t_inf = trained
+    path, feats = _features(tmp_path)
+    inp = default_inp(drv_aud_features=path)
+    j_out = j_inf.infer_once(dict(inp, out_name=str(tmp_path / "jax.mp4")))
+    out = {}
+    for ext in ("avi", "mp4"):
+        t_inf.generator.manual_seed(5)
+        out[ext] = t_inf.infer_once(dict(inp, out_name=str(tmp_path / f"port.{ext}")))
+    assert out["mp4"] == str(tmp_path / "port.mp4")
+    streams = {}
+    for name, p in (("jax", j_out), ("port", out["mp4"])):
+        cap = cv2.VideoCapture(p)
+        frames = []
+        while True:
+            ok, img = cap.read()
+            if not ok:
+                break
+            frames.append(img)
+        streams[name] = (cap.get(cv2.CAP_PROP_FPS), len(frames), frames[0].shape)
+    assert streams["port"] == streams["jax"] == (25.0, 12, (H, W, 3))
+    rate, side = wavfile.read(str(tmp_path / "jax.wav"))
+    frames, pcm = read_mp4(out["mp4"])
+    assert rate == 16000
+    np.testing.assert_array_equal(pcm, side)
+    np.testing.assert_array_equal(pcm, t_audio.pcm16(feats["wav16k"]))
+    avi = read_avi(out["avi"])[0]
+    assert frames.shape == avi.shape == (12, H, W, 3)
+    track = read_mp4_track(out["mp4"])
+    cap = cv2.VideoCapture(out["mp4"])
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    for i, sample in enumerate(track.samples):
+        y = h264.decode_own(sample, track.sps, track.pps).y
+        mse = float(np.mean((y.astype(float) - h264.luma(avi[i])) ** 2))
+        assert mse == 0 or 10 * math.log10(255.0 ** 2 / mse) >= MP4_MIN_PSNR
+        ok, raw = cap.read()
+        assert ok
+        np.testing.assert_array_equal(raw, y)
