@@ -9,7 +9,7 @@ Phases (any failure exits non-zero, and no result line is printed):
   build       compile genefaceplusplus_tpu_torch/csrc/fused_field.cu,
               fused_field_bwd.cu, fused_field_wgrad.cu and h264_intra.cu into
               build/kernels/ (four nvcc, in parallel); print each ptxas report
-              (0 spills)
+              (0 spills; h264_intra also 0 bytes of stack)
   kernel      the fused-field forward kernel (B1) vs its plain PyTorch version and
               vs the float32 model field, at the 512^2 x 10-sample serving
               size (2,621,440 points), with seeded weights and inputs; its
@@ -78,17 +78,27 @@ Phases (any failure exits non-zero, and no result line is printed):
               (its frames within one level of 255 of the plain CLI's);
               stream_infer over 8 s in 2 s chunks (no drift, an exact
               resume tail); timed (load, CLI wall, time to first frame, ms a
-              frame)
+              frame); the CLI's mp4 wall split by one more run (render, the
+              render's device tail, encode, copy, framing, mux, file write,
+              the rest)
   h264        the H.264 intra kernel (csrc/h264_intra.cu) vs its plain
-              version (data/h264.py:encode_plain), byte for byte, on serve_cli's
-              8-frame 512^2 chunk, 8 of its 1536x512 --debug panels, a
-              504x500 crop (frame cropping), 8 synthetic_face frames of 512^2
-              and noise at QP 4 (the I_PCM escape); decode_own of the kernel's
-              stream equal to the plain reconstruction; the synthetic_face
-              luma PSNR >= 40 dB; bytes a frame against the AVI's 786,432;
-              the kernel's median ms a chunk at 512^2 and 1536x512 by CUDA
-              events in turns with the plain version, beside its bound
-              (bytes)
+              versions, byte for byte: its framed NAL units, compacted and
+              split by frame, vs access_units' of data/h264.py:encode_plain's
+              RBSPs, and each slice without its emulation prevention vs that
+              RBSP, on serve_cli's 8-frame 512^2 chunk, 8 of its
+              1536x512 --debug panels, a 504x500 crop (frame cropping), 8
+              synthetic_face frames of 512^2, noise at QP 4 (the I_PCM escape),
+              flat frames at QP 0 (levels past Baseline's limit: the escape)
+              testing.emulation_prevention_frames (the card inserts
+              emulation-prevention bytes) and testing.wide_frames at QP 4
+              (4,096 wide: the slice words past shared memory, kept in the
+              output's rows); decode_own of the kernel's stream
+              equal to the plain reconstruction; the synthetic_face luma PSNR
+              >= 40 dB; bytes a frame against the AVI's 786,432; the kernel's
+              median ms a chunk at 512^2 and 1536x512 by CUDA events, calls
+              timed alone in turns with the plain version, beside its bound
+              (bytes), and launches back to back as a second reading; one
+              encode's device activities under torch.profiler
   serve_long  serve_cli's GeneFaceInfer: infer_once on 56 s of features, 1,400
               full frames at 512^2 with their audio, an AVI 2.0 (OpenDML) of
               1.10 GB in two RIFF segments; each rendered frame's sha256 held
@@ -564,6 +574,8 @@ def phase_build():
             print(f"[build] {name} ptxas: {line}")
         spills = [int(v) for x in ptxas_report(lib) for v in re.findall(r"(\d+) bytes spill", x)]
         check(not any(spills), f"{name} spills registers")
+    stack = [int(v) for x in ptxas_report(libs["h264_intra"]) for v in re.findall(r"(\d+) bytes stack frame", x)]
+    check(stack and not any(stack), "h264_intra keeps per-lane arrays on the stack")
 
 
 def kernel_inputs(dev):
@@ -1516,6 +1528,13 @@ def phase_serve_cli(dev, work: str):
     encoded = [au for s in range(0, T, 8) for au in he.encode_access_units(torch.from_numpy(ref[s:s + 8]).to(dev), s)]
     bad = [i for i in range(T) if encoded[i] != track.samples[i]]
     check(not bad, f"the CLI's mp4 samples vs the kernel's encode of the direct frames: {bad[:10]}")
+    split = mp4_wall_split(lambda: run_cli("out_split.mp4"))
+    with open(out, "rb") as f, open(split["out"][0], "rb") as g:
+        check(f.read() == g.read(), "the split run's mp4 vs the CLI's")
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in split["ms"].items() if k != "encode_device")
+    print(f"[serve_cli] {card_line()}; the CLI's {T}-frame mp4 wall split (one more run, the same file; a "
+          f"synchronise after each rendered chunk and each encode): {split['wall']:.1f} ms = {parts} ms; the "
+          f"{split['encodes']} encodes' device time {split['ms']['encode_device']:.3f} ms by CUDA events")
     mp4_size, avi_size = os.path.getsize(out), os.path.getsize(out_avi)
     print(f"[serve_cli] {card_line()}; CLI (features -> {os.path.basename(out)}, {mp4_size:,} bytes, "
           f"{(mp4_size - 2 * len(wav)) / T:,.0f} bytes a frame of video): {T} frames of {2 * ds.H}x{2 * ds.W}, each "
@@ -1596,17 +1615,118 @@ def phase_serve_cli(dev, work: str):
         "binary": binary, "frames": ref[:8], "batch": batch}
 
 
+class _TimedFile:
+    """A file whose writes add their host time to `ms["write"]`."""
+
+    def __init__(self, f, ms: dict):
+        self._f, self._ms = f, ms
+
+    def write(self, b):
+        t0 = time.perf_counter()
+        n = self._f.write(b)
+        self._ms["write"] += (time.perf_counter() - t0) * 1e3
+        return n
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+
+def mp4_wall_split(run) -> dict:
+    """`run()` (the CLI to an mp4) once more with its wall split, in ms of
+    host time: render (the frame generator's host time), wait (a
+    synchronise after each chunk: the render's device tail, which the
+    unsplit run waits out at the first copy), encode (the kernel wrapper
+    and a synchronise; its device time alone by CUDA events as
+    encode_device), copy (copy_units: the gather and the device-to-host
+    copy), framing (the rest of encode_access_units), mux
+    (Mp4Muxer's append and close but their file writes), write (the file
+    writes) and other (the wall less all of these: work-dir load,
+    audio2secc, the writer's set-up). Returns the buckets, the wall and
+    run()'s result."""
+    from genefaceplusplus_tpu_torch.data import mp4 as mp4_mod
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
+    from genefaceplusplus_tpu_torch.ops import h264_encode as he
+
+    ms = dict.fromkeys(("render", "wait", "encode", "encode_device", "copy", "framing", "mux", "write"), 0.0)
+    saved = (GeneFaceInfer.launch_all, he.encode_access_units, he.h264_intra, he.copy_units, mp4_mod.Mp4Muxer.open,
+             mp4_mod.Mp4Muxer.append, mp4_mod.Mp4Muxer.close)
+    launch_all, encode, kernel, copy, opened, append, close = saved
+    events = []
+
+    def timed_launch_all(self, *a, **kw):
+        it = launch_all(self, *a, **kw)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            ms["render"] += (t1 - t0) * 1e3
+            ms["wait"] += (time.perf_counter() - t1) * 1e3
+            yield item
+
+    def timed(fn, key):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ms[key] += (time.perf_counter() - t0) * 1e3
+        return wrapped
+
+    def timed_kernel(*a, **kw):  # the wrapper counts its launches on whatever `he.h264_intra` is
+        t0 = time.perf_counter()
+        e0 = cuda_event()
+        out = kernel(*a, **kw)
+        events.append((e0, cuda_event()))
+        torch.cuda.synchronize()
+        ms["encode"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed_open(self, *a, **kw):
+        opened(self, *a, **kw)
+        self._f = _TimedFile(self._f, ms)
+
+    timed_kernel.launches = kernel.launches
+    GeneFaceInfer.launch_all, he.h264_intra, mp4_mod.Mp4Muxer.open = timed_launch_all, timed_kernel, timed_open
+    he.encode_access_units, he.copy_units = timed(encode, "framing"), timed(copy, "copy")
+    mp4_mod.Mp4Muxer.append, mp4_mod.Mp4Muxer.close = timed(append, "mux"), timed(close, "mux")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        (GeneFaceInfer.launch_all, he.encode_access_units, he.h264_intra, he.copy_units, mp4_mod.Mp4Muxer.open,
+         mp4_mod.Mp4Muxer.append, mp4_mod.Mp4Muxer.close) = saved
+    kernel.launches = timed_kernel.launches
+    ms["encode_device"] = sum(a.elapsed_time(b) for a, b in events)
+    ms["framing"] -= ms["encode"] + ms["copy"]
+    ms["mux"] -= ms["write"]
+    ms["other"] = wall - sum(v for k, v in ms.items() if k != "encode_device")
+    return {"ms": ms, "wall": wall, "encodes": len(events), "out": out}
+
+
 # h264: the H.264 intra kernel (csrc/h264_intra.cu) against its plain
-# version (data/h264.py:encode_plain) on serve_cli's frames: the bytes equal
-# exactly (integer arithmetic throughout), at 512^2, on 1536x512 --debug
-# panels, on a size that is not whole macroblocks and on noise at a low QP
-# (the I_PCM escape); decode_own of the kernel's stream equal to the plain
-# reconstruction; the luma PSNR of synthetic_face frames at the default QP
-# at least H264_MIN_PSNR (tests/test_torch_h264.py's bound). The bound counts
-# the frames' RGB bytes read once and the slices' bytes written once, at
-# the HBM rate (no operation count: the work is integer and serial per row).
+# versions on serve_cli's frames: its framed NAL units, compacted and split by
+# frame as the mp4 writer takes them, equal to data/h264.py:access_units' of
+# encode_plain's RBSPs, and each slice, its emulation prevention removed,
+# equal to that RBSP (integer arithmetic throughout), at 512^2, on 1536x512 --debug panels, on a size that is not
+# whole macroblocks, on noise at a low QP (the I_PCM escape) and on
+# testing.emulation_prevention_frames (slices that hold 00 00 0x, so the
+# card's emulation prevention inserts bytes) and on testing.wide_frames
+# (4,096 wide: the slice words past shared memory, in the output's rows);
+# decode_own of the kernel's
+# stream equal to the plain reconstruction; the luma PSNR of synthetic_face
+# frames at the default QP at least H264_MIN_PSNR (tests/test_torch_h264.py's
+# bound). The bound counts the frames' RGB bytes read once and the framed
+# slices' bytes written once, at the HBM rate (no operation count: the work is
+# integer and serial per row).
 H264_MIN_PSNR = 40.0
 H264_REPS = 10  # kernel launches timed a turn
+H264_BATCH = 10  # launches back to back a sample of the second reading (the host's launch hidden)
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -1615,6 +1735,7 @@ def phase_h264(dev, served) -> dict:
     from genefaceplusplus_tpu_torch.data import h264
     from genefaceplusplus_tpu_torch.data.synthetic_face import synthetic_face
     from genefaceplusplus_tpu_torch.ops import h264_encode as he
+    from genefaceplusplus_tpu_torch.testing import EP_QP, WIDE, emulation_prevention_frames, wide_frames
 
     infer, batch, chunk = served["infer"], served["batch"], served["frames"]
     t0 = time.perf_counter()
@@ -1623,29 +1744,44 @@ def phase_h264(dev, served) -> dict:
     faces = synthetic_face(num_frames=8, size=SIZE, seed=2)
     faces = np.stack([s["gt_img"] for s in faces["train_samples"] + faces["val_samples"]])[:8]
     noise = np.random.RandomState(21).randint(0, 256, (2, 136, 200, 3)).astype(np.uint8)
+    flat = np.full((1, 32, 48, 3), 255, np.uint8)
+    flat[:, :, 16:32] = 0  # at QP 0 its DC levels exceed Baseline's level_prefix: the escape, short as it codes
     # (frames, QP, decode frame 0 with decode_own): the plain decoder takes ~1.4 s a 512^2 frame
     cases = {"served chunk": (chunk, h264.QP, True), "--debug panel": (panels[:1], h264.QP, False),
              "served crop": (chunk[:1, :500, :504], h264.QP, True), "synthetic_face": (faces, h264.QP, False),
-             "noise at QP 4": (noise, 4, True)}
-    readings, kernel_ms = {}, []
+             "noise at QP 4": (noise, 4, True), "levels past the limit at QP 0": (flat, 0, True),
+             "emulation prevention": (emulation_prevention_frames(), EP_QP, True),
+             f"{WIDE} wide at QP 4": (wide_frames(), 4, True)}
+    readings, call_ms, batch_ms = {}, [], []
     for name, (frames, qp, decode) in cases.items():
         B, H, W, _ = frames.shape
         x = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
-        plain_ms = []
-        for _ in range(2 if name == "served chunk" else 1):  # in turns with the kernel's timed launches
-            e0, e1 = cuda_event(), cuda_event()
-            e0.record()
-            plain = h264.encode_plain(x, 0, qp)
-            e1.record()
-            torch.cuda.synchronize()
-            plain_ms.append(e0.elapsed_time(e1))
-            if name == "served chunk":
-                kernel_ms += timed_h264(x, qp)
-        rows, bits = he.h264_intra(x, 0, qp)
+        if name == "served chunk":  # the kernel's timed launches before and after the plain version's run
+            call_ms += timed_h264(x, qp)
+            batch_ms += timed_h264(x, qp, H264_BATCH)
+        e0, e1 = cuda_event(), cuda_event()
+        e0.record()
+        plain = h264.encode_plain(x, 0, qp)
+        h264.frame_slices(plain.rows, plain.bits)
+        e1.record()
         torch.cuda.synchronize()
-        err = int((rows.int() - plain.rows.int()).abs().max()) + int((bits - plain.bits).abs().max())
-        check(err == 0 and rows.shape == plain.rows.shape, f"h264: {name}: the kernel's bytes vs the plain version's")
-        aus = h264.access_units(rows, bits, B)
+        plain_ms = [e0.elapsed_time(e1)]
+        if name == "served chunk":
+            call_ms += timed_h264(x, qp)
+            batch_ms += timed_h264(x, qp, H264_BATCH)
+        units, lengths = he.h264_intra(x, 0, qp)
+        if W == WIDE:  # the slice words past shared memory: kept in the units' own rows
+            check(units.stride(0) > units.shape[1], f"h264: frames {W} wide kept their words in shared memory")
+        aus = he.split_access_units(he.copy_units(units, lengths), B)
+        nbytes = ((plain.bits + 7) // 8).tolist()
+        slices = [h264.remove_emulation_prevention(unit[1:]) for au in aus for unit in h264.split_avcc(au)]
+        check(slices == [plain.rows[s, :n].cpu().numpy().tobytes() for s, n in enumerate(nbytes)],
+              f"h264: {name}: the kernel's slices vs the plain version's RBSPs")
+        want = h264.access_units(plain.rows, plain.bits, B)
+        check(aus == want, f"h264: {name}: the kernel's framed access units vs access_units' of the plain RBSPs")
+        inserted = sum(len(a) for a in want) - sum(nbytes) - 5 * len(nbytes)
+        if name == "emulation prevention":
+            check(inserted > 0, "h264: the emulation-prevention frames' slices hold no 00 00 0x")
         note = ""
         if decode:
             dec = h264.decode_own(aus[0], *h264.sps_pps(H, W))
@@ -1657,47 +1793,70 @@ def phase_h264(dev, served) -> dict:
                    "macroblocks I_PCM)"
             if name == "noise at QP 4":
                 check(dec.pcm.any(), "h264: no I_PCM escape on noise at QP 4")
+            if name == "levels past the limit at QP 0":
+                check(dec.pcm.all(), "h264: a level past the limit without the I_PCM escape")
+            if W == WIDE:
+                check(dec.pcm.any() and not dec.pcm.all(), "h264: the wide frame is not part I_PCM, part coded")
         src = h264.luma(frames)
         rec = plain.recon[0][:, :H, :W].cpu().numpy()
         luma_psnr = min(psnr(rec[i], src[i], 255.0) for i in range(B))
         per_frame = sum(len(a) for a in aus) / B
         readings[name] = {"plain_ms": statistics.median(plain_ms), "bytes_per_frame": per_frame, "psnr": luma_psnr,
-                          "moved": x.numel() + int(bits.sum()) // 8}  # RGB read once, the slices written once
-        print(f"[h264] {card_line()}; {name}: {B} x {H}x{W} at QP {qp}: the kernel's bytes equal to the plain "
-              f"version's{note}; {per_frame:,.0f} bytes a frame ({H * W * 3 / per_frame:.1f}x under its AVI "
+                          "moved": x.numel() + per_frame * B}  # RGB read once, the framed slices written once
+        print(f"[h264] {card_line()}; {name}: {B} x {H}x{W} at QP {qp}: the kernel's slices equal to the plain "
+              f"version's RBSPs and its framed access units to access_units' ({inserted} emulation-prevention bytes "
+              f"inserted){note}; {per_frame:,.0f} bytes a frame ({H * W * 3 / per_frame:.1f}x under its AVI "
               f"frame); luma PSNR min {luma_psnr:.2f} dB; plain {', '.join(f'{v:.1f}' for v in plain_ms)} ms")
     check(readings["synthetic_face"]["psnr"] >= H264_MIN_PSNR,
           f"h264: synthetic_face luma PSNR {readings['synthetic_face']['psnr']:.2f} dB")
     x = torch.from_numpy(panels).to(dev)
-    panel_ms = timed_h264(x, h264.QP)
-    _, bits = he.h264_intra(x, 0, h264.QP)
+    panel_ms, panel_batch_ms = timed_h264(x, h264.QP), timed_h264(x, h264.QP, H264_BATCH)
+    _, lengths = he.h264_intra(x, 0, h264.QP)
     r = readings["served chunk"]
     bound = {"chunk": r["moved"] / HBM_BYTES_PER_S * 1e3,
-             "panels": (x.numel() + int(bits.sum()) // 8) / HBM_BYTES_PER_S * 1e3}
-    print(f"[h264] {card_line()}; the kernel a chunk of 8 (median of {len(kernel_ms)} by CUDA events, in turns "
-          f"with the plain version): {SIZE}^2 {statistics.median(kernel_ms):.4f} ms (plain "
-          f"{r['plain_ms']:.1f} ms; bound {bound['chunk']:.5f} ms by bytes, "
-          f"{bound['chunk'] / statistics.median(kernel_ms):.2%}), --debug panels {x.shape[1]}x{x.shape[2]} "
-          f"{statistics.median(panel_ms):.4f} ms (one panel plain {readings['--debug panel']['plain_ms']:.1f} ms; "
-          f"bound {bound['panels']:.5f} ms, {bound['panels'] / statistics.median(panel_ms):.2%}); the served "
-          f"frames {r['bytes_per_frame']:,.0f} bytes a frame against the AVI's {SIZE * SIZE * 3:,}; 8 --debug "
-          f"panels composed on the host in {panel_s:.2f} s")
-    return {"max_abs_err": 0, "ms": statistics.median(kernel_ms), "plain_ms": r["plain_ms"],
+             "panels": (x.numel() + int(lengths.sum())) / HBM_BYTES_PER_S * 1e3}
+    chunk_x = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev)
+
+    def encodes(n=4):
+        for _ in range(n):
+            he.encode_access_units(chunk_x, 0)
+        return n
+
+    encodes(1)
+    activities, kernels, busy, top = profile_device(encodes)
+    ms, panel = statistics.median(call_ms), statistics.median(panel_ms)
+    print(f"[h264] {card_line()}; the kernel a chunk of 8 (median of {len(call_ms)} calls, each timed alone by "
+          f"CUDA events, its host launch included, in turns with the plain version): {SIZE}^2 {ms:.4f} ms (plain "
+          f"{r['plain_ms']:.1f} ms; bound {bound['chunk']:.5f} ms by bytes, {bound['chunk'] / ms:.2%}), --debug "
+          f"panels {x.shape[1]}x{x.shape[2]} {panel:.4f} ms (one panel plain "
+          f"{readings['--debug panel']['plain_ms']:.1f} ms; bound {bound['panels']:.5f} ms, "
+          f"{bound['panels'] / panel:.2%}); the served frames {r['bytes_per_frame']:,.0f} bytes a frame against the "
+          f"AVI's {SIZE * SIZE * 3:,}; 8 --debug panels composed on the host in {panel_s:.2f} s")
+    print(f"[h264] {card_line()}; a second reading, launches back to back (median of {len(batch_ms)} samples of "
+          f"{H264_BATCH} by CUDA events, the host's launch hidden), ms a launch: {SIZE}^2 "
+          f"{statistics.median(batch_ms):.4f}, --debug panels {statistics.median(panel_batch_ms):.4f}")
+    print(f"[h264] {card_line()}; encode_access_units of the served chunk under torch.profiler, a call: "
+          f"{activities} device activities, {kernels} of them kernels, busy {busy} ms: "
+          + ", ".join(f"{n} x{c:g} {ms:.4f} ms" for n, c, ms in top))
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": r["plain_ms"],
             "bound_ms": bound["chunk"], "bound_by": "bytes", "library_ms": None}
 
 
-def timed_h264(x, qp: int) -> list:
-    """H264_REPS launches of the kernel on `x`, each timed by CUDA events."""
+def timed_h264(x, qp: int, batch: int = 1) -> list:
+    """H264_REPS samples of `batch` launches of the kernel on `x` as the mp4
+    writer launches it (framed units), each sample timed by CUDA events:
+    ms a launch."""
     from genefaceplusplus_tpu_torch.ops import h264_encode as he
 
     out = []
     for _ in range(H264_REPS):
         e0, e1 = cuda_event(), cuda_event()
         e0.record()
-        he.h264_intra(x, 0, qp)
+        for _ in range(batch):
+            he.h264_intra(x, 0, qp)
         e1.record()
         torch.cuda.synchronize()
-        out.append(e0.elapsed_time(e1))
+        out.append(e0.elapsed_time(e1) / batch)
     return out
 
 

@@ -1,5 +1,5 @@
-// H.264 intra encoder for Hopper (sm_90a): rendered RGB frames to the
-// slices of an IDR picture, one slice per macroblock row.
+// H.264 intra encoder for Hopper (sm_90a): rendered RGB frames to the NAL
+// units of an IDR picture, one slice per macroblock row.
 //
 // Replaces no TPU kernel: the JAX package encodes its mp4 outside JAX
 // (libx264 through imageio, or cv2's mp4v). It was added so that the
@@ -12,34 +12,53 @@
 // SAD, DC-128 at a row's start; chroma alike), one QP, deblocking off, and
 // the I_PCM escape for a macroblock whose coded bits exceed its 3,072 bits
 // of samples. All arithmetic is integer, so the bytes are equal, not close.
+// Each slice leaves the kernel as the NAL unit the file holds: the 4-byte
+// AVCC length, the header byte 0x65 and the slice's RBSP with emulation
+// prevention (data/h264.py:frame_slices is the plain version of that step).
 //
 // What bounds it on an H100: neither bytes nor operations. The bound is
 // reading each RGB frame once and writing its bitstream (~1.6 MB for an
 // 8-frame 512^2 chunk: ~0.5 us at 3.35 TB/s); the kernel's time is the
 // latency of its dependent chain: a row's macroblocks follow one another,
-// each predicted from the left one's reconstruction, and each costs a few
-// block-wide barriers and the CAVLC of its blocks.
+// each predicted from the left one's reconstruction. The design keeps that
+// chain to one warp and everything else off it.
 //
-// Design:
-// * One block of 256 threads per (frame, macroblock row), so an 8-frame
-//   chunk of 512^2 is 256 independent blocks. Each block converts its 16
-//   pixel rows from RGB to Y'CbCr 4:2:0 into shared memory first (24 bytes
-//   a column: 12 KB at 512 wide, 36 KB at 1536; the opt-in limit is set
-//   past 32 KB), repeating the edge pixels past the frame.
-// * Per macroblock: the SAD of DC against Horizontal (a block reduction),
-//   the 24 4x4 forward transforms and their quantisation (a thread a
-//   block), the DC Hadamards, then the reconstruction (24 threads) beside
-//   the CAVLC of the 28 bit segments (header, luma DC, 16 luma AC, 2 chroma
-//   DC, 8 chroma AC; a thread a segment into its own shared buffer: every
-//   nC is known once the macroblock is quantised). One thread sums the
-//   segments' lengths (the prefix sum), decides the escape, and the
-//   segments (or the PCM samples) are OR-ed into the row's words at their
-//   offsets.
-// * The row's output is the slice's RBSP (header, macroblocks, trailing
-//   bits) in big-endian words, byte-swapped at the end into the byte
-//   stream; its length in bits goes to `bits`. Emulation prevention and
-//   the NAL and AVCC framing are done on the host over the compacted bytes
-//   (data/h264.py:access_units).
+// Design, one block of 256 threads per (frame, macroblock row):
+// * Pre-pass (all threads): the row's 16 pixel rows to Y'CbCr 4:2:0 in
+//   shared memory, edges repeated past the frame (24 bytes a column).
+// * The chain (warp 0, warp-synchronous: shuffles and warp reductions, no
+//   block barrier): per macroblock each lane of 24 takes its source block's
+//   forward 4x4 transform before the mode is known (the core transform is
+//   exactly linear, so the prediction's transform is subtracted after: the
+//   DC term for DC prediction and DC-128 at a row's start, the first
+//   coefficient column for Horizontal), then the mode SADs (__vsadu4 and
+//   one redux each for luma and chroma), the quantisation (a lane a
+//   block), both DC Hadamards by shuffles, the length-only CAVLC of the 28
+//   segments (a lane a segment, levels in registers, no branch, the tables
+//   in shared memory), the I_PCM decision (a redux of the lengths), and the
+//   reconstruction of only the right-hand 4x4 column that the next
+//   macroblock predicts from. It hands each macroblock over through a ring
+//   of RING slots in shared memory (its levels, modes, nC, segment lengths
+//   and first bit), with an mbarrier a slot each way.
+// * Consumers (warps 1..CONSUMERS, every CONSUMERS-th macroblock each):
+//   wait on the slot, scan the segment lengths into offsets and write each
+//   segment from its own lane at its offset (or the I_PCM samples) into
+//   the row's words in shared memory by atomic OR, then free the slot. The
+//   chain waits only for a slot RING macroblocks old.
+// * Framing (all threads): the stop bit, then the NAL unit: emulation
+//   prevention puts 0x03 before a byte <= 3
+//   that follows an even run of two or more zero bytes (what
+//   data/h264.py:emulation_prevention's scan does), found by a block
+//   max-scan of each thread's last non-zero byte and placed by a block
+//   sum-scan of the insertions, staged in the ring's and pixels' dead
+//   shared memory and copied out in 16-byte stores. The wrapper compacts
+//   the units with one gather and one copy to the host.
+// Shared memory is ~1 KB a macroblock column and 14 KB of ring: two
+// blocks an SM up to 1536 wide (--debug panels). Past the card's shared
+// memory a block (3,808 wide on an H100) the second instantiation keeps the
+// row's words in the block's own row of `units`, past the unit's bound, and
+// frames straight into that row: the same code on global memory, up to
+// ~9,000 wide, where the pixels and the ring alone fill shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,12 +66,19 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int CONSUMERS = 7;  // warps 1..CONSUMERS write the finished macroblocks
 constexpr int SEGS = 28;
-constexpr int SEG_WORDS = 24;  // 768 bits: a block's worst codable case is 641
 constexpr int PCM_BITS = 384 * 8;
+constexpr int NBLK = 24;     // 4x4 blocks a macroblock: 16 luma (raster by * 4 + bx), 4 Cb, 4 Cr
+constexpr int RING = 16;     // macroblocks handed over and not yet written, at most
+constexpr int ROW_PAD = 4;   // bytes past each pixel row in shared memory: the chain's rows on other banks
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(CONSUMERS < WARPS, "warp 0 runs the chain");
 
 // CAVLC tables, (length, value) [TotalCoeff * 4 + TrailingOnes]; the same
 // as data/h264.py's, which `gfpp_h264_tables` lets the wrapper compare.
+// The kernel copies them to shared memory: lanes index them divergently.
 __constant__ uint8_t TOKEN_LEN[4][68] = {
     {1, 0, 0, 0, 6, 2, 0, 0, 8, 6, 3, 0, 9, 8, 7, 5, 10, 9, 8, 6, 11, 10, 9, 7, 13, 11, 10, 8, 13, 13, 11, 9,
      13, 13, 13, 10, 14, 14, 13, 11, 14, 14, 14, 13, 15, 15, 14, 14, 15, 15, 15, 14, 16, 15, 15, 15,
@@ -107,108 +133,103 @@ __constant__ uint8_t ZIGZAG[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11,
 __constant__ uint8_t BLK_X[16] = {0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3};
 __constant__ uint8_t BLK_Y[16] = {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3};
 
-__device__ __forceinline__ int pos_class(int i, int j) {
-  return ((i & 1) == 0 && (j & 1) == 0) ? 0 : (((i & 1) == 1 && (j & 1) == 1) ? 1 : 2);
+// ZIGZAG as a constant expression for the chain's unrolled loops, a nibble
+// a scan position (gfpp_h264_tables checks it against ZIGZAG)
+constexpr uint64_t ZIGZAG_NIBBLES = 0xFEB7ADC963258410ull;
+__host__ __device__ constexpr int zigzag(int i) { return (int)((ZIGZAG_NIBBLES >> (4 * i)) & 15); }
+// the quantiser class of raster position k (row k / 4, column k % 4)
+__host__ __device__ constexpr int pos_class(int k) {
+  return ((k >> 2) & 1) == 0 && (k & 1) == 0 ? 0 : (((k >> 2) & 1) == 1 && (k & 1) == 1 ? 1 : 2);
 }
-__device__ __forceinline__ int chroma_qp(int qp) { return qp < 30 ? qp : QPC[qp - 30]; }
+
+// The record of one macroblock that the chain hands to a consumer. `len`
+// and `nc` by the chain's lane: 0..15 luma AC (raster), 16..23 chroma AC
+// (16 + c * 4 + by * 2 + bx), 24 luma DC, 25 and 26 chroma DC, 27 the
+// macroblock's header.
+struct Meta {
+  int start;  // the macroblock's first bit in the slice
+  int flags;  // MODE_H | CMODE_H | CBP_LUMA | cbp_chroma << 3 | ESCAPE
+  uint16_t len[32];
+  int8_t nc[32];
+};
+constexpr int MODE_H = 1, CMODE_H = 2, CBP_LUMA = 4, ESCAPE = 32;
+
+struct Slot {            // a macroblock handed over: its levels [coefficient][block] and record
+  int16_t lev[16][NBLK];  // slot 0 of each block: the DC levels (luma raster, chroma 16 + c * 4 + k)
+  Meta meta;
+};
+
+struct Tables {
+  uint8_t tok_len[4][68], tok_bits[4][68], dc_len[20], dc_bits[20], tz_len[15][16], tz_bits[15][16];
+  uint8_t dctz_len[3][4], dctz_bits[3][4], run_len[7][16], run_bits[7][16], zigzag[16];
+  uint8_t seg_lane[SEGS];  // segment s of the bitstream -> the chain's lane
+};
+
+// Byte offsets of the dynamic shared memory (all 16-byte aligned). The
+// ring and the pixels are dead once the row's macroblocks are written: the
+// framing stages the NAL unit from `ring` to `words`, so that region is at
+// least the unit's bound (the mbarriers before it stay untouched). Without
+// `shared_words` the words and the unit are in global memory: the layout
+// ends with the pixels.
+struct Layout {
+  int full, empty, ring, y, c, words, ys, cs, bytes;
+};
+__host__ __device__ inline int up16(int n) { return (n + 15) & ~15; }
+__host__ __device__ inline Layout layout(int mbw, int row_words, bool shared_words) {
+  Layout l;
+  l.ys = 16 * mbw + ROW_PAD;
+  l.cs = 8 * mbw + ROW_PAD;
+  l.full = 0;                                   // a ring slot's mbarrier: handed over
+  l.empty = 8 * RING;                           // and written
+  l.ring = 16 * RING;                           // Slot [RING]
+  l.y = up16(l.ring + (int)sizeof(Slot) * RING);  // Y [16][ys]
+  l.c = l.y + 16 * l.ys;                        // Cb, Cr [2][8][cs]
+  if (!shared_words) {
+    l.words = -1;
+    l.bytes = up16(l.c + 16 * l.cs);
+    return l;
+  }
+  const int unit = 5 + 4 * row_words * 3 / 2;   // the NAL unit's bound: emulation prevention adds a byte in two
+  l.words = up16(l.c + 16 * l.cs > l.ring + unit ? l.c + 16 * l.cs : l.ring + unit);  // the slice's RBSP, big-endian words
+  l.bytes = l.words + 4 * row_words;
+  return l;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(1) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// returns once the barrier's phase of this parity has completed; traps
+// (the launch fails) rather than hang if it never does
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
 __device__ __forceinline__ int quant(int w, int mf, int qbits, int off) {
   int q = (abs(w) * mf + off) >> qbits;
   return w < 0 ? -q : q;
 }
 __device__ __forceinline__ int clip255(int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); }
-
-// A bit writer into zeroed big-endian words that only this thread touches.
-struct Bits {
-  uint32_t* w;
-  int n;
-  __device__ void put(uint32_t v, int len) {  // the low `len` (<= 32) bits of v
-    if (len == 0) return;
-    int word = n >> 5, off = n & 31;
-    if (off + len <= 32) {
-      w[word] |= v << (32 - off - len);
-    } else {
-      w[word] |= v >> (off + len - 32);
-      w[word + 1] |= v << (64 - off - len);
-    }
-    n += len;
-  }
-  __device__ void ue(uint32_t v) {
-    uint32_t code = v + 1;
-    int len = 32 - __clz(code);
-    put(code, 2 * len - 1);
-  }
-};
-
-// OR `len` bits (<= 32, left-aligned in v) into the row's words at bit `pos`.
-__device__ __forceinline__ void or_bits(uint32_t* row, int pos, uint32_t v) {
-  int q = pos >> 5, off = pos & 31;
-  atomicOr(row + q, v >> off);
-  if (off) atomicOr(row + q + 1, v << (32 - off));
+__device__ __forceinline__ int ue_len(int v) { return 2 * (31 - __clz(v + 1)) + 1; }
+__device__ __forceinline__ int nc_of(int na, int nb) {  // -1: not available
+  if (na >= 0 && nb >= 0) return (na + nb + 1) >> 1;
+  return na >= 0 ? na : (nb >= 0 ? nb : 0);
 }
-
-// CAVLC residual_block() of `c` (max_coeff levels in scan order); nc -1 is
-// the 4:2:0 chroma DC. Returns false where a level is too large for
-// Baseline's level_prefix <= 15 (the macroblock then takes the escape).
-__device__ bool residual_block(Bits& b, const int* c, int max_coeff, int nc) {
-  int nz[16], tc = 0;
-  for (int i = 0; i < max_coeff; ++i)
-    if (c[i]) nz[tc++] = i;
-  int table = nc < 0 ? -1 : (nc < 2 ? 0 : (nc < 4 ? 1 : (nc < 8 ? 2 : 3)));
-  int t1 = 0;
-  while (t1 < 3 && t1 < tc && (c[nz[tc - 1 - t1]] == 1 || c[nz[tc - 1 - t1]] == -1)) ++t1;
-  int idx = tc * 4 + t1;
-  if (table < 0)
-    b.put(DC_TOKEN_BITS[idx], DC_TOKEN_LEN[idx]);
-  else
-    b.put(TOKEN_BITS[table][idx], TOKEN_LEN[table][idx]);
-  if (tc == 0) return true;
-  for (int k = 0; k < t1; ++k) b.put(c[nz[tc - 1 - k]] < 0 ? 1 : 0, 1);
-  int suffix_len = (tc > 10 && t1 < 3) ? 1 : 0;
-  for (int k = t1; k < tc; ++k) {
-    int level = c[nz[tc - 1 - k]];
-    int code = level > 0 ? 2 * level - 2 : -2 * level - 1;
-    if (k == t1 && t1 < 3) code -= 2;
-    if (suffix_len == 0) {
-      if (code < 14) {
-        b.put(1, code + 1);
-      } else if (code < 30) {
-        b.put(1, 15);
-        b.put(code - 14, 4);
-      } else if (code < 30 + 4096) {
-        b.put(1, 16);
-        b.put(code - 30, 12);
-      } else {
-        return false;
-      }
-    } else if (code < (15 << suffix_len)) {
-      b.put(1, (code >> suffix_len) + 1);
-      b.put(code & ((1 << suffix_len) - 1), suffix_len);
-    } else if (code - (15 << suffix_len) < 4096) {
-      b.put(1, 16);
-      b.put(code - (15 << suffix_len), 12);
-    } else {
-      return false;
-    }
-    if (suffix_len == 0) suffix_len = 1;
-    if (abs(level) > (3 << (suffix_len - 1)) && suffix_len < 6) ++suffix_len;
-  }
-  int total_zeros = nz[tc - 1] + 1 - tc;
-  if (tc < max_coeff) {
-    if (table < 0)
-      b.put(DC_TZ_BITS[tc - 1][total_zeros], DC_TZ_LEN[tc - 1][total_zeros]);
-    else
-      b.put(TZ_BITS[tc - 1][total_zeros], TZ_LEN[tc - 1][total_zeros]);
-  }
-  int zeros_left = total_zeros;
-  for (int k = 0; k < tc - 1 && zeros_left > 0; ++k) {
-    int run = nz[tc - 1 - k] - nz[tc - 2 - k] - 1;
-    int t = (zeros_left < 7 ? zeros_left : 7) - 1;
-    b.put(RUN_BITS[t][run], RUN_LEN[t][run]);
-    zeros_left -= run;
-  }
-  return true;
-}
-
 __device__ __forceinline__ void fwd1(int& a, int& b, int& c, int& d) {
   int s03 = a + d, d03 = a - d, s12 = b + c, d12 = b - c;
   a = s03 + s12;
@@ -216,379 +237,692 @@ __device__ __forceinline__ void fwd1(int& a, int& b, int& c, int& d) {
   c = s03 - s12;
   d = d03 - 2 * d12;
 }
-__device__ __forceinline__ void inv1(int& a, int& b, int& c, int& d) {
-  int e0 = a + c, e1 = a - c, e2 = (b >> 1) - d, e3 = b + (d >> 1);
-  a = e0 + e3;
-  b = e1 + e2;
-  c = e1 - e2;
-  d = e0 - e3;
-}
 __device__ void forward4x4(int* x) {  // x[i * 4 + j], row i = y
+#pragma unroll
   for (int i = 0; i < 4; ++i) fwd1(x[i * 4], x[i * 4 + 1], x[i * 4 + 2], x[i * 4 + 3]);
+#pragma unroll
   for (int j = 0; j < 4; ++j) fwd1(x[j], x[4 + j], x[8 + j], x[12 + j]);
 }
-__device__ void inverse4x4(int* d) {
-  for (int i = 0; i < 4; ++i) inv1(d[i * 4], d[i * 4 + 1], d[i * 4 + 2], d[i * 4 + 3]);
-  for (int j = 0; j < 4; ++j) inv1(d[j], d[4 + j], d[8 + j], d[12 + j]);
-  for (int k = 0; k < 16; ++k) d[k] = (d[k] + 32) >> 6;
+// element j of the Hadamard butterfly of (a, b, c, d): the 4x4 one's rows
+// and columns; the 2x2 one over a 2x2 block in raster order
+__device__ __forceinline__ int had4(int a, int b, int c, int d, int j) {
+  const int p = a + b, q = a - b, r = c + d, s = c - d;
+  return j == 0 ? p + r : (j == 1 ? p - r : (j == 2 ? q - s : q + s));
 }
-__device__ __forceinline__ void had1(int& a, int& b, int& c, int& d) {
-  int p = a + b, q = a - b, r = c + d, s = c - d;
-  a = p + r;
-  b = p - r;
-  c = q - s;
-  d = q + s;
+__device__ __forceinline__ int had2(int a, int b, int c, int d, int j) {
+  return j == 0 ? a + b + c + d : (j == 1 ? a - b + c - d : (j == 2 ? a + b - c - d : a - b - c + d));
 }
-__device__ void hadamard4(int* x) {
-  for (int i = 0; i < 4; ++i) had1(x[i * 4], x[i * 4 + 1], x[i * 4 + 2], x[i * 4 + 3]);
-  for (int j = 0; j < 4; ++j) had1(x[j], x[4 + j], x[8 + j], x[12 + j]);
-}
-__device__ __forceinline__ void hadamard2(int* x) {
-  int a = x[0], b = x[1], c = x[2], d = x[3];
-  x[0] = a + b + c + d;
-  x[1] = a - b + c - d;
-  x[2] = a + b - c - d;
-  x[3] = a - b - c + d;
-}
-__device__ __forceinline__ int scale_ac(int c, int qp, int i, int j) {
-  int ls = 16 * V[qp % 6][pos_class(i, j)], q = qp / 6;
-  return q >= 4 ? (c * ls) << (q - 4) : (c * ls + (1 << (3 - q))) >> (4 - q);
+// The 4x4 Hadamard of the luma lanes' values (lane = raster index) or the
+// 2x2 of each chroma component's four lanes, by shuffles over the warp.
+__device__ __forceinline__ int dc_transform(int v, bool luma) {
+  const int lane = threadIdx.x & 31, base = lane & ~3, j = lane & 3;
+  const int a = __shfl_sync(FULL, v, base), b = __shfl_sync(FULL, v, base + 1);
+  const int c = __shfl_sync(FULL, v, base + 2), d = __shfl_sync(FULL, v, base + 3);
+  const int row = had4(a, b, c, d, j), h2 = had2(a, b, c, d, j);
+  const int a2 = __shfl_sync(FULL, row, j), b2 = __shfl_sync(FULL, row, j + 4);
+  const int c2 = __shfl_sync(FULL, row, j + 8), d2 = __shfl_sync(FULL, row, j + 12);
+  return luma ? had4(a2, b2, c2, d2, (lane >> 2) & 3) : h2;
 }
 
-__device__ int nc_of(int na, int nb) {  // -1: not available
-  if (na >= 0 && nb >= 0) return (na + nb + 1) >> 1;
-  return na >= 0 ? na : (nb >= 0 ? nb : 0);
-}
-
-__global__ void __launch_bounds__(THREADS) h264_intra_kernel(const uint8_t* __restrict__ rgb, int H, int W,
-                                                             int mbh, int mbw, int first_index, int qp,
-                                                             uint32_t* __restrict__ out, int row_words,
-                                                             int* __restrict__ out_bits) {
-  extern __shared__ uint8_t smem[];
-  const int Wp = mbw * 16, Wc = mbw * 8;
-  uint8_t* Ys = smem;                // [16][Wp]
-  uint8_t* Cs = smem + 16 * Wp;      // [2][8][Wc]
-  __shared__ int wy[16][16];         // luma coefficients, block raster by * 4 + bx
-  __shared__ int wc[2][4][16];       // chroma coefficients, block raster by * 2 + bx
-  __shared__ int dcy[16], dcc[2][4];  // quantised DC levels (raster), then their reconstruction
-  __shared__ int recdcy[16], recdcc[2][4];
-  __shared__ uint8_t rec_y[256], rec_c[2][64];
-  __shared__ int nnz_y[16], nnz_c[2][4];
-  __shared__ int left_y[16], left_c[2][8], left_nnz_y[4], left_nnz_c[2][2];
-  __shared__ uint32_t seg_words[SEGS][SEG_WORDS];
-  __shared__ int seg_bits[SEGS], seg_off[SEGS];
-  __shared__ int red[THREADS / 32][4];
-  __shared__ int s_mode_h, s_cmode_h, s_dcy, s_dcc[2][2], s_cbp_luma, s_cbp_chroma, s_bad, s_escape;
-  __shared__ int s_pos, s_start, s_pcm_at;
-
-  const int t = threadIdx.x;
-  const int slice = blockIdx.x, frame = slice / mbh, row = slice % mbh;
-  uint32_t* rowp = out + (size_t)slice * row_words;
-  const int qpc = chroma_qp(qp);
-  const int qbits = 15 + qp / 6, qbits_c = 15 + qpc / 6;
-
-  // the row's words zeroed; its 16 pixel rows to Y'CbCr 4:2:0, edges repeated
-  for (int i = t; i < row_words; i += THREADS) rowp[i] = 0u;
-  const uint8_t* src = rgb + (size_t)frame * H * W * 3;
-  for (int q = t; q < 8 * Wc; q += THREADS) {
-    int qy = q / Wc, qx = q % Wc;
-    int rs = 0, gs = 0, bs = 0;
-    for (int dy = 0; dy < 2; ++dy)
-      for (int dx = 0; dx < 2; ++dx) {
-        int y = min(row * 16 + 2 * qy + dy, H - 1), x = min(2 * qx + dx, W - 1);
-        const uint8_t* p = src + ((size_t)y * W + x) * 3;
-        int r = p[0], g = p[1], b = p[2];
-        Ys[(2 * qy + dy) * Wp + 2 * qx + dx] = (uint8_t)(((66 * r + 129 * g + 25 * b + 128) >> 8) + 16);
-        rs += r;
-        gs += g;
-        bs += b;
-      }
-    Cs[qy * Wc + qx] = (uint8_t)(((-38 * rs - 74 * gs + 112 * bs + 512) >> 10) + 128);
-    Cs[8 * Wc + qy * Wc + qx] = (uint8_t)(((112 * rs - 94 * gs - 18 * bs + 512) >> 10) + 128);
-  }
-  __syncthreads();  // the row's words are zero before any bit is OR-ed in
-  if (t == 0) {
-    // slice_header(): first_mb_in_slice, slice_type 7, pps 0, frame_num 0,
-    // idr_pic_id, dec_ref_pic_marking, slice_qp_delta, deblocking off (1)
-    Bits b{seg_words[0], 0};
-    for (int i = 0; i < SEG_WORDS; ++i) seg_words[0][i] = 0u;
-    b.ue(row * mbw);
-    b.ue(7);
-    b.ue(0);
-    b.put(0, 4);
-    b.ue((first_index + frame) & 1);
-    b.put(0, 2);
-    int d = qp - 26;
-    b.ue(d > 0 ? 2 * d - 1 : -2 * d);
-    b.ue(1);
-    for (int i = 0; i * 32 < b.n; ++i) or_bits(rowp, 32 * i, seg_words[0][i]);
-    s_pos = b.n;
-    for (int i = 0; i < 4; ++i) left_nnz_y[i] = -1;
-    for (int i = 0; i < 4; ++i) left_nnz_c[i / 2][i % 2] = -1;
-  }
-  __syncthreads();
-
-  for (int mx = 0; mx < mbw; ++mx) {
-    // 1. prediction modes: SAD of DC against Horizontal from the left column
-    if (mx > 0) {
-      int sum = 0;
-      for (int i = 0; i < 16; ++i) sum += left_y[i];
-      const int dc = (sum + 8) >> 4;
-      int v[4] = {0, 0, 0, 0};
-      {
-        int y = t / 16, x = t % 16, s = Ys[y * Wp + 16 * mx + x];
-        v[0] = abs(s - dc);
-        v[1] = abs(s - left_y[y]);
-      }
-      if (t < 128) {
-        int c = t / 64, cy = (t % 64) / 8, cx = t % 8, h = (cy / 4) * 4;
-        int s = Cs[c * 8 * Wc + cy * Wc + 8 * mx + cx];
-        int cdc = (left_c[c][h] + left_c[c][h + 1] + left_c[c][h + 2] + left_c[c][h + 3] + 2) >> 2;
-        v[2] = abs(s - cdc);
-        v[3] = abs(s - left_c[c][cy]);
-      }
-      for (int k = 0; k < 4; ++k)
-        for (int o = 16; o > 0; o >>= 1) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
-      if (t % 32 == 0)
-        for (int k = 0; k < 4; ++k) red[t / 32][k] = v[k];
-      if (t == 0) {
-        s_dcy = dc;
-        for (int c = 0; c < 2; ++c)
-          for (int h = 0; h < 2; ++h)
-            s_dcc[c][h] = (left_c[c][4 * h] + left_c[c][4 * h + 1] + left_c[c][4 * h + 2] + left_c[c][4 * h + 3] + 2) >> 2;
-      }
-      __syncthreads();
-      if (t == 0) {
-        int s[4] = {0, 0, 0, 0};
-        for (int w = 0; w < THREADS / 32; ++w)
-          for (int k = 0; k < 4; ++k) s[k] += red[w][k];
-        s_mode_h = s[1] < s[0];
-        s_cmode_h = s[3] < s[2];
-      }
-    } else if (t == 0) {
-      s_mode_h = s_cmode_h = 0;
-      s_dcy = 128;
-      s_dcc[0][0] = s_dcc[0][1] = s_dcc[1][0] = s_dcc[1][1] = 128;
+// A bit writer at any bit of the row's big-endian words; words shared with
+// another segment are OR-ed in atomically.
+struct Writer {
+  uint32_t* w;
+  int word, n;   // the next word to write, the bits pending in acc
+  uint64_t acc;  // pending bits, left-aligned (the first n bits of word `word`)
+  __device__ Writer(uint32_t* words, int pos) : w(words), word(pos >> 5), n(pos & 31), acc(0) {}
+  __device__ void put(uint32_t v, int len) {  // the low len (1..32) bits of v
+    acc |= (uint64_t)v << (64 - n - len);
+    n += len;
+    if (n >= 32) {
+      atomicOr(w + word, (uint32_t)(acc >> 32));
+      ++word;
+      acc <<= 32;
+      n -= 32;
     }
-    __syncthreads();
-    const bool mode_h = s_mode_h, cmode_h = s_cmode_h;
+  }
+  __device__ void ue(uint32_t v) {
+    uint32_t code = v + 1;
+    int len = 32 - __clz(code);
+    put(code, 2 * len - 1);
+  }
+  __device__ int pos() const { return 32 * word + n; }
+  __device__ void finish() {
+    if (n > 0) atomicOr(w + word, (uint32_t)(acc >> 32));
+  }
+};
 
-    // 2. residual, forward transform, AC quantisation: a thread a 4x4 block
-    if (t < 24) {
-      int x[16];
-      if (t < 16) {
-        int by = t / 4, bx = t % 4;
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 4; ++j) {
-            int y = 4 * by + i;
-            int pred = mx == 0 ? 128 : (mode_h ? left_y[y] : s_dcy);
-            x[i * 4 + j] = Ys[y * Wp + 16 * mx + 4 * bx + j] - pred;
-          }
-      } else {
-        int c = (t - 16) / 4, k = (t - 16) % 4, by = k / 2, bx = k % 2;
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 4; ++j) {
-            int y = 4 * by + i;
-            int pred = mx == 0 ? 128 : (cmode_h ? left_c[c][y] : s_dcc[c][by]);
-            x[i * 4 + j] = Cs[c * 8 * Wc + y * Wc + 8 * mx + 4 * bx + j] - pred;
-          }
-      }
-      forward4x4(x);
-      const int q = t < 16 ? qp : qpc, qb = t < 16 ? qbits : qbits_c;
-      int* dst = t < 16 ? wy[t] : wc[(t - 16) / 4][(t - 16) % 4];
-      int n = 0;
-      dst[0] = x[0];  // the DC, quantised through the Hadamard below
-      for (int k = 1; k < 16; ++k) {
-        dst[k] = quant(x[k], MF[q % 6][pos_class(k / 4, k % 4)], qb, (1 << qb) / 3);
-        n += dst[k] != 0;
-      }
-      if (t < 16)
-        nnz_y[t] = n;
+// OR `v` (32 bits) into the row's words at bit `pos`.
+__device__ __forceinline__ void or_bits(uint32_t* row, int pos, uint32_t v) {
+  int q = pos >> 5, off = pos & 31;
+  atomicOr(row + q, v >> off);
+  if (off) atomicOr(row + q + 1, v << (32 - off));
+}
+
+// The bits of CAVLC residual_block() for levels c[0..max_coeff) in scan
+// order (registers: every index is a constant after unrolling); nc -1 is
+// the 4:2:0 chroma DC. `bad`: a level past Baseline's level_prefix <= 15
+// (the macroblock then takes the escape). No branch: the lanes of the warp
+// take different paths through the same positions, so each position's
+// terms are computed and selected; the run_before lookups do not wait on
+// one another.
+__device__ __forceinline__ int cavlc_len(const int (&c)[16], int max_coeff, int nc, const Tables& T, bool& bad) {
+  unsigned nzm = 0, ones = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    nzm |= (unsigned)(c[i] != 0) << i;
+    ones |= (unsigned)(c[i] == 1 || c[i] == -1) << i;
+  }
+  const int tc = __popc(nzm);
+  int t1 = 0;  // the trailing ones: the highest coefficients while they are +-1, at most three
+  unsigned m = nzm;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int p = (31 - __clz(m)) & 31;
+    const bool one = m != 0 && t1 == r && ((ones >> p) & 1);
+    t1 += one;
+    m ^= one ? 1u << p : 0u;
+  }
+  const int table = nc < 0 ? -1 : (nc < 2 ? 0 : (nc < 4 ? 1 : (nc < 8 ? 2 : 3)));
+  const uint8_t* tokens = table < 0 ? T.dc_len : T.tok_len[table < 0 ? 0 : table];
+  int len = tokens[tc * 4 + t1] + t1;  // coeff_token, the trailing ones' signs
+  const int total_zeros = 32 - __clz(nzm) - tc;
+  const bool tz = tc > 0 && tc < max_coeff;
+  len += tz ? (table < 0 ? T.dctz_len[tc - 1][total_zeros] : T.tz_len[tc - 1][total_zeros]) : 0;
+  const uint8_t* runs = &T.run_len[0][0];
+  int seen = 0, prev = 0, suffix = (tc > 10 && t1 < 3) ? 1 : 0;
+#pragma unroll
+  for (int i = 15; i >= 0; --i) {
+    const bool nz = (nzm >> i) & 1;
+    // level_prefix and level_suffix of a coefficient past the trailing ones
+    const int level = c[i];
+    const int code = (level > 0 ? 2 * level - 2 : -2 * level - 1) - (seen == t1 && t1 < 3 ? 2 : 0);
+    const int len0 = code < 14 ? code + 1 : (code < 30 ? 19 : 28);
+    const int lens = code < (15 << suffix) ? (code >> suffix) + 1 + suffix : 28;
+    const bool bad_code = suffix == 0 ? code >= 30 + 4096 : code - (15 << suffix) >= 4096;
+    const bool is_level = nz && seen >= t1;
+    len += is_level ? (suffix == 0 ? len0 : lens) : 0;
+    bad |= is_level && bad_code;
+    const int s1 = suffix == 0 ? 1 : suffix;
+    suffix = is_level ? ((abs(level) > (3 << (s1 - 1)) && s1 < 6) ? s1 + 1 : s1) : suffix;
+    // run_before of the previous coefficient, while zeros are left below it
+    const int zeros_left = prev - (tc - seen);
+    const bool is_run = nz && seen > 0 && zeros_left > 0;
+    len += is_run ? runs[((zeros_left < 7 ? zeros_left : 7) - 1) * 16 + prev - i - 1] : 0;
+    prev = nz ? i : prev;
+    seen += nz;
+  }
+  return len;
+}
+
+// CAVLC residual_block() of the chain's lane `src` of a macroblock whose
+// levels lie in L ([16][NBLK], slot 0 of each block the DC levels), read
+// from shared memory in scan order.
+__device__ void write_residual(Writer& wr, const Tables& T, const int16_t* L, int src, int nc) {
+  const bool ac = src < 24, luma_dc = src == 24;
+  const int max_coeff = ac ? 15 : (luma_dc ? 16 : 4);
+  auto level = [&](int i) -> int {
+    return ac ? L[T.zigzag[i + 1] * NBLK + src] : (luma_dc ? L[T.zigzag[i]] : L[16 + (src - 25) * 4 + i]);
+  };
+  unsigned nzm = 0, ones = 0;
+  for (int i = 0; i < max_coeff; ++i) {
+    const int v = level(i);
+    nzm |= (unsigned)(v != 0) << i;
+    ones |= (unsigned)(v == 1 || v == -1) << i;
+  }
+  const int tc = __popc(nzm);
+  int t1 = 0;
+  unsigned m = nzm;
+  while (t1 < 3 && m) {
+    const int p = 31 - __clz(m);
+    if (!((ones >> p) & 1)) break;
+    ++t1;
+    m ^= 1u << p;
+  }
+  const int table = nc < 0 ? -1 : (nc < 2 ? 0 : (nc < 4 ? 1 : (nc < 8 ? 2 : 3)));
+  const int idx = tc * 4 + t1;
+  if (table < 0)
+    wr.put(T.dc_bits[idx], T.dc_len[idx]);
+  else
+    wr.put(T.tok_bits[table][idx], T.tok_len[table][idx]);
+  if (tc == 0) return;
+  m = nzm;
+  for (int k = 0; k < t1; ++k) {
+    const int p = 31 - __clz(m);
+    wr.put(level(p) < 0 ? 1 : 0, 1);
+    m ^= 1u << p;
+  }
+  int suffix = (tc > 10 && t1 < 3) ? 1 : 0;
+  for (int k = t1; k < tc; ++k) {
+    const int p = 31 - __clz(m);
+    m ^= 1u << p;
+    const int lv = level(p);
+    int code = lv > 0 ? 2 * lv - 2 : -2 * lv - 1;
+    if (k == t1 && t1 < 3) code -= 2;
+    if (suffix == 0) {
+      if (code < 14)
+        wr.put(1, code + 1);
+      else if (code < 30)
+        wr.put((1u << 4) | (code - 14), 19);
       else
-        nnz_c[(t - 16) / 4][(t - 16) % 4] = n;
-    }
-    __syncthreads();
-
-    // 3. the DC transforms: luma by thread 0, each chroma component by 1, 2
-    if (t == 0) {
-      int d[16];
-      for (int k = 0; k < 16; ++k) d[k] = wy[k][0];
-      hadamard4(d);
-      for (int k = 0; k < 16; ++k) d[k] = quant(d[k] >> 1, MF[qp % 6][0], qbits + 1, (1 << (qbits + 1)) / 3);
-      for (int k = 0; k < 16; ++k) dcy[k] = d[k];
-      hadamard4(d);
-      const int ls = 16 * V[qp % 6][0], q6 = qp / 6;
-      for (int k = 0; k < 16; ++k)
-        recdcy[k] = q6 >= 6 ? (d[k] * ls) << (q6 - 6) : (d[k] * ls + (1 << (5 - q6))) >> (6 - q6);
-    } else if (t < 3) {
-      const int c = t - 1;
-      int d[4];
-      for (int k = 0; k < 4; ++k) d[k] = wc[c][k][0];
-      hadamard2(d);
-      for (int k = 0; k < 4; ++k) {
-        d[k] = quant(d[k], MF[qpc % 6][0], qbits_c + 1, (1 << (qbits_c + 1)) / 3);
-        dcc[c][k] = d[k];
-      }
-      hadamard2(d);
-      for (int k = 0; k < 4; ++k) recdcc[c][k] = ((d[k] * (16 * V[qpc % 6][0])) << (qpc / 6)) >> 5;
-    }
-    __syncthreads();
-    if (t == 0) {
-      int any_y = 0, any_cac = 0, any_cdc = 0;
-      for (int k = 0; k < 16; ++k) any_y |= nnz_y[k];
-      for (int k = 0; k < 8; ++k) {
-        any_cac |= nnz_c[k / 4][k % 4];
-        any_cdc |= dcc[k / 4][k % 4];
-      }
-      s_cbp_luma = any_y ? 15 : 0;
-      s_cbp_chroma = any_cac ? 2 : (any_cdc ? 1 : 0);
-      s_bad = 0;
-    }
-    __syncthreads();
-
-    // 4. reconstruction (threads 0..23) beside the CAVLC (threads 32..59)
-    if (t < 24) {
-      int d[16];
-      if (t < 16) {
-        int by = t / 4, bx = t % 4;
-        for (int k = 1; k < 16; ++k) d[k] = scale_ac(wy[t][k], qp, k / 4, k % 4);
-        d[0] = recdcy[t];
-        inverse4x4(d);
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 4; ++j) {
-            int y = 4 * by + i;
-            int pred = mx == 0 ? 128 : (mode_h ? left_y[y] : s_dcy);
-            rec_y[y * 16 + 4 * bx + j] = (uint8_t)clip255(pred + d[i * 4 + j]);
-          }
-      } else {
-        int c = (t - 16) / 4, k = (t - 16) % 4, by = k / 2, bx = k % 2;
-        for (int m = 1; m < 16; ++m) d[m] = scale_ac(wc[c][k][m], qpc, m / 4, m % 4);
-        d[0] = recdcc[c][k];
-        inverse4x4(d);
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 4; ++j) {
-            int y = 4 * by + i;
-            int pred = mx == 0 ? 128 : (cmode_h ? left_c[c][y] : s_dcc[c][by]);
-            rec_c[c][y * 8 + 4 * bx + j] = (uint8_t)clip255(pred + d[i * 4 + j]);
-          }
-      }
-    } else if (t >= 32 && t < 32 + SEGS) {
-      const int s = t - 32;
-      for (int i = 0; i < SEG_WORDS; ++i) seg_words[s][i] = 0u;
-      Bits b{seg_words[s], 0};
-      const int cbp_l = s_cbp_luma, cbp_c = s_cbp_chroma;
-      int c[16];
-      bool ok = true;
-      if (s == 0) {
-        b.ue(1 + (mode_h ? 1 : 2) + 4 * cbp_c + (cbp_l ? 12 : 0));
-        b.ue(cmode_h ? 1 : 0);
-        b.put(1, 1);  // mb_qp_delta 0
-      } else if (s == 1) {
-        for (int i = 0; i < 16; ++i) c[i] = dcy[ZIGZAG[i]];
-        ok = residual_block(b, c, 16, nc_of(mx > 0 ? left_nnz_y[0] : -1, -1));
-      } else if (s < 18) {
-        if (cbp_l) {
-          const int blk = s - 2, bx = BLK_X[blk], by = BLK_Y[blk];
-          for (int i = 0; i < 15; ++i) c[i] = wy[by * 4 + bx][ZIGZAG[i + 1]];
-          int na = bx > 0 ? nnz_y[by * 4 + bx - 1] : (mx > 0 ? left_nnz_y[by] : -1);
-          int nb = by > 0 ? nnz_y[(by - 1) * 4 + bx] : -1;
-          ok = residual_block(b, c, 15, nc_of(na, nb));
-        }
-      } else if (s < 20) {
-        if (cbp_c) {
-          for (int i = 0; i < 4; ++i) c[i] = dcc[s - 18][i];
-          ok = residual_block(b, c, 4, -1);
-        }
-      } else if (cbp_c == 2) {
-        const int cc = (s - 20) / 4, k = (s - 20) % 4, by = k / 2, bx = k % 2;
-        for (int i = 0; i < 15; ++i) c[i] = wc[cc][k][ZIGZAG[i + 1]];
-        int na = bx > 0 ? nnz_c[cc][by * 2] : (mx > 0 ? left_nnz_c[cc][by] : -1);
-        int nb = by > 0 ? nnz_c[cc][bx] : -1;
-        ok = residual_block(b, c, 15, nc_of(na, nb));
-      }
-      seg_bits[s] = b.n;
-      if (!ok) s_bad = 1;
-    }
-    __syncthreads();
-
-    // 5. the segments' offsets, and the I_PCM escape
-    if (t == 0) {
-      int total = 0;
-      for (int s = 0; s < SEGS; ++s) {
-        seg_off[s] = total;
-        total += seg_bits[s];
-      }
-      const int start = s_pos;
-      s_start = start;
-      s_escape = s_bad || total > PCM_BITS;
-      if (s_escape) {
-        s_pcm_at = (start + 9 + 7) / 8 * 8;
-        total = s_pcm_at + PCM_BITS - start;
-      }
-      s_pos = start + total;
-    }
-    __syncthreads();
-
-    // 6. the macroblock's bits into the row; the left column and totals
-    const bool esc = s_escape;
-    if (!esc) {
-      if (t < SEGS)
-        for (int i = 0; i * 32 < seg_bits[t]; ++i) or_bits(rowp, s_start + seg_off[t] + 32 * i, seg_words[t][i]);
+        wr.put((1u << 12) | (code - 30), 28);
+    } else if (code < (15 << suffix)) {
+      wr.put((1u << suffix) | (code & ((1 << suffix) - 1)), (code >> suffix) + 1 + suffix);
     } else {
-      if (t == 0) or_bits(rowp, s_start, 26u << 23);  // ue(25): 0000 11010
-      if (t < 96) {
-        uint32_t w = 0;
-        for (int k = 0; k < 4; ++k) {
-          int i = 4 * t + k, v;
-          if (i < 256)
-            v = Ys[(i / 16) * Wp + 16 * mx + i % 16];
-          else
-            v = Cs[((i - 256) / 64) * 8 * Wc + (((i - 256) % 64) / 8) * Wc + 8 * mx + (i - 256) % 8];
-          w = (w << 8) | (uint32_t)v;
-        }
-        or_bits(rowp, s_pcm_at + 32 * t, w);
+      wr.put((1u << 12) | (code - (15 << suffix)), 28);
+    }
+    if (suffix == 0) suffix = 1;
+    if (abs(lv) > (3 << (suffix - 1)) && suffix < 6) ++suffix;
+  }
+  const int total_zeros = 32 - __clz(nzm) - tc;
+  if (tc < max_coeff) {
+    if (table < 0)
+      wr.put(T.dctz_bits[tc - 1][total_zeros], T.dctz_len[tc - 1][total_zeros]);
+    else
+      wr.put(T.tz_bits[tc - 1][total_zeros], T.tz_len[tc - 1][total_zeros]);
+  }
+  int zeros_left = total_zeros;
+  m = nzm;
+  int p = 31 - __clz(m);
+  m ^= 1u << p;
+  for (int k = 0; k < tc - 1 && zeros_left > 0; ++k) {
+    const int q = 31 - __clz(m);
+    m ^= 1u << q;
+    const int run = p - q - 1, t = (zeros_left < 7 ? zeros_left : 7) - 1;
+    wr.put(T.run_bits[t][run], T.run_len[t][run]);
+    zeros_left -= run;
+    p = q;
+  }
+}
+
+struct Row {
+  const uint8_t* Y;  // [16][ys]
+  const uint8_t* C;  // [2][8][cs]
+  Slot* ring;        // macroblock mx in slot mx % RING
+  uint64_t* full;    // [RING]: the slot's macroblock handed over
+  uint64_t* empty;   // [RING]: and written
+  uint32_t* words;   // the slice's RBSP
+  int ys, cs, mbw;
+};
+
+// The chain: warp 0, a macroblock after another (see the file's comment).
+// `left`: shared [32], the left macroblock's reconstructed right column
+// (0..15 luma, 16..23 Cb, 24..31 Cr). Returns the slice's bits so far.
+__device__ int produce(const Row& r, const Tables& T, int* left, int qp, int qpc, int pos) {
+  const int lane = threadIdx.x & 31;
+  const bool luma = lane < 16, chroma = lane >= 16 && lane < 24, blk = lane < 24;
+  const int bx = luma ? (lane & 3) : ((lane - 16) & 1);
+  const int by = luma ? (lane >> 2) : (((lane - 16) >> 1) & 1);
+  const int cc = chroma ? (lane - 16) >> 2 : 0;
+  const int q = luma ? qp : qpc, q6 = q / 6, qb = 15 + q6;
+  const int mf0 = MF[q % 6][0], mf1 = MF[q % 6][1], mf2 = MF[q % 6][2];
+  const int ls0 = 16 * V[q % 6][0], ls1 = 16 * V[q % 6][1], ls2 = 16 * V[q % 6][2];
+  const int off_ac = (1 << qb) / 3, off_dc = (1 << (qb + 1)) / 3;
+  int* const lp = left + (luma ? 4 * by : 16 + 8 * cc + 4 * by);  // this block's four rows of the left column
+  // the SAD's pixels: luma row lane & 15, 8 pixels from 8 * (lane >> 4);
+  // chroma component lane >> 4, row (lane >> 1) & 7, 4 pixels from 4 * (lane & 1)
+  const int srow = lane & 15, shalf = lane >> 4, sc = lane >> 4, scy = (lane >> 1) & 7, schalf = lane & 1;
+  // this lane's 4x4 source block: luma rows 4 * by, chroma component cc rows 4 * by
+  const uint8_t* const bp = luma ? r.Y + 4 * by * r.ys + 4 * bx : r.C + (8 * cc + 4 * by) * r.cs + 4 * bx;
+  const int bstride = luma ? r.ys : r.cs, bstep = luma ? 16 : 8;
+  int left_nnz = -1;  // lanes of a row's first block: the left macroblock's AC count of that row's last block
+  for (int mx = 0; mx < r.mbw; ++mx) {
+    // stage transform: the source block's forward transform, before the mode is known (it is linear)
+    int w[16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t v = blk ? *reinterpret_cast<const uint32_t*>(bp + i * bstride + bstep * mx) : 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[i * 4 + j] = (v >> (8 * j)) & 255;
+    }
+    forward4x4(w);
+
+    // stage modes: SAD of DC against Horizontal from the left column
+    int dcy = 128, dcc = 128;
+    bool mode_h = false, cmode_h = false;
+    if (mx > 0) {
+      const int lv = left[lane];
+      dcy = (__reduce_add_sync(FULL, lane < 16 ? lv : 0) + 8) >> 4;
+      int s4 = lv + __shfl_xor_sync(FULL, lv, 1);
+      s4 += __shfl_xor_sync(FULL, s4, 2);
+      const int dq = (s4 + 2) >> 2;  // lanes 16 + 4 * (c * 2 + h): chroma DC prediction of rows 4h..4h+3
+      const int dcc_sad = __shfl_sync(FULL, dq, 16 + 4 * (sc * 2 + (scy >> 2)));
+      dcc = __shfl_sync(FULL, dq, 16 + 4 * (cc * 2 + by));
+      const uint32_t* yp = reinterpret_cast<const uint32_t*>(r.Y + srow * r.ys + 16 * mx + 8 * shalf);
+      const uint32_t a0 = yp[0], a1 = yp[1];
+      const uint32_t cp = *reinterpret_cast<const uint32_t*>(r.C + (sc * 8 + scy) * r.cs + 8 * mx + 4 * schalf);
+      const uint32_t ld = 0x01010101u * dcy, lh = 0x01010101u * left[srow];
+      const uint32_t cd = 0x01010101u * dcc_sad, ch = 0x01010101u * left[16 + 8 * sc + scy];
+      // SADs of at most 65,280 (luma) and 32,640 (chroma): DC in the low half, Horizontal in the high one
+      const unsigned sy =
+          __reduce_add_sync(FULL, (__vsadu4(a0, ld) + __vsadu4(a1, ld)) | ((__vsadu4(a0, lh) + __vsadu4(a1, lh)) << 16));
+      const unsigned sch = __reduce_add_sync(FULL, __vsadu4(cp, cd) | (__vsadu4(cp, ch) << 16));
+      mode_h = (sy >> 16) < (sy & 0xffffu);
+      cmode_h = (sch >> 16) < (sch & 0xffffu);
+    }
+    const bool hmode = luma ? mode_h : cmode_h;
+    const int dc_pred = mx == 0 ? 128 : (luma ? dcy : dcc);
+
+    // stage residual: the source's coefficients less the prediction's, the AC quantised
+    if (mx > 0 && hmode) {  // Horizontal: rows of constant left values, the first column only
+      int a = lp[0], b = lp[1], c = lp[2], d = lp[3];
+      fwd1(a, b, c, d);
+      w[0] -= 4 * a;
+      w[4] -= 4 * b;
+      w[8] -= 4 * c;
+      w[12] -= 4 * d;
+    } else {
+      w[0] -= blk ? 16 * dc_pred : 0;
+    }
+    int lev[16], nnz = 0;
+#pragma unroll
+    for (int k = 1; k < 16; ++k) {
+      const int cls = pos_class(k);
+      lev[k] = quant(w[k], cls == 0 ? mf0 : (cls == 1 ? mf1 : mf2), qb, off_ac);
+      nnz += lev[k] != 0;
+    }
+
+    // stage hadamard: the DC levels (luma lane = raster index, chroma 16 + c * 4 + k)
+    const int hd = dc_transform(w[0], luma);
+    lev[0] = quant(luma ? hd >> 1 : hd, mf0, qb + 1, off_dc);
+    Slot& slot = r.ring[mx % RING];
+    if (CONSUMERS > 0 && mx >= RING) mbar_wait(&r.empty[mx % RING], (mx / RING - 1) & 1);  // its last macroblock written
+    if (blk) {  // the levels, for the consumer
+#pragma unroll
+      for (int k = 0; k < 16; ++k) slot.lev[k][lane] = (int16_t)lev[k];
+    }
+
+    // stage cavlc: the coded block pattern, nC, and each segment's length
+    const bool any_luma = __any_sync(FULL, luma && nnz > 0);
+    const bool any_cac = __any_sync(FULL, chroma && nnz > 0);
+    const bool any_cdc = __any_sync(FULL, chroma && lev[0] != 0);
+    const int cbp_c = any_cac ? 2 : (any_cdc ? 1 : 0);
+    const int na = __shfl_sync(FULL, nnz, blk && bx > 0 ? lane - 1 : lane);
+    const int nb = __shfl_sync(FULL, nnz, blk && by > 0 ? lane - (luma ? 4 : 2) : lane);
+    const int left0 = __shfl_sync(FULL, left_nnz, 0);
+    const int nc = blk ? nc_of(bx > 0 ? na : left_nnz, by > 0 ? nb : -1) : (lane == 24 ? nc_of(left0, -1) : -1);
+    int c[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {  // the segment's levels in scan order: the DC lanes gather theirs
+      const int from = lane == 24 ? zigzag(i) : (lane == 25 ? 16 + (i & 3) : (lane == 26 ? 20 + (i & 3) : lane));
+      const int g = __shfl_sync(FULL, lev[0], from);
+      c[i] = blk ? (i < 15 ? lev[zigzag(i + 1)] : 0) : ((lane == 24 || (lane < 27 && i < 4)) ? g : 0);
+    }
+    const bool coded = luma ? any_luma
+                            : (chroma ? cbp_c == 2 : (lane == 24 || lane == 27 || (lane < 27 && cbp_c != 0)));
+    bool bad = false;
+    int len = 0;
+    if (lane == 27)
+      len = ue_len(1 + (mode_h ? 1 : 2) + 4 * cbp_c + (any_luma ? 12 : 0)) + ue_len(cmode_h ? 1 : 0) + 1;
+    else if (coded)
+      len = cavlc_len(c, blk ? 15 : (lane == 24 ? 16 : 4), nc, T, bad);
+    const int total = __reduce_add_sync(FULL, len);
+    const bool esc = __any_sync(FULL, bad) || total > PCM_BITS;
+
+    // stage recon: the right-hand column (luma bx 3, chroma bx 1) that the next macroblock predicts from
+    const int hdc = dc_transform(lev[0], luma);
+    const int rdc = luma ? (q6 >= 6 ? (hdc * ls0) << (q6 - 6) : (hdc * ls0 + (1 << (5 - q6))) >> (6 - q6))
+                         : ((hdc * ls0) << q6) >> 5;
+    const bool recon = blk && bx == (luma ? 3 : 1);
+    int col[4];
+    if (recon) {
+      int d[16];
+      d[0] = rdc;
+#pragma unroll
+      for (int k = 1; k < 16; ++k) {
+        const int cls = pos_class(k), ls = cls == 0 ? ls0 : (cls == 1 ? ls1 : ls2);
+        d[k] = q6 >= 4 ? (lev[k] * ls) << (q6 - 4) : (lev[k] * ls + (1 << (3 - q6))) >> (4 - q6);
+      }
+      int rr[4];  // the rows' inverse, element 3 only
+#pragma unroll
+      for (int i = 0; i < 4; ++i) rr[i] = (d[i * 4] + d[i * 4 + 2]) - (d[i * 4 + 1] + (d[i * 4 + 3] >> 1));
+      const int e0 = rr[0] + rr[2], e1 = rr[0] - rr[2], e2 = (rr[1] >> 1) - rr[3], e3 = rr[1] + (rr[3] >> 1);
+      const int res[4] = {e0 + e3, e1 + e2, e1 - e2, e0 - e3};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) col[i] = clip255((mx > 0 && hmode ? lp[i] : dc_pred) + ((res[i] + 32) >> 6));
+      if (esc) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          col[i] = luma ? r.Y[(4 * by + i) * r.ys + 16 * mx + 15] : r.C[(8 * cc + 4 * by + i) * r.cs + 8 * mx + 7];
       }
     }
-    if (t >= 128 && t < 144) {
-      int y = t - 128;
-      left_y[y] = esc ? Ys[y * Wp + 16 * mx + 15] : rec_y[y * 16 + 15];
-    } else if (t >= 160 && t < 176) {
-      int c = (t - 160) / 8, y = (t - 160) % 8;
-      left_c[c][y] = esc ? Cs[c * 8 * Wc + y * Wc + 8 * mx + 7] : rec_c[c][y * 8 + 7];
-    } else if (t == 192) {
-      for (int y = 0; y < 4; ++y) left_nnz_y[y] = esc ? 16 : nnz_y[y * 4 + 3];
-      for (int c = 0; c < 2; ++c)
-        for (int y = 0; y < 2; ++y) left_nnz_c[c][y] = esc ? 16 : nnz_c[c][y * 2 + 1];
-    }
-    __syncthreads();
-  }
 
-  // rbsp_slice_trailing_bits, then the words into the byte stream
-  if (t == 0) {
-    or_bits(rowp, s_pos, 1u << 31);
-    out_bits[slice] = (s_pos + 1 + 7) / 8 * 8;
+    // stage publish: the record, then the next macroblock's left column and counts
+    Meta& m = slot.meta;
+    m.len[lane] = (uint16_t)len;
+    m.nc[lane] = (int8_t)nc;
+    if (lane == 0) {
+      m.start = pos;
+      m.flags = (mode_h ? MODE_H : 0) | (cmode_h ? CMODE_H : 0) | (any_luma ? CBP_LUMA : 0) | (cbp_c << 3) |
+                (esc ? ESCAPE : 0);
+    }
+    const int right = __shfl_sync(FULL, nnz, blk && bx == 0 ? lane + (luma ? 3 : 1) : lane);
+    if (blk && bx == 0) left_nnz = esc ? 16 : right;
+    pos = esc ? ((pos + 9 + 7) & ~7) + PCM_BITS : pos + total;
+    __syncwarp();  // every lane has read the left column and written its part of the record
+    if (recon) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lp[i] = col[i];
+    }
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      mbar_arrive(&r.full[mx % RING]);
+    }
+  }
+  return pos;
+}
+
+// A consumer warp: writes macroblocks first, first + CONSUMERS, ...
+__device__ void consume(const Row& r, const Tables& T, int first) {
+  const int lane = threadIdx.x & 31;
+  for (int mx = first; mx < r.mbw; mx += CONSUMERS) {
+    const Slot& slot = r.ring[mx % RING];
+    mbar_wait(&r.full[mx % RING], (mx / RING) & 1);
+    const Meta& m = slot.meta;
+    const int flags = m.flags, start = m.start;
+    if (flags & ESCAPE) {  // mb_type 25 (ue: 0000 11010), the alignment, 384 samples
+      if (lane == 0) or_bits(r.words, start, 26u << 23);
+      const int at = (start + 9 + 7) & ~7;
+      for (int t = lane; t < 96; t += 32) {
+        uint32_t v;
+        if (t < 64) {
+          v = *reinterpret_cast<const uint32_t*>(r.Y + (t >> 2) * r.ys + 16 * mx + 4 * (t & 3));
+        } else {
+          const int u = t - 64;
+          v = *reinterpret_cast<const uint32_t*>(r.C + ((u >> 4) * 8 + ((u >> 1) & 7)) * r.cs + 8 * mx + 4 * (u & 1));
+        }
+        or_bits(r.words, at + 32 * t, __byte_perm(v, 0, 0x0123));
+      }
+    } else {
+      const int src = lane < SEGS ? T.seg_lane[lane] : 0;
+      const int len = lane < SEGS ? m.len[src] : 0;
+      int end = len;  // the segments' offsets: an inclusive scan in bitstream order
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(FULL, end, o);
+        if (lane >= o) end += v;
+      }
+      if (len > 0) {
+        Writer wr(r.words, start + end - len);
+        if (lane == 0) {
+          wr.ue(1 + ((flags & MODE_H) ? 1 : 2) + 4 * ((flags >> 3) & 3) + ((flags & CBP_LUMA) ? 12 : 0));
+          wr.ue((flags & CMODE_H) ? 1 : 0);
+          wr.put(1, 1);  // mb_qp_delta 0
+        } else {
+          write_residual(wr, T, &slot.lev[0][0], src, m.nc[src]);
+        }
+        wr.finish();
+      }
+    }
+    __syncwarp();  // every lane is done with the slot
+    if (lane == 0) mbar_arrive(&r.empty[mx % RING]);
+  }
+}
+
+// Block-wide exclusive scans (every thread calls them): the max (identity
+// -1) and the sum of `v`; `total` gets the whole block's.
+__device__ int block_exclusive_max(int v, int* scratch, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl = max(incl, u);
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  int before = -1, all = -1;
+  for (int w = 0; w < WARPS; ++w) {
+    if (w < warp) before = max(before, scratch[w]);
+    all = max(all, scratch[w]);
+  }
+  int ex = __shfl_up_sync(FULL, incl, 1);
+  __syncthreads();  // scratch is free again
+  total = all;
+  return lane == 0 ? before : max(before, ex);
+}
+__device__ int block_exclusive_sum(int v, int* scratch, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+  for (int w = 0; w < WARPS; ++w) {
+    if (w < warp) before += scratch[w];
+    all += scratch[w];
   }
   __syncthreads();
-  const int used = (s_pos + 1 + 31) / 32;
-  for (int i = t; i < used; i += THREADS) rowp[i] = __byte_perm(rowp[i], 0, 0x0123);
+  total = all;
+  return before + incl - v;
+}
+
+__device__ __forceinline__ void copy_table(uint8_t* dst, const uint8_t* src, int n) {
+  for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = src[i];
+}
+
+// SHARED_WORDS: the row's words and the staged unit in shared memory;
+// else the words at byte `words_at` of the block's row of `units` and the
+// unit written straight to the row's start.
+template <bool SHARED_WORDS>
+__global__ void __launch_bounds__(THREADS, 2)
+    h264_intra_kernel(const uint8_t* __restrict__ rgb, int H, int W, int mbh, int mbw, int first_index, int qp,
+                      int row_words, uint8_t* __restrict__ units, int unit_stride, int words_at,
+                      int* __restrict__ unit_bytes) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ Tables T;
+  __shared__ int left[32], scratch[WARPS], s_pos;
+  const Layout lay = layout(mbw, row_words, SHARED_WORDS);
+  const int slice = blockIdx.x, frame = slice / mbh, row = slice % mbh;
+  uint8_t* const unit = units + (size_t)slice * unit_stride;
+  Row r;
+  r.full = reinterpret_cast<uint64_t*>(smem + lay.full);
+  r.empty = reinterpret_cast<uint64_t*>(smem + lay.empty);
+  r.ring = reinterpret_cast<Slot*>(smem + lay.ring);
+  r.words = reinterpret_cast<uint32_t*>(SHARED_WORDS ? smem + lay.words : unit + words_at);
+  uint8_t* Ys = smem + lay.y;
+  uint8_t* Cs = smem + lay.c;
+  r.Y = Ys;
+  r.C = Cs;
+  r.ys = lay.ys;
+  r.cs = lay.cs;
+  r.mbw = mbw;
+  const int t = threadIdx.x, warp = t >> 5;
+  const int qpc = qp < 30 ? qp : QPC[qp - 30];
+
+  // stage prepass: tables, zeroed words, mbarriers, the pixels to Y'CbCr 4:2:0
+  copy_table(&T.tok_len[0][0], &TOKEN_LEN[0][0], sizeof(T.tok_len));
+  copy_table(&T.tok_bits[0][0], &TOKEN_BITS[0][0], sizeof(T.tok_bits));
+  copy_table(T.dc_len, DC_TOKEN_LEN, sizeof(T.dc_len));
+  copy_table(T.dc_bits, DC_TOKEN_BITS, sizeof(T.dc_bits));
+  copy_table(&T.tz_len[0][0], &TZ_LEN[0][0], sizeof(T.tz_len));
+  copy_table(&T.tz_bits[0][0], &TZ_BITS[0][0], sizeof(T.tz_bits));
+  copy_table(&T.dctz_len[0][0], &DC_TZ_LEN[0][0], sizeof(T.dctz_len));
+  copy_table(&T.dctz_bits[0][0], &DC_TZ_BITS[0][0], sizeof(T.dctz_bits));
+  copy_table(&T.run_len[0][0], &RUN_LEN[0][0], sizeof(T.run_len));
+  copy_table(&T.run_bits[0][0], &RUN_BITS[0][0], sizeof(T.run_bits));
+  copy_table(T.zigzag, ZIGZAG, sizeof(T.zigzag));
+  if (t < SEGS)  // header, luma DC, luma AC in luma4x4BlkIdx order, chroma DC, chroma AC
+    T.seg_lane[t] = t == 0 ? 27 : (t == 1 ? 24 : (t < 18 ? BLK_Y[t - 2] * 4 + BLK_X[t - 2] : (t < 20 ? t + 7 : t - 4)));
+  for (int i = t; i < row_words; i += THREADS) r.words[i] = 0u;
+  if (t < 2 * RING) mbar_init(&r.full[t]);  // full and empty: one array
+  const uint8_t* src = rgb + (size_t)frame * H * W * 3;
+  const int Wc = 8 * mbw;
+  for (int qd = t; qd < 8 * Wc; qd += THREADS) {
+    const int qy = qd / Wc, qx = qd % Wc;
+    int rs = 0, gs = 0, bs = 0;
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        const int y = min(row * 16 + 2 * qy + dy, H - 1), x = min(2 * qx + dx, W - 1);
+        const uint8_t* p = src + ((size_t)y * W + x) * 3;
+        const int cr = p[0], cg = p[1], cb = p[2];
+        Ys[(2 * qy + dy) * lay.ys + 2 * qx + dx] = (uint8_t)(((66 * cr + 129 * cg + 25 * cb + 128) >> 8) + 16);
+        rs += cr;
+        gs += cg;
+        bs += cb;
+      }
+    Cs[qy * lay.cs + qx] = (uint8_t)(((-38 * rs - 74 * gs + 112 * bs + 512) >> 10) + 128);
+    Cs[(8 + qy) * lay.cs + qx] = (uint8_t)(((112 * rs - 94 * gs - 18 * bs + 512) >> 10) + 128);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int pos = 0;
+    if (t == 0) {
+      // slice_header(): first_mb_in_slice, slice_type 7, pps 0, frame_num 0,
+      // idr_pic_id, dec_ref_pic_marking, slice_qp_delta, deblocking off (1)
+      Writer wr(r.words, 0);
+      wr.ue(row * mbw);
+      wr.ue(7);
+      wr.ue(0);
+      wr.put(0, 4);
+      wr.ue((first_index + frame) & 1);
+      wr.put(0, 2);
+      const int d = qp - 26;
+      wr.ue(d > 0 ? 2 * d - 1 : -2 * d);
+      wr.ue(1);
+      wr.finish();
+      pos = wr.pos();
+    }
+    pos = produce(r, T, left, qp, qpc, __shfl_sync(FULL, pos, 0));
+    if (t == 0) s_pos = pos;
+  } else if (warp <= CONSUMERS) {
+    consume(r, T, warp - 1);
+  }
+  __syncthreads();
+
+  // stage framing: the stop bit, then the NAL unit
+  if (t == 0) or_bits(r.words, s_pos, 1u << 31);  // rbsp_slice_trailing_bits
+  __syncthreads();
+  const int nbytes = (s_pos + 1 + 7) >> 3;
+  {
+    const uint32_t* words = r.words;
+    auto byte_at = [words](int j) -> int { return (words[j >> 2] >> (24 - 8 * (j & 3))) & 0xff; };
+    const int span = (nbytes + THREADS - 1) / THREADS;
+    const int lo = min(t * span, nbytes), hi = min(lo + span, nbytes);
+    int last = -1;
+    for (int j = lo; j < hi; ++j)
+      if (byte_at(j)) last = j;
+    int unused, inserted;
+    const int prev = block_exclusive_max(last, scratch, unused);  // -1: the NAL header byte, not zero
+    int ins = 0;
+    for (int j = lo, p = prev; j < hi; ++j) {
+      const int b = byte_at(j), zeros = j - p - 1;
+      ins += b <= 3 && zeros >= 2 && (zeros & 1) == 0;
+      if (b) p = j;
+    }
+    const int before = block_exclusive_sum(ins, scratch, inserted);
+    uint8_t* out = SHARED_WORDS ? smem + lay.ring : unit;  // the ring and the pixels are dead: staged there
+    for (int j = lo, p = prev, o = 5 + lo + before; j < hi; ++j) {
+      const int b = byte_at(j), zeros = j - p - 1;
+      if (b <= 3 && zeros >= 2 && (zeros & 1) == 0) out[o++] = 3;
+      out[o++] = (uint8_t)b;
+      if (b) p = j;
+    }
+    const int n = 1 + nbytes + inserted;  // the NAL unit's bytes: its header byte and the slice
+    if (t == 0) {
+      out[0] = (uint8_t)(n >> 24);
+      out[1] = (uint8_t)(n >> 16);
+      out[2] = (uint8_t)(n >> 8);
+      out[3] = (uint8_t)n;
+      out[4] = 0x65;  // nal_ref_idc 3, nal_unit_type 5 (IDR)
+    }
+    if (SHARED_WORDS) {
+      __syncthreads();
+      const uint4* s16 = reinterpret_cast<const uint4*>(out);
+      uint4* d16 = reinterpret_cast<uint4*>(unit);
+      for (int i = t; i < (4 + n + 15) / 16; i += THREADS) d16[i] = s16[i];
+    }
+    if (t == 0) unit_bytes[slice] = 4 + n;
+  }
+}
+
+// The dynamic shared memory a block of the SHARED_WORDS instantiation
+// may take on the current device, in `limit` (the card's opt-in maximum
+// less the kernel's static shared memory); returns a CUDA error.
+template <bool SHARED_WORDS>
+int smem_limit(int& limit) {
+  static int limits[64];  // per device (the same value whichever thread sets it)
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (limits[dev] == 0) {
+    int optin = 0;
+    cudaFuncAttributes attr;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, h264_intra_kernel<SHARED_WORDS>);
+    if (err != cudaSuccess) return (int)err;
+    limits[dev] = optin - (int)attr.sharedSizeBytes;
+  }
+  limit = limits[dev];
+  return 0;
+}
+
+template <bool SHARED_WORDS>
+int launch(const uint8_t* rgb, int B, int H, int W, int first_index, int qp, int row_words, uint8_t* units,
+           int unit_stride, int words_at, int* unit_bytes, cudaStream_t stream) {
+  static int allowed[64];  // per device: the most this kernel was allowed so far
+  const int mbh = (H + 15) / 16, mbw = (W + 15) / 16;
+  const int smem = layout(mbw, row_words, SHARED_WORDS).bytes;
+  int limit = 0, dev = 0;
+  int rc = smem_limit<SHARED_WORDS>(limit);
+  if (rc != 0) return rc;
+  if (smem > limit) return -2;
+  cudaGetDevice(&dev);
+  if (smem > allowed[dev]) {
+    cudaError_t err =
+        cudaFuncSetAttribute(h264_intra_kernel<SHARED_WORDS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed[dev] = smem;
+  }
+  h264_intra_kernel<SHARED_WORDS><<<B * mbh, THREADS, smem, stream>>>(rgb, H, W, mbh, mbw, first_index, qp, row_words,
+                                                                      units, unit_stride, words_at, unit_bytes);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// frames [B, H, W, 3] uint8 RGB (contiguous) -> out [B * mb_rows, row_words]
-// 32-bit words (each slice's RBSP as bytes, zero padded) and bits [B * mb_rows].
-int gfpp_h264_intra(const uint8_t* rgb, int B, int H, int W, int first_index, int qp, uint32_t* out,
-                    int row_words, int* bits, cudaStream_t stream) {
-  const int mbh = (H + 15) / 16, mbw = (W + 15) / 16;
-  const int smem = 24 * mbw * 16;
-  if (smem > 32 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(h264_intra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  h264_intra_kernel<<<B * mbh, THREADS, smem, stream>>>(rgb, H, W, mbh, mbw, first_index, qp, out, row_words, bits);
-  return (int)cudaGetLastError();
+// Where a block of frames W wide keeps its slice's words on the current
+// device: `*shared` 1 in shared memory, 0 in its row of `units` (which is
+// then the unit's bound and 4 * row_words bytes more). Returns a CUDA
+// error, or -2 where the pixels and the ring alone take more shared memory
+// than the card gives a block.
+int gfpp_h264_plan(int W, int row_words, int* shared) {
+  const int mbw = (W + 15) / 16;
+  int limit = 0;
+  int rc = smem_limit<true>(limit);
+  if (rc != 0) return rc;
+  *shared = layout(mbw, row_words, true).bytes <= limit;
+  if (*shared) return 0;
+  rc = smem_limit<false>(limit);
+  if (rc != 0) return rc;
+  return layout(mbw, row_words, false).bytes <= limit ? 0 : -2;
+}
+
+// frames [B, H, W, 3] uint8 RGB (contiguous) -> each slice's NAL unit as
+// the file holds it (4-byte AVCC length, header byte, emulation
+// prevention) at the start of its row of `units` ([B * mb_rows,
+// unit_stride], a multiple of 16 bytes; the bytes past the unit are not
+// specified) and its bytes [B * mb_rows]; `row_words` bounds a slice's RBSP
+// (data/h264.py:row_bytes / 4). `words_at` -1: the words in shared memory;
+// else their byte offset in each row of `units`, past the unit's bound
+// (gfpp_h264_plan says which). Returns a CUDA error, or -2 where the
+// layout takes more shared memory than the card gives a block.
+int gfpp_h264_intra(const uint8_t* rgb, int B, int H, int W, int first_index, int qp, int row_words,
+                    uint8_t* units, int unit_stride, int words_at, int* unit_bytes, cudaStream_t stream) {
+  return words_at < 0 ? launch<true>(rgb, B, H, W, first_index, qp, row_words, units, unit_stride, -1, unit_bytes,
+                                     stream)
+                      : launch<false>(rgb, B, H, W, first_index, qp, row_words, units, unit_stride, words_at,
+                                      unit_bytes, stream);
 }
 
 // The tables the kernel was built with, flattened as data/h264.py's
@@ -614,6 +948,8 @@ int gfpp_h264_tables(int* dst, int n) {
   cudaMemcpyFromSymbol(bx, BLK_X, sizeof(bx));
   cudaMemcpyFromSymbol(by, BLK_Y, sizeof(by));
   if (cudaGetLastError() != cudaSuccess) return -1;
+  for (int i = 0; i < 16; ++i)
+    if (zz[i] != zigzag(i)) return -1;  // the chain's constant-expression scan order
   int k = 0;
   auto put = [&](int x) {
     if (k < n) dst[k] = x;

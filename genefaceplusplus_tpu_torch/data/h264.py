@@ -17,10 +17,13 @@ The pixel stages of `encode_plain` run in PyTorch on [B, H, W, 3] uint8
 (on the tensor's device), the macroblocks of every row of every frame side
 by side and the columns one after another; the bit writer is plain Python
 over the levels. All arithmetic is integer: `ops/h264_encode.py`'s kernel
-(`csrc/h264_intra.cu`) writes the same bytes. Both give each slice's RBSP
-(slice header, macroblocks, trailing bits) in a row of `row_bytes` zero
-padded bytes and its length in bits; `access_units` adds the NAL header,
-emulation prevention and the 4-byte AVCC lengths on the host.
+(`csrc/h264_intra.cu`) writes the same bytes. `encode_plain` gives each
+slice's RBSP (slice header, macroblocks, trailing bits) in a row of
+`row_bytes` zero padded bytes and its length in bits; `access_units` adds
+the NAL header, emulation prevention and the 4-byte AVCC lengths, each
+frame's slices one after another. The kernel frames the slices itself and
+writes them in `frame_slices`' layout; `cavlc_bits` is the length-only
+CAVLC its macroblock chain counts.
 
 `decode_own` parses such access units with the SPS and PPS and rebuilds
 the picture as the standard's decoding process does (ITU-T H.264 8.3.1.2,
@@ -202,6 +205,48 @@ def residual_block(coeffs: Sequence[int], nc: int, max_coeff: int) -> Optional[s
     return "".join(parts)
 
 
+def cavlc_bits(coeffs: Sequence[int], nc: int, max_coeff: int) -> Optional[int]:
+    """The length in bits of `residual_block(coeffs, nc, max_coeff)`,
+    counted without writing it (what the kernel's chain counts to decide
+    the I_PCM escape): None where `residual_block` is None."""
+    nz = [i for i, c in enumerate(coeffs) if c]
+    tc = len(nz)
+    lens = CHROMA_DC_TOKEN_LEN if nc < 0 else COEFF_TOKEN_LEN[token_table(nc)]
+    if tc == 0:
+        return lens[0]
+    rev = [coeffs[i] for i in reversed(nz)]
+    t1 = 0
+    while t1 < 3 and t1 < tc and abs(rev[t1]) == 1:
+        t1 += 1
+    n = lens[tc * 4 + t1] + t1
+    suffix_len = 1 if tc > 10 and t1 < 3 else 0
+    for k in range(t1, tc):
+        level = rev[k]
+        code = (2 * level - 2 if level > 0 else -2 * level - 1) - (2 if k == t1 and t1 < 3 else 0)
+        if suffix_len == 0:
+            if code >= 30 + 4096:
+                return None
+            n += code + 1 if code < 14 else (19 if code < 30 else 28)
+        elif code < (15 << suffix_len):
+            n += (code >> suffix_len) + 1 + suffix_len
+        elif code - (15 << suffix_len) < 4096:
+            n += 28
+        else:
+            return None
+        suffix_len = max(suffix_len, 1)
+        if abs(level) > (3 << (suffix_len - 1)) and suffix_len < 6:
+            suffix_len += 1
+    total_zeros = nz[-1] + 1 - tc
+    if tc < max_coeff:
+        n += (CHROMA_DC_TOTAL_ZEROS_LEN if nc < 0 else TOTAL_ZEROS_LEN)[tc - 1][total_zeros]
+    for k in range(tc - 1):  # run_before while zeros are left below the coefficient
+        zeros_left = nz[tc - 1 - k] - (tc - 1 - k)
+        if zeros_left == 0:
+            break
+        n += RUN_BEFORE_LEN[min(zeros_left, 7) - 1][nz[tc - 1 - k] - nz[tc - 2 - k] - 1]
+    return n
+
+
 # ---------------------------------------------------------------------------
 # Colour: integer BT.601 limited range (swscale's matrix), 4:2:0 from the
 # sum of each 2x2 quad
@@ -331,6 +376,17 @@ def row_bytes(width: int) -> int:
     I_PCM bound and the trailing bits, in whole 32-bit words."""
     mbw = (width + 15) // 16
     return (HEADER_MAX_BITS + mbw * MB_MAX_BITS + 8 + 31) // 32 * 4
+
+
+def unit_bytes(width: int) -> int:
+    """The bytes of a row of `frame_slices`' output: the 4-byte AVCC length,
+    the NAL header byte and a slice of `row_bytes` whose emulation
+    prevention inserts at most one byte every two, in whole 16 bytes."""
+    return _unit_stride(row_bytes(width))
+
+
+def _unit_stride(rbsp_bytes: int) -> int:
+    return (5 + rbsp_bytes * 3 // 2 + 15) // 16 * 16
 
 
 def slice_header(first_mb: int, idr_pic_id: int, qp: int = QP) -> str:
@@ -569,6 +625,25 @@ def access_units(rows: torch.Tensor, bits: torch.Tensor, frames: int) -> List[by
             at += n
         out.append(b"".join(au))
     return out
+
+
+def frame_slices(rows: torch.Tensor, bits: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the kernel's framing: each slice's RBSP
+    (`rows`, `bits`: an encoder's output) as the NAL unit the file holds,
+    its 4-byte AVCC length, header byte and emulation-prevented bytes, at
+    the start of its row of `unit_bytes` (zeros past it), and each unit's
+    bytes (the length included): `access_units` is these, a frame's rows
+    one after another."""
+    nbytes = ((bits.to(torch.int64) + 7) // 8).tolist()
+    data = rows.cpu().numpy()
+    units = np.zeros((len(nbytes), _unit_stride(rows.shape[1])), np.uint8)
+    lengths = np.zeros(len(nbytes), np.int32)
+    for s, n in enumerate(nbytes):
+        unit = nal(NAL_IDR, data[s, :n].tobytes())
+        framed = np.frombuffer(len(unit).to_bytes(4, "big") + unit, np.uint8)
+        units[s, :len(framed)] = framed
+        lengths[s] = len(framed)
+    return torch.from_numpy(units).to(rows.device), torch.from_numpy(lengths).to(rows.device)
 
 
 def split_avcc(sample: bytes) -> List[bytes]:

@@ -49,6 +49,7 @@ import torch
 from genefaceplusplus_tpu_torch.data.audio import SAMPLE_RATE, pcm16
 from genefaceplusplus_tpu_torch.data.h264 import sps_pps
 from genefaceplusplus_tpu_torch.data.mp4 import Mp4Muxer
+from genefaceplusplus_tpu_torch.utils.device import resolve_device
 
 AVI_MAX_BYTES = 1 << 30  # the default segment size; AVI 1.0 readers stop at the first RIFF's 1 GiB
 SUPER_INDEX_ENTRIES = 256
@@ -73,9 +74,9 @@ def video_path(out_name: str) -> Tuple[str, str]:
     raise ValueError(f"{out_name!r}: the port writes H.264 mp4 or uncompressed AVI; name the output .mp4 or .avi")
 
 
-def video_writer(out_name: str, fps: int = 25, audio=None, device="cpu"):
+def video_writer(out_name: str, fps: int = 25, audio=None, device=None):
     """The writer of `video_path(out_name)`: an `Mp4Writer` encoding on
-    `device`, or a `StreamingVideoWriter`."""
+    `device` (the card unless named), or a `StreamingVideoWriter`."""
     path, kind = video_path(out_name)
     if kind == "mp4":
         return Mp4Writer(path, fps=fps, audio=audio, device=device)
@@ -324,12 +325,14 @@ class Mp4Writer:
     kernel for a CUDA tensor, so only the bitstream is copied to the host;
     the plain version for a CPU one); `append` takes [H, W, 3] host frames
     (uint8, or floats in [0, 1]) and sends them to `device` in chunks of
-    `MP4_CHUNK`. `close` writes the index and returns the path; the file
-    appears under its name only when closed."""
+    `MP4_CHUNK`: the card unless the caller names another device
+    (`resolve_device`). `close` writes the index and returns the path; the
+    file appears under its name only when closed."""
 
-    def __init__(self, path: str, fps: int = 25, audio=None, rate: int = SAMPLE_RATE, device="cpu"):
+    def __init__(self, path: str, fps: int = 25, audio=None, rate: int = SAMPLE_RATE, device=None):
+        self.device = resolve_device(device)
         self.muxer = Mp4Muxer(path, fps=fps, audio=audio, rate=rate)
-        self.path, self.fps, self.device = path, int(fps), torch.device(device)
+        self.path, self.fps = path, int(fps)
         self._pending: List[np.ndarray] = []
         self._shape = None
 

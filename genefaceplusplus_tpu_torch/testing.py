@@ -285,3 +285,29 @@ def write_hubert_snapshot(cache: str, model_name: str, config: Mapping, preproce
             json.dump(dict(content), f, indent=2)
     torch.save(reference_hubert_state(config, seed), os.path.join(snap, "pytorch_model.bin"))
     return snap
+
+
+EP_SEED, EP_QP = 33, 16  # found by a seeded search over small frames
+
+
+def emulation_prevention_frames() -> np.ndarray:
+    """Two 32^2 frames of black-and-white noise (seed EP_SEED) whose slices
+    at QP EP_QP hold `00 00 0x` three times: framing them inserts three
+    emulation-prevention bytes."""
+    return (np.random.RandomState(EP_SEED).randint(0, 2, (2, 32, 32, 3)) * 255).astype(np.uint8)
+
+
+WIDE = 4096  # past the 3,808 pixels whose slice words fit the kernel's shared memory on an H100
+
+
+def wide_frames(width: int = WIDE, seed: int = 4) -> np.ndarray:
+    """One 48 x `width` frame: smooth ramps (CAVLC macroblocks) with every
+    fourth macroblock column noise (the I_PCM escape at QP 4; coded at the
+    default QP)."""
+    rs = np.random.RandomState(seed)
+    y, x = np.mgrid[:48, :width]
+    f = np.stack([(x * 255 // max(width - 1, 1)), (y * 5 + x // 7) % 256, 128 + 60 * np.sin(x / 37.0 + y / 11.0)], -1)
+    f = f + rs.randint(-3, 4, f.shape)
+    noisy = (x // 16) % 4 == 3
+    f[noisy] = rs.randint(0, 256, (int(noisy.sum()), 3))
+    return np.clip(f, 0, 255).astype(np.uint8)[None]

@@ -1117,8 +1117,9 @@ def test_sr_fm_step_on_card_matches_cpu(cuda_setup):
 @pytest.mark.parametrize("shape,qp", [((3, 64, 96), 22), ((2, 136, 200), 22), ((2, 48, 64), 4)])
 def test_h264_intra_writes_the_plain_bytes(shape, qp):
     """The H.264 kernel's slices equal encode_plain's byte for byte (integer
-    arithmetic throughout), cropped sizes and the I_PCM escape included;
-    one launch counted per call."""
+    arithmetic throughout), cropped sizes and the I_PCM escape included: its
+    framed units, compacted and split by frame, equal access_units' of the
+    plain RBSPs; one launch counted per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     from genefaceplusplus_tpu_torch.data import h264
@@ -1127,7 +1128,28 @@ def test_h264_intra_writes_the_plain_bytes(shape, qp):
     frames = torch.from_numpy(np.random.RandomState(sum(shape)).randint(0, 256, shape + (3,)).astype(np.uint8))
     plain = h264.encode_plain(frames, 1, qp)
     before = he.h264_intra.launches
-    rows, bits = he.h264_intra(frames.cuda(), 1, qp)
+    units, lengths = he.h264_intra(frames.cuda(), 1, qp)
     torch.cuda.synchronize()
     assert he.h264_intra.launches == before + 1
-    assert torch.equal(rows.cpu(), plain.rows) and torch.equal(bits.cpu(), plain.bits)
+    assert he.split_access_units(he.copy_units(units, lengths), shape[0]) == \
+        h264.access_units(plain.rows, plain.bits, shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [4, 22])
+def test_h264_intra_takes_frames_past_shared_memory(qp):
+    """Frames WIDE (4,096) pixels wide, whose slice words do not fit the
+    kernel's shared memory: the kernel keeps them in each slice's row of the
+    output (the returned units a view of wider rows) and still writes
+    encode_plain's bytes, the I_PCM escape included at QP 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from genefaceplusplus_tpu_torch.data import h264
+    from genefaceplusplus_tpu_torch.ops import h264_encode as he
+    from genefaceplusplus_tpu_torch.testing import WIDE, wide_frames
+
+    frames = torch.from_numpy(wide_frames())
+    plain = h264.encode_plain(frames, 0, qp)
+    units, lengths = he.h264_intra(frames.cuda(), 0, qp)
+    assert units.shape == (3, h264.unit_bytes(WIDE)) and units.stride(0) > units.shape[1]
+    assert he.split_access_units(he.copy_units(units, lengths), 1) == h264.access_units(plain.rows, plain.bits, 1)

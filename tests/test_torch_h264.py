@@ -135,9 +135,12 @@ def test_idr_pic_id_alternates_and_first_index_counts():
     mbh = 2
     assert torch.equal(a.rows[mbh:], b.rows) and torch.equal(a.bits[mbh:], b.bits)
     assert not torch.equal(a.rows[:mbh], a.rows[mbh:])  # idr_pic_id 0 then 1 (and the pictures differ)
-    rows, bits = h264_encode.h264_intra(frames, 0)  # the CPU route is the plain version
-    assert torch.equal(rows, a.rows) and torch.equal(bits, a.bits)
-    assert rows.shape == (2 * mbh, h264.row_bytes(32)) and (bits % 8 == 0).all()
+    assert a.rows.shape == (2 * mbh, h264.row_bytes(32)) and (a.bits % 8 == 0).all()
+    units, lengths = h264_encode.h264_intra(frames, 0)  # the CPU route: the plain versions, the kernel's layout
+    want_units, want_lengths = h264.frame_slices(a.rows, a.bits)
+    assert torch.equal(units, want_units) and torch.equal(lengths, want_lengths)
+    assert units.shape == (2 * mbh, h264.unit_bytes(32))
+    assert h264_encode.encode_access_units(frames, 0) == h264.access_units(a.rows, a.bits, 2)
 
 
 def _cu_array(src: str, name: str) -> list:

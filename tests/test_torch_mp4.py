@@ -28,6 +28,7 @@ from genefaceplusplus_tpu_torch.data.audio import pcm16
 from genefaceplusplus_tpu_torch.data.mp4 import mp4_bytes, read_mp4, read_mp4_track
 from genefaceplusplus_tpu_torch.data.synthetic_face import synthetic_face
 from genefaceplusplus_tpu_torch.data.video import Mp4Writer, StreamingVideoWriter, video_writer
+from genefaceplusplus_tpu_torch.utils import device as device_mod
 
 MIN_LUMA_PSNR = 40.0  # dB, the port's decoded luma vs the source's, at the default QP
 
@@ -55,7 +56,7 @@ def test_round_trip(tmp_path, n_samples):
     rs = np.random.RandomState(n_samples % 97)
     frames = rs.randint(0, 256, (7, 32, 48, 3)).astype(np.uint8)
     wav = (rs.randn(n_samples) * 0.5).astype(np.float32)
-    writer = Mp4Writer(str(tmp_path / "v.mp4"), audio=wav)
+    writer = Mp4Writer(str(tmp_path / "v.mp4"), audio=wav, device="cpu")
     writer.append_chunk(torch.from_numpy(frames[:3]))  # chunks of 3 and 2 frames, then 2 host frames
     writer.append_chunk(torch.from_numpy(frames[3:5]))
     for f in frames[5:]:
@@ -75,16 +76,16 @@ def test_round_trip(tmp_path, n_samples):
 
 
 def test_names_chunks_and_limits(tmp_path):
-    assert isinstance(video_writer(str(tmp_path / "a.MP4")), Mp4Writer)
+    assert isinstance(video_writer(str(tmp_path / "a.MP4"), device="cpu"), Mp4Writer)
     assert isinstance(video_writer(str(tmp_path / "a.avi")), StreamingVideoWriter)
-    writer = Mp4Writer(str(tmp_path / "c.mp4"))
+    writer = Mp4Writer(str(tmp_path / "c.mp4"), device="cpu")
     writer.append_chunk(torch.zeros((2, 16, 16, 3), dtype=torch.uint8))
     with pytest.raises(ValueError, match="the video"):
         writer.append_chunk(torch.zeros((1, 32, 16, 3), dtype=torch.uint8))
     assert writer.close() == str(tmp_path / "c.mp4")
     assert len(read_mp4_track(str(tmp_path / "c.mp4")).samples) == 2
     with pytest.raises(ValueError, match="no frames"):
-        Mp4Writer(str(tmp_path / "d.mp4")).close()
+        Mp4Writer(str(tmp_path / "d.mp4"), device="cpu").close()
     with pytest.raises(ValueError, match="32-bit"):
         mp4_bytes(2 ** 32 // 512 + 1, 16, 16)
     with pytest.raises(ValueError, match="32-bit"):
@@ -93,6 +94,24 @@ def test_names_chunks_and_limits(tmp_path):
         mp4_bytes(10, 15, 16)
     # a 512^2 frame at its I_PCM bound, and 4 s of audio: the bound holds the clip's size
     assert 100 * 384 * 1024 < mp4_bytes(100, 512, 512, 64000) < 100 * 384 * 1024 * 3 // 2 + 2 ** 20
+
+
+def test_writer_device_defaults_to_the_card(tmp_path, monkeypatch):
+    """With no device named the writers resolve it as `resolve_device(None)`
+    does: the card, or the port's "no CUDA device" error; never the CPU."""
+    if torch.cuda.is_available():
+        want = device_mod.resolve_device(None)
+        assert Mp4Writer(str(tmp_path / "a.mp4")).device == want
+        assert video_writer(str(tmp_path / "b.mp4")).device == want
+    else:
+        for make in (lambda: Mp4Writer(str(tmp_path / "a.mp4")), lambda: video_writer(str(tmp_path / "b.mp4"))):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    monkeypatch.setattr(device_mod.torch.cuda, "is_available", lambda: True)  # as on a machine with a card
+    assert Mp4Writer(str(tmp_path / "c.mp4")).device == device_mod.resolve_device(None) == torch.device("cuda")
+    assert video_writer(str(tmp_path / "d.mp4")).device == torch.device("cuda")
+    assert isinstance(video_writer(str(tmp_path / "e.avi")), StreamingVideoWriter)  # the AVI encodes nothing
+    assert os.listdir(tmp_path) == []  # no file until the first chunk
 
 
 def test_writes_as_jax_does(tmp_path):
@@ -109,7 +128,7 @@ def test_writes_as_jax_does(tmp_path):
     j_audio.save_wav_16k(wav, str(tmp_path / "jax_audio.wav"))
     j_out = j_video.mux_audio(str(tmp_path / "jax_novoice.mp4"), str(tmp_path / "jax_audio.wav"),
                               str(tmp_path / "jax.mp4"), remove_wav=True)
-    writer = Mp4Writer(str(tmp_path / "port.mp4"), fps=25, audio=wav)
+    writer = Mp4Writer(str(tmp_path / "port.mp4"), fps=25, audio=wav, device="cpu")
     for f in frames:
         writer.append(f)
     t_out = writer.close()
