@@ -268,7 +268,10 @@ Phases (any failure exits non-zero, and no result line is printed):
               audio2secc with and without it, ms a frame)
   onboard     a new identity from video to served frames without JAX: a
               512^2 synthetic identity (data/synthetic_face.py, ONBOARD_FRAMES
-              frames) written as the port's AVI
+              frames) written as raw/videos/Onboard.mp4 by the port's
+              Mp4Writer on the card (h264_intra), which the frames step
+              decodes on the host (csrc/h264_decode.cpp; its first and last
+              frames equal decode_own's and the encoder's reconstruction),
               with a voiced aud.wav, segmaps/ from the render's own head and
               torso masks and lms_2d.npy from its 68 landmarks (mediapipe is
               absent); data/process.py's frames, audio, segment, fit (on the
@@ -288,7 +291,10 @@ Phases (any failure exits non-zero, and no result line is printed):
               the plain frame bit for bit, one B1 launch a frame; --debug
               again to an mp4 (the panels uploaded and encoded on the card,
               its samples equal to the kernel's encode of the AVI's panels);
-              each step's wall
+              each step's wall; then the H.264 decode reading: host ms a
+              512^2 frame of the port's own 100-frame mp4 and of
+              tools/h264_streams.py's seeded CABAC B stream (I P B B), whose
+              luma digest must equal FFmpeg's (DIGEST_LUMA_SHA256)
   fit         the 3DMM fit at a real identity's size (FIT_T = 6,000 frames, a
               4-minute video, x FIT_K = 468 mediapipe key points on the
               stand-in basis, 200 + 200 iterations) on the card: wall, ms an
@@ -556,6 +562,7 @@ def ptxas_report(lib) -> list:
 
 
 def phase_build():
+    from genefaceplusplus_tpu_torch.data import h264_decode as hd
     from genefaceplusplus_tpu_torch.ops import fused_field as ff
     from genefaceplusplus_tpu_torch.ops import h264_encode as he
     from genefaceplusplus_tpu_torch.utils.build import compile_libraries
@@ -566,8 +573,11 @@ def phase_build():
     nvcc = ff._find_nvcc("the kernels")
     jobs = {ff._library_path(name): [nvcc, *ff.NVCC_FLAGS, str(src)] for name, src in ff.SOURCES.items()}
     jobs[he.library_path()] = [nvcc, *ff.NVCC_FLAGS, str(he.SOURCE)]
-    compile_libraries(jobs, keep_log=True)  # one nvcc a source, all started together
-    print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.2f} s")
+    decoder, cmd = hd.decoder_job()  # the host H.264 decoder (onboard), compiled beside the kernels
+    jobs[decoder] = cmd
+    compile_libraries(jobs, keep_log=True)  # one compiler a source, all started together
+    print(f"[build] {len(libs)} kernels and the host H.264 decoder ({decoder.name}) in "
+          f"{time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
         print(f"[build] {name}: {lib.relative_to(os.getcwd()) if lib.is_relative_to(os.getcwd()) else lib}")
         for line in ptxas_report(lib):
@@ -5009,20 +5019,21 @@ FIT_ORDER_K, FIT_FLOOR = 4.0, 1e-6
 FIT_T, FIT_K, FIT_CPU_ITERS, FIT_SLICE, FIT_PROFILE_ITERS = 6000, 468, 20, 250, 10
 
 
-def onboard_identity(data: str, vid: str) -> dict:
+def onboard_identity(data: str, vid: str, dev) -> dict:
     """The raw video and the precomputed inputs mediapipe would give:
-    raw/videos/<vid>.avi, processed/videos/<vid>/{aud.wav, segmaps/*.png,
-    lms_2d.npy}. Returns the synthetic identity's dict."""
+    raw/videos/<vid>.mp4 (H.264 written by the port's Mp4Writer on `dev`),
+    processed/videos/<vid>/{aud.wav, segmaps/*.png, lms_2d.npy}. Returns the
+    synthetic identity's dict."""
     from genefaceplusplus_tpu_torch.data.audio import save_wav_16k
     from genefaceplusplus_tpu_torch.data.image_io import write_png
     from genefaceplusplus_tpu_torch.data.segmenter import encode_segmap_image, onehot_from_categories
     from genefaceplusplus_tpu_torch.data.synthetic_face import synthetic_face
-    from genefaceplusplus_tpu_torch.data.video import StreamingVideoWriter
+    from genefaceplusplus_tpu_torch.data.video import Mp4Writer
 
     ds = synthetic_face(num_frames=ONBOARD_FRAMES, size=SIZE, seed=5, head_masks=True)
     samples = ds["train_samples"] + ds["val_samples"]
     os.makedirs(os.path.join(data, "raw", "videos"))
-    writer = StreamingVideoWriter(os.path.join(data, "raw", "videos", f"{vid}.avi"), fps=25)
+    writer = Mp4Writer(os.path.join(data, "raw", "videos", f"{vid}.mp4"), fps=25, device=dev)
     for s in samples:
         writer.append(s["gt_img"])
     writer.close()
@@ -5040,6 +5051,73 @@ def onboard_identity(data: str, vid: str) -> dict:
         write_png(os.path.join(proc, "segmaps", f"{i:08d}.png"), encode_segmap_image(onehot_from_categories(cat)))
     np.save(os.path.join(proc, "lms_2d.npy"), (np.stack([s["lms"] for s in samples]) * SIZE).astype(np.float32))
     return ds
+
+
+def camera_mp4_check(path: str, ds: dict, dev) -> None:
+    """The onboarded mp4 as the frames step read it (data/mp4.py:read_mp4_frames,
+    the host decoder): ONBOARD_FRAMES frames, and the first and the last
+    equal to decode_own's and to the encoder's reconstruction (h264.encode_plain
+    of the same frames on `dev`), all three planes."""
+    from genefaceplusplus_tpu_torch.data import h264
+    from genefaceplusplus_tpu_torch.data.mp4 import read_mp4_frames, read_mp4_track
+
+    decoded = list(read_mp4_frames(path))
+    check(len(decoded) == ONBOARD_FRAMES, f"onboard: {path} decodes to {len(decoded)} frames")
+    track = read_mp4_track(path)
+    samples = ds["train_samples"] + ds["val_samples"]
+    picks = (0, ONBOARD_FRAMES - 1)
+    enc = h264.encode_plain(torch.from_numpy(np.stack([samples[i]["gt_img"] for i in picks])).to(dev), 0)
+    for k, i in enumerate(picks):
+        own = h264.decode_own(track.samples[i], track.sps, track.pps)
+        for c, (mine, theirs) in enumerate(((decoded[i].y, own.y), (decoded[i].cb, own.cb), (decoded[i].cr, own.cr))):
+            h, w = mine.shape
+            check(np.array_equal(mine, theirs), f"onboard: frame {i} plane {c} differs from decode_own's")
+            check(np.array_equal(mine, enc.recon[c][k, :h, :w].cpu().numpy()),
+                  f"onboard: frame {i} plane {c} differs from the encoder's reconstruction")
+    print(f"[onboard] {os.path.basename(path)}: {len(decoded)} frames decoded on the host "
+          "(csrc/h264_decode.cpp); frames 0 and the last equal decode_own's and the encoder's reconstruction, "
+          "Y, Cb and Cr")
+
+
+def h264_decode_reading(dev, root: str, ds: dict) -> dict:
+    """Host ms a frame of the H.264 decoder (read_mp4_frames: demux, decode,
+    nothing more) at 512^2: the port's own 100-frame mp4 (the onboarded
+    frames again, written by Mp4Writer on `dev`) and tools/h264_streams.py's
+    seeded CABAC B stream (I P B B, 4 frames), whose luma digest is held to
+    DIGEST_LUMA_SHA256 (FFmpeg's, tests/test_torch_h264_decode.py)."""
+    from genefaceplusplus_tpu_torch.data.mp4 import read_mp4_frames
+    from genefaceplusplus_tpu_torch.data.video import Mp4Writer
+    from genefaceplusplus_tpu_torch.tools import h264_streams as hs
+
+    samples = ds["train_samples"] + ds["val_samples"]
+    own = os.path.join(root, "own100.mp4")
+    writer = Mp4Writer(own, fps=25, device=dev)
+    for i in range(100):
+        writer.append(samples[i % len(samples)]["gt_img"])
+    writer.close()
+    t0 = time.perf_counter()
+    n_own = sum(1 for _ in read_mp4_frames(own))
+    own_ms = (time.perf_counter() - t0) * 1e3 / max(n_own, 1)
+    cabac = os.path.join(root, "cabac_b.mp4")
+    t0 = time.perf_counter()
+    hs.write_stream(hs.DIGEST_SPEC, cabac, hs.DIGEST_SEED)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = list(read_mp4_frames(cabac))
+    cabac_ms = (time.perf_counter() - t0) * 1e3 / max(len(frames), 1)
+    digest = hs.luma_digest(f.y for f in frames)
+    check(n_own == 100 and len(frames) == 4, f"decode: {n_own} and {len(frames)} frames")
+    check(digest == hs.DIGEST_LUMA_SHA256, f"decode: the CABAC B stream's luma digest {digest} is not FFmpeg's "
+                                           f"{hs.DIGEST_LUMA_SHA256}")
+    import platform
+
+    cpu = next((line.split(":", 1)[1].strip() for line in open("/proc/cpuinfo") if line.startswith("model name")),
+               platform.processor() if platform.processor() not in ("", "unknown") else platform.machine())
+    print(f"[decode] {card_line()}; host {cpu}, {os.cpu_count()} cores: 512^2 H.264 on the host, "
+          f"{own_ms:.2f} ms a frame for the port's own 100-frame mp4 (CAVLC intra), {cabac_ms:.2f} ms a frame for "
+          f"the seeded CABAC B stream (I P B B, written in {write_s:.1f} s by tools/h264_streams.py), its luma digest "
+          "equal to FFmpeg's")
+    return {"own_ms": own_ms, "cabac_ms": cabac_ms}
 
 
 def fit_distances(fit, ref, helper) -> dict:
@@ -5118,7 +5196,7 @@ def phase_onboard(dev) -> tuple:
     try:
         data, vid = os.path.join(root, "data"), "Onboard"
         t0 = time.perf_counter()
-        ds = onboard_identity(data, vid)
+        ds = onboard_identity(data, vid, dev)
         walls["identity"] = time.perf_counter() - t0
         proc = os.path.join(data, "processed", "videos", vid)
 
@@ -5152,6 +5230,9 @@ def phase_onboard(dev) -> tuple:
         for f in ("bg.jpg", "coeff_fit_mp.npy", "lms_2d.npy", "aud_mel_f0.npy"):
             check(os.path.exists(os.path.join(proc, f)), f"onboard: {f} missing")
         h264_launches = he.h264_intra.launches
+        t0 = time.perf_counter()
+        camera_mp4_check(os.path.join(data, "raw", "videos", f"{vid}.mp4"), ds, dev)
+        walls["decode check"] = time.perf_counter() - t0
         fit_video = read_mp4_track(os.path.join(proc, "debug_fit.mp4"))
         debug_shape = (len(fit_video.samples), fit_video.height, fit_video.width)
         check(debug_shape == (T, SIZE, 2 * SIZE), f"onboard: debug_fit.mp4 {debug_shape}")
@@ -5270,6 +5351,9 @@ def phase_onboard(dev) -> tuple:
               f"{int(debug[:, :, 2 * SIZE:].any(-1).sum()) / ONBOARD_SERVE_FRAMES:.0f}), "
               f"{launches} fused_field launches; to an mp4 with --debug ({walls['serve debug mp4']:.1f} s) its samples "
               f"equal to the kernel's encode of the AVI's panels, {n_h264} h264_intra launch")
+        t0 = time.perf_counter()
+        h264_decode_reading(dev, root, ds)
+        walls["decode reading"] = time.perf_counter() - t0
         del ds
     finally:
         os.chdir(cwd)

@@ -11,12 +11,11 @@ The steps of the reference's run.sh, each resumable: frames, audio, segment
 check video), binarize; `background` is the segmentation-free fallback.
 `main` prints and returns each step's wall time.
 
-Where the JAX package reads `raw/videos/<id>.mp4` with cv2, this reads the
-port's AVI, `raw/videos/<id>.avi` (`data/video.py:read_avi`); an .mp4
-raises NotImplementedError (a camera's mp4 needs a general H.264 decoder,
-which neither machine has and the port does not write: ROADMAP.md queue A
-item 11; `data/h264.py:decode_own` reads only the port's own subset). mediapipe (landmarks, segmentation) is absent: those steps take
-precomputed `lms_2d.npy` and `segmaps/*.png` as JAX's do. The audio step
+The video is `raw/videos/<id>.mp4`, as JAX's (the port's own `.avi` is
+taken where no mp4 is there): H.264 in mp4 or QuickTime, decoded on the
+host (`data/video.py:read_video`), where JAX decodes with cv2. mediapipe
+(landmarks, segmentation) is absent: those steps take precomputed
+`lms_2d.npy` and `segmaps/*.png` as JAX's do. The audio step
 writes `aud_hubert.npy` with the port's HuBERT on `--device` where a local
 snapshot is found (`data/audio.py`), and otherwise asks for the file.
 """
@@ -35,22 +34,18 @@ from genefaceplusplus_tpu_torch.data.image_io import read_image, write_jpeg
 
 def step_frames(video_path: str, out_dir: str, size: int = 512, fps: int = 25) -> int:
     """Decode, resize to size x size and write gt_imgs/<i>.jpg (cv2.imwrite's
-    JPEG). Returns the frame count."""
+    JPEG), each frame as it is decoded. Returns the frame count."""
     from genefaceplusplus_tpu_torch.data.dataset import resize_bilinear
-    from genefaceplusplus_tpu_torch.data.video import read_avi
+    from genefaceplusplus_tpu_torch.data.video import read_video
 
-    if not video_path.lower().endswith(".avi"):
-        raise NotImplementedError(
-            f"{video_path}: the port decodes only its own uncompressed AVI (data/video.py); a camera's mp4 "
-            "needs a general H.264 decoder (High profile, CABAC, inter prediction, deblocking) that neither "
-            "machine has (ROADMAP.md queue A item 11). Convert the video to raw/videos/<id>.avi first")
     os.makedirs(os.path.join(out_dir, "gt_imgs"), exist_ok=True)
-    frames, _ = read_avi(video_path)
-    for i, frame in enumerate(frames):
+    n = 0
+    for frame in read_video(video_path):
         if frame.shape[:2] != (size, size):  # where cv2.resize's INTER_LINEAR samples; a copy at size
             frame = np.clip(np.round(resize_bilinear(frame, size, size)), 0, 255).astype(np.uint8)
-        write_jpeg(os.path.join(out_dir, "gt_imgs", f"{i:08d}.jpg"), frame)
-    return len(frames)
+        write_jpeg(os.path.join(out_dir, "gt_imgs", f"{n:08d}.jpg"), frame)
+        n += 1
+    return n
 
 
 def step_audio(out_dir: str, device=None) -> None:
@@ -214,9 +209,9 @@ def main(argv=None) -> Dict[str, float]:
                    help="torch device of HuBERT and the fit (default: the CUDA card; 'cpu' to run on the CPU)")
     args = p.parse_args(argv)
 
-    raw = os.path.join(args.data_dir, "raw/videos", f"{args.video_id}.avi")
-    if not os.path.exists(raw):  # JAX's name: refused by step_frames
-        raw = os.path.join(args.data_dir, "raw/videos", f"{args.video_id}.mp4")
+    raw = os.path.join(args.data_dir, "raw/videos", f"{args.video_id}.mp4")
+    if not os.path.exists(raw):  # the port's own AVI
+        raw = os.path.join(args.data_dir, "raw/videos", f"{args.video_id}.avi")
     out_dir = os.path.join(args.data_dir, "processed/videos", args.video_id)
     binary_out = os.path.join(args.data_dir, "binary/videos", args.video_id, "trainval_dataset.npy")
     os.makedirs(out_dir, exist_ok=True)

@@ -34,6 +34,11 @@ first chunk past the capacity is written.
 
 Frames and samples are stored as they are: `read_avi` gives them back bit
 for bit. `avi_bytes` gives a file's size before it is rendered.
+
+`read_video` reads a video by its first bytes, not its name: the AVI
+above, or H.264 in an mp4 or QuickTime file (a camera's, a phone's,
+libx264's or the port's own), decoded on the host by `csrc/h264_decode.cpp`
+(`data/mp4.py:read_mp4_frames`) into the RGB that cv2 gives JAX.
 """
 
 from __future__ import annotations
@@ -475,3 +480,25 @@ def _read_avi(mm, path: str) -> Tuple[np.ndarray, np.ndarray]:
         if len(pcm) != length:
             raise ValueError(f"{path}: {len(pcm)} samples for a stream of {length}")
     return frames, pcm
+
+
+_MP4_BOXES = (b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"uuid")
+
+
+def read_video(path: str) -> Iterator[np.ndarray]:
+    """Each frame [H, W, 3] uint8 RGB of a video, in output order, as it is
+    decoded: a RIFF AVI (`read_avi`) or an mp4 / QuickTime file by the
+    file's first bytes. Raises ValueError for any other file,
+    NotImplementedError naming what the mp4 reader does not take."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+        yield from read_avi(path)[0]
+    elif head[4:8] in _MP4_BOXES:
+        from genefaceplusplus_tpu_torch.data.h264_decode import to_rgb
+        from genefaceplusplus_tpu_torch.data.mp4 import read_mp4_frames
+
+        for frame in read_mp4_frames(path):
+            yield to_rgb(frame)
+    else:
+        raise ValueError(f"{path}: neither a RIFF AVI nor an mp4 or QuickTime file (its first bytes {head!r})")

@@ -14,7 +14,10 @@ mp_extract,synthetic_face}.py` against JAX's on the same inputs.
     1e-4 of its largest entry (measured <= 6e-8), every other key equal;
     from the port's own fit the keys the fit does not feed equal.
 - `step_frames` on the port's AVI against JAX's cv2 reader on the same
-  frames: the JPEGs byte for byte at the frame's size; an .mp4 raises.
+  frames: the JPEGs byte for byte at the frame's size; on a CABAC B mp4
+  (tools/h264_streams.py) of another size than the target: the same frame
+  count, the decoded frames within the RGB tolerance of cv2's, the JPEGs
+  within STEP_FRAMES_JPEG_MAX / _MEAN.
 - `step_audio`'s mel and f0 equal JAX's; mediapipe's absence raises JAX's
   message, and the steps fall back to precomputed files as JAX's do.
 - `process.main` runs every step on the CPU (`--device cpu`) and both
@@ -196,6 +199,11 @@ def test_lip_rect_and_c2w_match_jax():
                                rtol=0, atol=1e-6)
 
 
+# the JPEGs of the mp4 case: the frames' colour conversion differs by swscale's rounding (RGB within 3), the
+# resize and the JPEG quantisation spread it over noisy random-syntax content; measured max 13, mean <= 2.14
+# (three seeds of the fixture)
+STEP_FRAMES_JPEG_MAX, STEP_FRAMES_JPEG_MEAN = 16, 2.5
+
 _CV2_STEP_FRAMES = textwrap.dedent("""
     import sys
     from genefaceplusplus_tpu.data.process import step_frames
@@ -245,8 +253,27 @@ def test_step_frames_matches_jax(tmp_path):
         name = f"{i:08d}.jpg"
         with open(tmp_path / "port" / "gt_imgs" / name, "rb") as a, open(tmp_path / "jax" / "gt_imgs" / name, "rb") as b:
             assert a.read() == b.read(), name
-    with pytest.raises(NotImplementedError, match="item 11"):
-        PP.step_frames(str(tmp_path / "v.mp4"), str(tmp_path / "x"))
+    # an mp4 (CABAC, B-pyramid, implicit weights, an edit list) at 80x64 into S x S JPEGs
+    from genefaceplusplus_tpu_torch.data.h264_decode import to_rgb
+    from genefaceplusplus_tpu_torch.data.mp4 import read_mp4_frames
+    from genefaceplusplus_tpu_torch.tools import h264_streams as hs
+
+    mp4 = hs.write_fixture("cabac_b_spatial", str(tmp_path / "v.mp4"))
+    n = PP.step_frames(mp4.path, str(tmp_path / "port_mp4"), size=S)
+    run = subprocess.run([sys.executable, "-c", _CV2_STEP_FRAMES, mp4.path, str(tmp_path / "jax_mp4"), str(S)],
+                         capture_output=True, text=True, timeout=120, env=env)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert run.stdout.strip().splitlines()[-1] == str(n) and n == mp4.frames
+    ref = hs.ffmpeg_decode(mp4.path)  # the frames JAX's step_frames resizes
+    for i, (f, bgr) in enumerate(zip(read_mp4_frames(mp4.path), ref.bgr)):
+        d = np.abs(to_rgb(f).astype(np.int32) - bgr[..., ::-1].astype(np.int32))
+        assert d.max() <= 3 and d.mean() <= 1.2, (i, d.max(), d.mean())
+    for i in range(n):
+        name = f"{i:08d}.jpg"
+        a = cv2.imread(str(tmp_path / "port_mp4" / "gt_imgs" / name)).astype(np.int32)
+        b = cv2.imread(str(tmp_path / "jax_mp4" / "gt_imgs" / name)).astype(np.int32)
+        assert a.shape == b.shape == (S, S, 3)
+        assert np.abs(a - b).max() <= STEP_FRAMES_JPEG_MAX and np.abs(a - b).mean() <= STEP_FRAMES_JPEG_MEAN, name
 
 
 def test_step_audio_matches_jax(tmp_path):
