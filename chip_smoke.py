@@ -43,6 +43,21 @@ Phases (any failure exits non-zero, and no result line is printed):
               occupancy and torso grid: GT-driven requests, checked against the
               plain field, against the float32 SR with the crops off, and bf16
               against float32 SR; timed per frame and per stage
+  serve_mesh  serve_full's identity over a mesh (parallel/mesh.py): the first
+              min(cards, 4) cards, or [cuda:0, cuda:0] (two shards on two
+              streams of the one card; the copies between cards are then not
+              exercised, which the script says); 8 GT-driven frames each with
+              the default options, compact_frac 'auto' + color_topk 4,
+              compact_frac 0.5 without the head crop, and a head crop of 3/4
+              of the raw side, sharded and unsharded:
+              uint8 frames within one level, head-crop flags equal, frame 0's
+              float32 raw composite within 3e-4; B1 launched once a shard a
+              frame on each device (fused_field.device_launches); a tiledgrid
+              head (the May head's widths, seeded) on 512^2 head-only frames
+              sharded vs unsharded; ms a frame single and sharded, in turns.
+              After serve_cli: the CLI with --n_devices 2 (several cards: its
+              AVI within one level of serve_cli's, B1 once a card a frame; one
+              card: the refusal naming both counts)
   serve_compact serve_full's GeneFaceInfer with live-sample compaction: the
               budget that compact_frac 'auto' measures on each request's
               poses (the largest live fraction x 1.25, in 512-slot steps;
@@ -195,8 +210,8 @@ Phases (any failure exits non-zero, and no result line is printed):
               trainval_dataset.npy names the files and holds no image arrays;
               512^2 JPEG and PNG decode and JPEG encode timed, median of 24,
               and the frame store's load from the files) trained through the
-              training CLI, each
-              stage in a process of its own, 12 steps at the egs/datasets/May
+              training CLI in three processes (the head stage; the SR stage,
+              SIGTERM'd; its resume and the torso stage), 12 steps at the egs/datasets/May
               configs (their widths, 65,536-ray batches, full 256^2 frames):
               lm3d_radnerf (lip steps from step 5, train_compact_start 8:
               its compact/* telemetry printed), lm3d_radnerf_sr (SR and
@@ -255,7 +270,8 @@ Phases (any failure exits non-zero, and no result line is printed):
               variables, batch 8 x 64 frames; SIGTERM after step 20, exit 0 with
               a checkpoint, resumed) and then the postnet
               (egs/datasets/May/postnet.yaml, batch 4), 60 steps each with
-              validation at 30 and 60, each in a process of its own with
+              validation at 30 and 60, in two processes (the a2m, SIGTERM'd;
+              its resume and the postnet) with
               cuDNN's TF32 flag at the process default; losses finite, checkpoints
               flax msgpack equal to the live state bit for bit, every step logged
               once; one a2m and one postnet step on the card vs the CPU from the
@@ -1079,6 +1095,191 @@ def phase_serve_full(dev):
         for name, count, ms in top:
             print(f"[serve_full] profiler top kernel: {ms:.4f} ms a frame in {count:.1f} launches: {name}")
     return launches, infer, requests, [f for frames in frames_all for f in frames]
+
+
+MESH_MAX_CARDS = 4  # serve_mesh's mesh: the first min(cards, 4) cards
+MESH_MAX_ABS = 3e-4  # a sharded float frame vs the unsharded one (tests/test_serving_parallel.py's atol)
+MESH_MAX_LEVELS = 1  # a sharded uint8 frame vs the unsharded one
+MESH_CASES = (("plain", {}), ("compact_frac auto + color_topk 4", {"compact_frac": "auto", "color_topk": 4}),
+              ("compact_frac 0.5, head crop off", {"compact_frac": 0.5, "head_crop": "off"}))
+MESH_B1_CASES = 3  # mesh_cases that run B1 (the top-K path runs the float32 split field)
+MESH_GRID_FRAMES = 3
+
+
+def serve_mesh_mesh(dev):
+    """(serve_mesh's mesh, whether it spans several cards): the first
+    min(cards, MESH_MAX_CARDS) cards, or two shards on two streams of the
+    one card."""
+    from genefaceplusplus_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        return make_mesh(min(count, MESH_MAX_CARDS), dev), True
+    return Mesh([dev, dev]), False
+
+
+def mesh_cases(infer) -> tuple:
+    """MESH_CASES and a head crop of 3/4 of the raw frame's side (the
+    identity's own crop declines: its head box covers most of the frame),
+    whose window moves with each frame's pose."""
+    side = [3 * infer.dataset.H // 4, 3 * infer.dataset.W // 4]
+    return MESH_CASES + ((f"head crop {side[0]}x{side[1]}", {"head_crop": side}),)
+
+
+def mesh_chunk(infer, batch, inp) -> tuple:
+    """(uint8 frames [T, H, W, 3], head-crop flags or None) of `batch` as
+    one chunk through `launch_all` (which resolves "auto")."""
+    (imgs, fits, _), = infer.launch_all(batch, dict(inp, frames_per_dispatch=batch["T"]))
+    return imgs, fits
+
+
+def mesh_differences(single, sharded) -> tuple:
+    """(max |d| in levels, crop flags equal) of two `mesh_chunk`s."""
+    (a, fa), (b, fb) = single, sharded
+    same = (fa is None and fb is None) or (fa is not None and fb is not None and torch.equal(fa, fb))
+    return int((a.to(torch.int16) - b.to(torch.int16)).abs().max()), same
+
+
+def phase_serve_mesh(dev, infer, requests) -> int:
+    """serve_mesh (module docstring), on serve_full's GeneFaceInfer; returns
+    B1's launches on the mesh's main path."""
+    from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
+    from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
+    from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF, RADNeRFConfig
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+
+    mesh, cards = serve_mesh_mesh(dev)
+    card = card_line()
+    if not cards:
+        print(f"[serve_mesh] one card: the mesh is {mesh}, two shards on two streams of the one card; the copies "
+              "between cards were not exercised")
+    sharded = GeneFaceInfer(infer.head_cfg, infer.head_model.state_dict(), infer.dataset, infer.occupancy,
+                            device=dev, torso_cfg=infer.torso_cfg, torso_params=infer.torso_model.state_dict(),
+                            torso_occupancy_2d=infer.torso_occupancy_2d, sr_params=infer.sr_model.state_dict(),
+                            mesh=mesh)
+    batch = infer.prepare_gt_batch(requests[1])
+    T = batch["T"]
+    cases = mesh_cases(infer)
+    singles = [mesh_chunk(infer, batch, inp) for _, inp in cases]
+    for _, inp in cases:  # warm-up: each path's first call on each device
+        mesh_chunk(sharded, batch, inp)
+    torch.cuda.synchronize()
+    ff.fused_field.launches = 0  # count only the main path's launches
+    ff.fused_field.device_launches.clear()
+    shards = [mesh_chunk(sharded, batch, inp) for _, inp in cases]
+    torch.cuda.synchronize()
+    launches, by_device = ff.fused_field.launches, dict(ff.fused_field.device_launches)
+    for (name, inp), one, many in zip(cases, singles, shards):
+        d, same_flags = mesh_differences(one, many)
+        check(isinstance(inp.get("head_crop"), str) or "head_crop" not in inp or one[1] is not None,
+              f"serve_mesh {name}: no head-crop flags")
+        print(f"[serve_mesh] {name}: {T} full frames of {one[0].shape[1]}x{one[0].shape[2]}, sharded vs "
+              f"unsharded max |d| {d} levels of 255 (<= {MESH_MAX_LEVELS}); head-crop flags equal: {same_flags}")
+        check(d <= MESH_MAX_LEVELS and same_flags, f"serve_mesh {name}: sharded vs unsharded frames")
+    want = {str(d): MESH_B1_CASES * T * mesh.devices.count(d) for d in set(mesh.devices)}
+    print(f"[serve_mesh] fused_field launches by device: {by_device} (expected {want}: one a shard a frame); "
+          f"{launches} in all")
+    check(by_device == want and launches == sum(want.values()), "serve_mesh: B1's launches by device")
+
+    # float frames: frame 0 of the batch, the raw composite and the bf16 SR
+    from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
+    from genefaceplusplus_tpu_torch.utils.rays import pixel_rays
+
+    ds = infer.dataset
+    with torch.no_grad():
+        ro, rd = pixel_rays(torch.as_tensor(batch["poses"][:1], device=dev), ds.intrinsics, ds.H, ds.W)
+        win = get_audio_features_batch(torch.as_tensor(batch["cond"], device=dev), torch.arange(T, device=dev),
+                                       infer.head_cfg.smo_win_size)[0]
+        args = (ro[0], rd[0], win, torch.as_tensor(batch["eye_area_percent"][:1], device=dev),
+                torch.as_tensor(batch["lm68"][:1], device=dev))
+        for name, inp in cases:
+            a, b = infer.render_frame(*args, inp=inp), sharded.render_frame(*args, inp=inp)
+            raw = float((a.rgb_map - b.rgb_map).abs().max())
+            sr = float((a.sr_rgb_map.float() - b.sr_rgb_map.float()).abs().max())
+            print(f"[serve_mesh] {name}: frame 0's float32 raw composite sharded vs unsharded max |d| {raw:.3e} "
+                  f"(<= {MESH_MAX_ABS}), its bf16 SR {sr:.3e}")
+            check(raw <= MESH_MAX_ABS, f"serve_mesh {name}: the float frame sharded vs unsharded")
+
+    # ms a frame, single and sharded in turns (plain options), 2 rounds
+    times = {"single": [], "sharded": []}
+    for _ in range(2):
+        for key, x in (("single", infer), ("sharded", sharded)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (imgs, _, _), = x.launch_secc2video(batch, {"frames_per_dispatch": T})
+            imgs.cpu()
+            times[key].append((time.perf_counter() - t0) * 1e3 / T)
+    del sharded
+
+    # a tiledgrid head's 512^2 head-only frame (float32 RADNeRF.field: no B1)
+    gcfg = RADNeRFConfig.from_hparams(grid_head_hparams("tiledgrid"))
+    gparams = RADNeRF(gcfg, generator=torch.Generator().manual_seed(5)).state_dict()
+    gds = RADNeRFDataset(synthetic(num_frames=24, H=SIZE, W=SIZE, seed=0), smo_win_size=gcfg.smo_win_size)
+    occ = bench_occupancy(gcfg.grid_size)
+    grid1 = GeneFaceInfer(gcfg, gparams, gds, occ, device=dev)
+    gridk = GeneFaceInfer(gcfg, gparams, gds, occ, device=dev, mesh=mesh)
+    gbatch = grid1.prepare_gt_batch(list(range(MESH_GRID_FRAMES)))
+    grid_ms = {"single": [], "sharded": []}
+    for key, x in (("single", grid1), ("sharded", gridk)):
+        torch.cuda.synchronize()
+        stamps = [time.perf_counter()]
+        for i in range(MESH_GRID_FRAMES):
+            x.launch_secc2video(gbatch, {"frames_per_dispatch": 1}, i, i + 1)[0][0].cpu()
+            stamps.append(time.perf_counter())
+        grid_ms[key] = [(b - a) * 1e3 for a, b in zip(stamps[1:-1], stamps[2:])]
+    gd, _ = mesh_differences(mesh_chunk(grid1, gbatch, {}), mesh_chunk(gridk, gbatch, {}))
+    with torch.no_grad():
+        gargs = frame_inputs(grid1, dev)
+        graw = float((grid1.render_frame(*gargs).rgb_map - gridk.render_frame(*gargs).rgb_map).abs().max())
+    print(f"[serve_mesh] tiledgrid head (the May head's widths, seeded tables, grid {gcfg.grid_size}), "
+          f"{MESH_GRID_FRAMES} head-only frames of {SIZE}x{SIZE}: sharded vs unsharded max |d| {gd} levels "
+          f"(<= {MESH_MAX_LEVELS}); frame 0's float32 frame max |d| {graw:.3e} (<= {MESH_MAX_ABS})")
+    check(gd <= MESH_MAX_LEVELS and graw <= MESH_MAX_ABS, "serve_mesh tiledgrid: sharded vs unsharded")
+    del grid1, gridk
+    print(f"[serve_mesh] {card}; mesh {mesh} ({'several cards' if cards else 'one card, two streams'}); ms a "
+          f"frame (host wall of a chunk of {T}, synchronised, in turns, 2 rounds): torso_sr full frame single "
+          f"{', '.join(f'{x:.3f}' for x in times['single'])}, sharded "
+          f"{', '.join(f'{x:.3f}' for x in times['sharded'])}; tiledgrid head-only frame (frames 2..) single "
+          f"{', '.join(f'{x:.3f}' for x in grid_ms['single'])}, sharded "
+          f"{', '.join(f'{x:.3f}' for x in grid_ms['sharded'])}")
+    return launches
+
+
+def phase_serve_mesh_cli(dev, served) -> int:
+    """serve_mesh's CLI part, on serve_cli's work dirs: with several cards
+    the CLI with --n_devices 2 (its AVI within one level of serve_cli's
+    out.avi, B1 once a shard a frame); with one, --n_devices 2 refused
+    naming both counts. Returns the B1 launches of the first."""
+    from genefaceplusplus_tpu_torch.data.video import read_avi
+    from genefaceplusplus_tpu_torch.inference import cli
+    from genefaceplusplus_tpu_torch.ops import fused_field as ff
+
+    argv = ["--a2m_ckpt", served["a2m"], "--torso_ckpt", served["torso"], "--drv_aud_features", served["request"],
+            "--n_devices", "2", "--out_name", os.path.join(served["work"], "mesh.avi")]
+    count = torch.cuda.device_count()
+    if count < 2:
+        try:
+            cli.main(argv)
+        except RuntimeError as e:
+            print(f"[serve_mesh] the CLI with --n_devices 2 on {count} card: {e}")
+            check("2 CUDA devices asked for, 1 found" in str(e), "the refusal names both counts")
+            return 0
+        check(False, "the CLI with --n_devices 2 on one card did not raise")
+    torch.cuda.synchronize()
+    ff.fused_field.launches = 0  # count only the main path's launches
+    ff.fused_field.device_launches.clear()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, by_device = ff.fused_field.launches, dict(ff.fused_field.device_launches)
+    got, want = read_avi(out)[0], read_avi(os.path.join(served["work"], "out.avi"))[0]
+    d = int(np.abs(got.astype(np.int16) - want).max())
+    T = len(want)
+    print(f"[serve_mesh] the CLI with --n_devices 2: {len(got)} frames, max |d| {d} levels from serve_cli's "
+          f"out.avi (<= {MESH_MAX_LEVELS}), fused_field launches by device {by_device}, wall {ms:.1f} ms")
+    check(got.shape == want.shape and d <= MESH_MAX_LEVELS, "the CLI's --n_devices 2 frames")
+    check(by_device == {"cuda:0": T, "cuda:1": T}, "the CLI's B1 launches by device")
+    return launches
 
 
 def phase_serve_compact(dev, infer, requests) -> int:
@@ -3210,8 +3411,8 @@ def phase_train(dev):
 
 # ---- train_cli: one identity trained through the training CLI -------------
 
-# the three stages of one identity, each through `python -m
-# genefaceplusplus_tpu_torch.training.run` in a process of its own (the egs/
+# the three stages of one identity through the training CLI in processes of
+# their own (the head; the SR stage, SIGTERM'd; its resume and the torso; the egs/
 # configs at their widths, their 65,536-ray batches and full 256^2 frames;
 # 16 frames of 512^2 with torso images); lip steps, the SR and perceptual
 # terms start at step TRAIN_CLI_START; the SR stage is preempted by SIGTERM
@@ -3309,16 +3510,23 @@ def train_cli_stage(argv) -> int:
 
 def run_cli_stages(argvs, what: str) -> list:
     """`train_cli_stage` on each of `argvs`, one after another in one
-    process of its own; their readings."""
+    process of its own; their readings. Prints the process's wall beside
+    its stages' own: the rest is the process's fixed set-up (the
+    interpreter, torch and TensorFlow's imports, the card's context)."""
+    t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", "import json, sys, chip_smoke; "
                           "sys.exit(max(chip_smoke.train_cli_stage(a) for a in json.loads(sys.argv[1])))",
                           json.dumps(argvs)],
                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=1200)
+    wall = time.perf_counter() - t0
     check(out.returncode == 0, f"{what}: exit {out.returncode}\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
     readings = []
     for argv in argvs:
         with open(os.path.join(argv[argv.index("--work_dir") + 1], "chip_smoke_stage.json")) as f:
             readings.append(json.load(f))
+    own = sum(r["wall_s"] for r in readings)
+    print(f"[{what}] {len(argvs)} stage(s) in one process: its wall {wall:.1f} s, the stages' own {own:.1f} s, "
+          f"the process's set-up {wall - own:.1f} s")
     return readings
 
 
@@ -3512,16 +3720,13 @@ def phase_train_cli(dev, root: str):
         return ["--config", os.path.join(repo, cfg), "--exp_name", f"chip_smoke_{stage}",
                 "--work_dir", dirs[stage], "--hparams", f"{common},{extra}"]
 
-    def stage(name):
-        return run_cli_stages([argv(name)], f"train_cli {name}")[0]
-
     t0 = time.perf_counter()
-    res = {"head": stage("head")}
+    res = {"head": run_cli_stages([argv("head")], "train_cli head")[0]}
     # the SR stage: the CLI module itself, SIGTERM once step TRAIN_CLI_START is logged
     preempted_at = run_until_sigterm(argv("sr"), dirs["sr"], TRAIN_CLI_START, TRAIN_CLI_STEPS,
                                      os.path.join(root, "sr_sigterm.log"), "train_cli sr")
-    res["sr"] = stage("sr")
-    res["torso"] = stage("torso")
+    # the SR stage's resume, then the torso from it, in one process
+    res["sr"], res["torso"] = run_cli_stages([argv("sr"), argv("torso")], "train_cli sr + torso")
     wall = time.perf_counter() - t0
 
     for name, r in res.items():
@@ -3551,7 +3756,8 @@ def phase_train_cli(dev, root: str):
           + (" (at or above 0.85: the full-slot step is kept)" if compact[0]["compact/budget_frac"] >= 0.85 else ""))
     print(f"[train_cli] {TRAIN_CLI_FRAMES} frames of {SIZE}x{SIZE} as image files (gt JPEG q95 4:2:0, head and "
           f"torso RGBA PNG); three stages through "
-          f"the training CLI, {TRAIN_CLI_STEPS} steps each, {wall:.1f} s of wall: every loss finite, each "
+          f"the training CLI (three processes), {TRAIN_CLI_STEPS} steps each, {wall:.1f} s of wall: every loss "
+          f"finite, each "
           f"checkpoint flax msgpack and equal to the live state bit for bit; head: {lip_steps} lip steps "
           f"from step {TRAIN_CLI_START + 1}; sr: SR and perceptual terms from step {TRAIN_CLI_START + 1}, "
           f"SIGTERM after step {TRAIN_CLI_START}: checkpoint at step {preempted_at}, exit 0, resumed to "
@@ -4809,19 +5015,12 @@ def phase_train_audio(dev):
                     f"binary_data_dir={binary},video_id=tracks,max_updates={TRAIN_AUDIO_STEPS},"
                     f"val_check_interval={TRAIN_AUDIO_VAL},tb_log_interval=1"]
 
-        def stage(name):
-            out = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
-                                  "sys.exit(chip_smoke.train_cli_stage(sys.argv[1:]))", *argv(name)],
-                                 cwd=repo, capture_output=True, text=True, timeout=900)
-            check(out.returncode == 0, f"train_audio {name}: exit {out.returncode}\n{out.stdout[-3000:]}\n"
-                                       f"{out.stderr[-3000:]}")
-            with open(os.path.join(dirs[name], "chip_smoke_stage.json")) as f:
-                return json.load(f)
-
         t0 = time.perf_counter()
         preempted_at = run_until_sigterm(argv("a2m"), dirs["a2m"], TRAIN_AUDIO_SIGTERM, TRAIN_AUDIO_STEPS,
                                          os.path.join(root, "a2m_sigterm.log"), "train_audio a2m")
-        res = {"a2m": stage("a2m"), "postnet": stage("postnet")}
+        # the a2m's resume, then the postnet, in one process
+        res = dict(zip(TRAIN_AUDIO_STAGES, run_cli_stages([argv(name) for name in TRAIN_AUDIO_STAGES],
+                                                          "train_audio a2m + postnet")))
         wall = time.perf_counter() - t0
         vals = {}
         for name, r in res.items():
@@ -5461,6 +5660,7 @@ def main() -> int:
     kb, kw = timed("kernel_bwd", phase_kernel_bwd, dev, kt["extra_ms"])
     serve_launches, fourier_ms = timed("serve", phase_serve, dev)
     full_launches, full_infer, full_requests, full_frames = timed("serve_full", phase_serve_full, dev)
+    mesh_launches = timed("serve_mesh", phase_serve_mesh, dev, full_infer, full_requests)
     compact_launches = timed("serve_compact", phase_serve_compact, dev, full_infer, full_requests)
     del full_infer
     audio_launches = timed("serve_audio", phase_serve_audio, dev)
@@ -5468,6 +5668,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     try:
         cli_launches, cli_h264, served = timed("serve_cli", phase_serve_cli, dev, work)
+        mesh_cli_launches = timed("serve_mesh_cli", phase_serve_mesh_cli, dev, served)
         hk = timed("h264", phase_h264, dev, served)
         long_launches = timed("serve_long", phase_serve_long, dev, served)
         convert_launches = timed("convert", phase_convert, dev, served)
@@ -5493,6 +5694,8 @@ def main() -> int:
     print(f"[done] {time.perf_counter() - t0:.1f} s; by phase (host wall): "
           + ", ".join(f"{name} {s:.1f} s" for name, s in walls.items()))
     print(f"[launches] fused_field: {serve_launches} head-only serving + {full_launches} full-frame serving + "
+          f"{mesh_launches} full-frame serving over a mesh (one a shard a frame) + {mesh_cli_launches} the CLI "
+          f"with --n_devices 2 + "
           f"{compact_launches} full-frame serving on the compact buffer (compact_frac 'auto') + "
           f"{audio_launches} audio-driven serving + {cli_launches} CLI (plain and with --compact_frac auto) and "
           f"streaming + {long_launches} long clip + "
@@ -5510,7 +5713,8 @@ def main() -> int:
     pallas = "genefaceplusplus_tpu/ops/pallas/fused_field.py:"
     print(json.dumps({"kernels": [{
         "name": "fused_field", "route": "cuda", "source": source + "fused_field.cu", "replaces": pallas + "156",
-        "launches": (serve_launches + full_launches + compact_launches + audio_launches + cli_launches + long_launches
+        "launches": (serve_launches + full_launches + mesh_launches + mesh_cli_launches + compact_launches
+                     + audio_launches + cli_launches + long_launches
                      + convert_launches + app_launches + hubert_launches + trained_launches + disc_launches
                      + refined_launches + onboard_launches),
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],

@@ -302,19 +302,19 @@ def serve(infer, host: str = "0.0.0.0", port: int = 7860):
 
 
 def main(argv=None):
-    from genefaceplusplus_tpu_torch.inference.cli import build_parser, unported_flags
+    from genefaceplusplus_tpu_torch.inference.cli import build_parser, make_infer_mesh
     from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
 
     p = build_parser()
     p.add_argument("--port", type=int, default=7860)
     args = p.parse_args(argv)
-    unported_flags(args)
     infer = GeneFaceInfer.from_work_dirs(
         audio2secc_dir=args.a2m_ckpt or None,
         head_model_dir=args.head_ckpt or None,
         torso_model_dir=args.torso_ckpt or None,
         postnet_dir=args.postnet_ckpt or None,
         device=args.device,
+        mesh=make_infer_mesh(args.n_devices, args.device),
     )
     serve(infer, port=args.port)
 

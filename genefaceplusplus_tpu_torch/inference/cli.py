@@ -17,7 +17,9 @@ landmarks. `--color_topk K` runs the colour MLP on the K samples of highest
 weight a ray; `--compact_frac` runs the head field on a budget of live
 samples (a float, or "auto" to measure the request's poses). `--debug`
 writes each frame beside its SECC panel and its 68 landmarks (three panels
-side by side). `--n_devices` above 1 raises: the port serves on one card.
+side by side). `--n_devices N` splits each frame's field work over N
+devices of `--device`'s type (`parallel/mesh.py`): the first N cards,
+raising where fewer exist, or N shards of the CPU; 1 serves on one.
 """
 
 from __future__ import annotations
@@ -56,22 +58,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compact_frac", type=str, default="0",
                    help="head field on a budget of frac x rays x samples live slots: a float, "
                         "'auto' (measured on the request's poses), or 0 = off")
-    p.add_argument("--n_devices", type=int, default=1)
+    p.add_argument("--n_devices", type=int, default=1,
+                   help="split each frame's field work over this many devices (the mesh's 'rays' axis; 1 = one)")
     p.add_argument("--device", type=str, default=None, help="cuda (default) | cpu")
     return p
 
 
-def unported_flags(args) -> None:
-    """Raise for a flag set away from its default whose function is not
-    ported (ROADMAP.md names each item)."""
-    if args.n_devices > 1:
-        raise NotImplementedError("--n_devices: the port serves on one card; ray sharding over several is "
-                                  "not ported (ROADMAP queue A, not ported on purpose: parallel/mesh.py)")
+def make_infer_mesh(n_devices: int, device=None):
+    """The mesh of `n_devices` on `device` (`parallel.mesh.make_mesh`), or
+    None for one device."""
+    if n_devices <= 1:
+        return None
+    from genefaceplusplus_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_devices, device)
 
 
 def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
-    unported_flags(args)
+    mesh = make_infer_mesh(args.n_devices, args.device)
     from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
 
     infer = GeneFaceInfer.from_work_dirs(
@@ -80,6 +85,7 @@ def main(argv=None) -> str:
         torso_model_dir=args.torso_ckpt or None,
         postnet_dir=args.postnet_ckpt or None,
         device=args.device,
+        mesh=mesh,
     )
     inp = {
         "drv_aud": args.drv_aud,

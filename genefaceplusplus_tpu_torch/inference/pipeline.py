@@ -26,6 +26,11 @@ host. `launch_secc2video` renders without copying (the frames stay on the
 device) and `drain_frames` copies them: the stream (`serving.py`) renders
 one chunk of audio while the last one's frames are drained.
 
+With a `mesh` (`parallel/mesh.py`, JAX's `mesh` argument) each frame's
+field points and torso pixels are split over the mesh's devices; the rest
+of the frame, its uint8 quantisation and the copies stay on the main
+device, which is the infer device.
+
 `GeneFaceInfer.from_work_dirs` builds all of it from the JAX package's work
 dirs (each a `config.yaml` and flax msgpack checkpoints), and `infer_once`
 runs a request from features to a video file with the audio
@@ -60,6 +65,7 @@ from genefaceplusplus_tpu_torch.models.renderer import RenderOptions, make_aabb
 from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
 from genefaceplusplus_tpu_torch.ops import fused_field as ff
 from genefaceplusplus_tpu_torch.ops import raymarch
+from genefaceplusplus_tpu_torch.parallel.mesh import Mesh, normalized_device, replicated
 from genefaceplusplus_tpu_torch.utils.audio_features import get_audio_features_batch
 from genefaceplusplus_tpu_torch.utils.ckpt import get_last_checkpoint, restore_into
 from genefaceplusplus_tpu_torch.utils.convert_jax import flax_leaves, unwrap_train_state
@@ -133,7 +139,10 @@ class GeneFaceInfer:
     state_dict, built from `postnet_hparams`: `postnet_out_dim`,
     `postnet_hidden`, `postnet_layers`) is given. Everything lives on
     `device`: the CUDA card unless another device is named (raises when
-    there is no card). `from_work_dirs` builds one from JAX work dirs."""
+    there is no card). With `mesh` (its main device `device`) every frame's
+    field points and torso pixels are split over the mesh's devices, on
+    replicas of the head, its fused-field weights and the torso made here,
+    once. `from_work_dirs` builds one from JAX work dirs."""
 
     def __init__(self, cfg: RADNeRFConfig, params: Mapping[str, torch.Tensor],
                  dataset: RADNeRFDataset, occupancy, device=None, *,
@@ -145,8 +154,12 @@ class GeneFaceInfer:
                  a2m_params: Optional[Mapping[str, torch.Tensor]] = None,
                  postnet_hparams: Optional[Mapping[str, Any]] = None,
                  postnet_params: Optional[Mapping[str, torch.Tensor]] = None,
-                 bfm_dir: str = "deep_3drecon/BFM", head_crop_pad_px: int = 12):
+                 bfm_dir: str = "deep_3drecon/BFM", head_crop_pad_px: int = 12,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.main != normalized_device(self.device):
+            raise ValueError(f"the mesh's main device {mesh.main} is not the infer device {self.device}")
+        self.mesh = mesh
         self.a2m_cfg = dict(a2m_hparams or {})
         self.a2m_model = None
         if a2m_params is not None:
@@ -202,12 +215,16 @@ class GeneFaceInfer:
             self.torso_crop = auto_torso_crop(self.torso_occupancy_2d, dataset.H, dataset.W,
                                               thr=torso_cfg.density_thresh_torso)
         self.sr_crop, self.sr_bg = self._auto_sr_crop()
+        if mesh is not None:  # the replicas, once
+            for obj in (self.head_model, self.field_weights, self.torso_model):
+                if obj is not None:
+                    replicated(mesh, obj)
 
     @classmethod
     def from_work_dirs(cls, audio2secc_dir: Optional[str] = None, head_model_dir: Optional[str] = None,
                        torso_model_dir: Optional[str] = None, postnet_dir: Optional[str] = None,
                        dataset: Optional[RADNeRFDataset] = None, bfm_dir: str = "deep_3drecon/BFM",
-                       device=None) -> "GeneFaceInfer":
+                       device=None, mesh: Optional[Mesh] = None) -> "GeneFaceInfer":
         """The identity of JAX work dirs, as JAX's `GeneFaceInfer.__init__`
         reads them (`genefaceplusplus_tpu/inference/pipeline.py:97-252`).
 
@@ -222,7 +239,8 @@ class GeneFaceInfer:
         `extra_state` (the head's grid all ones where absent); the postnet
         refiner from `postnet_dir`, its widths from that dir's config. A
         checkpoint that restores no tensor raises; a dir without a
-        checkpoint keeps the port's initial weights (seed 0) and says so."""
+        checkpoint keeps the port's initial weights (seed 0) and says so.
+        `mesh` is the constructor's."""
         if not head_model_dir and torso_model_dir:
             head_model_dir = set_hparams(work_dir=torso_model_dir).get("head_model_dir", "") or None
         head_dir = head_model_dir or torso_model_dir
@@ -267,7 +285,7 @@ class GeneFaceInfer:
             print(f"| {head_dir}: no occupancy grid in the checkpoint; using an all-ones grid")
             occupancy = np.ones((cfg.grid_size,) * 3, bool)
         infer = cls(cfg, params, dataset, occupancy, device, bfm_dir=bfm_dir,
-                    head_crop_pad_px=int(head_raw.get("head_crop_pad_px", 12)), **kw)
+                    head_crop_pad_px=int(head_raw.get("head_crop_pad_px", 12)), mesh=mesh, **kw)
         infer.head_cfg_raw = head_raw
         return infer
 
@@ -573,10 +591,12 @@ class GeneFaceInfer:
         return 0.0 if frac >= 0.9 else float(frac)
 
     def render_frame(self, rays_o, rays_d, cond_window, eye_area_percent, lm68,
-                     inp: Optional[Mapping[str, Any]] = None, fused_fn=ff.fused_field):
+                     inp: Optional[Mapping[str, Any]] = None, fused_fn=ff.fused_field, *,
+                     mesh: Optional[Mesh] = None):
         """One frame through `render_full_frame` with this identity's models,
         grids and load-time crops (each overridable in `inp` as 'auto',
-        'off' or a rect). Returns its FrameOutput."""
+        'off' or a rect), over `mesh` (this instance's by default). Returns
+        its FrameOutput."""
         inp = dict(inp or {})
         ds = self.dataset
         sr_crop = resolve_crop(inp, "sr_crop", self.sr_crop)
@@ -588,15 +608,17 @@ class GeneFaceInfer:
             torso_model=self.torso_model, bg_coords=self.bg_coords, lm68=lm68,
             occupancy_2d=self.torso_occupancy_2d, sr_model=self.sr_model,
             torso_crop=resolve_crop(inp, "torso_crop", self.torso_crop),
-            sr_crop=sr_crop, sr_bg=self.sr_bg if sr_crop is not None else None)
+            sr_crop=sr_crop, sr_bg=self.sr_bg if sr_crop is not None else None,
+            mesh=self.mesh if mesh is None else mesh)
 
     @torch.no_grad()
     def launch_secc2video(self, batch: Mapping[str, Any], inp: Optional[Mapping[str, Any]] = None,
-                          start: int = 0, stop: Optional[int] = None) -> List[Launched]:
+                          start: int = 0, stop: Optional[int] = None, *,
+                          mesh: Optional[Mesh] = None) -> List[Launched]:
         """Render frames [start, stop) of the batch (all by default),
         `frames_per_dispatch` a chunk, into uint8 tensors on the device,
         [2H, 2W, 3] with SR and [H, W, 3] without, and return them without
-        copying (`drain_frames` copies them)."""
+        copying (`drain_frames` copies them). `mesh` is `render_frame`'s."""
         inp = dict(inp or {})
         ds, dev = self.dataset, self.device
         H, W = ds.H, ds.W
@@ -621,7 +643,7 @@ class GeneFaceInfer:
             for j in range(n):
                 t = first + j
                 out = self.render_frame(rays_o[j], rays_d[j], cond_windows[t], eye_areas[t],
-                                        lm68s[t][None], inp)
+                                        lm68s[t][None], inp, mesh=mesh)
                 img = out.sr_rgb_map if out.sr_rgb_map is not None else out.rgb_map.reshape(H, W, 3)
                 imgs[j] = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
                 if out.head_crop_fits is not None:

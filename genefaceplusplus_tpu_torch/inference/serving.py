@@ -1,6 +1,8 @@
-"""Streaming: frames from a long or live 16 kHz waveform, chunk by chunk
-(port of `genefaceplusplus_tpu/inference/serving.py`: `stream_infer`, its
-reconnect cursor, `FramePusher` and `ClientGone`).
+"""Serving: a frame over several devices, and frames from a long or live
+16 kHz waveform, chunk by chunk (port of
+`genefaceplusplus_tpu/inference/serving.py`: `ShardedFrameRenderer`,
+`stream_infer` with its mesh and reconnect cursor, `FramePusher` and
+`ClientGone`).
 
 - Audio streams in chunks of `chunk_seconds`. Each chunk's mel and F0 are
   computed here, and its HuBERT features on the infer device from the
@@ -16,9 +18,9 @@ reconnect cursor, `FramePusher` and `ClientGone`).
 - The cursor advances by the audio a chunk consumed (its frames), so frames
   and audio never drift, and `inp['resume_from_frame'] = k` restarts a
   stream at frame k's audio and pose.
-
-JAX's `ShardedFrameRenderer` and its `mesh` argument shard a frame's rays
-over several chips; the port serves on one card and has neither.
+- With a `mesh` (`parallel/mesh.py`) each frame's field points and torso
+  pixels are split over the mesh's devices (`models/full_renderer.py`);
+  the frames are the single device's.
 """
 
 from __future__ import annotations
@@ -29,15 +31,43 @@ import time
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from genefaceplusplus_tpu_torch.data import audio as audio_lib
 from genefaceplusplus_tpu_torch.inference.metrics import METRICS
 from genefaceplusplus_tpu_torch.inference.pipeline import default_inp
+from genefaceplusplus_tpu_torch.parallel.mesh import Mesh, make_mesh
 from genefaceplusplus_tpu_torch.utils.smoothing import mirror_index
 
 
+class ShardedFrameRenderer:
+    """A frame function over a device mesh.
+
+    frame_fn(head, torso, sr, rays_o, rays_d, cond_win, eye_area, occupancy,
+    bg_color, bg_coords, lm68, *, mesh) -> image: JAX's argument order, the
+    models in place of JAX's params, and the mesh, which it hands to
+    `render_full_frame`. The ray-shaped arguments (`RAY_ARGS`, leading dim
+    the rays) must divide by the mesh's size, as in JAX (pad upstream,
+    `parallel.mesh.pad_to_multiple`); every tensor argument moves to the
+    mesh's main device. The call runs without autograd."""
+
+    RAY_ARGS = (3, 4, 8, 9)  # rays_o, rays_d, bg_color, bg_coords
+
+    def __init__(self, frame_fn, mesh: Optional[Mesh] = None):
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self._fn = frame_fn
+
+    def __call__(self, *args):
+        for i in self.RAY_ARGS:
+            if args[i] is not None and args[i].shape[0] % self.mesh.size:
+                raise ValueError(f"n_rays {args[i].shape[0]} must divide by the mesh size {self.mesh.size}")
+        args = [a.to(self.mesh.main) if isinstance(a, torch.Tensor) else a for a in args]
+        with torch.no_grad():
+            return self._fn(*args, mesh=self.mesh)
+
+
 def stream_infer(infer, wav16k: np.ndarray, inp: Optional[Dict] = None,
-                 chunk_seconds: float = 2.0) -> Iterator[np.ndarray]:
+                 chunk_seconds: float = 2.0, mesh: Optional[Mesh] = None) -> Iterator[np.ndarray]:
     """Yield uint8 frames of `infer` (a `GeneFaceInfer` with an a2m) driven
     by `wav16k` as each chunk of audio is rendered.
 
@@ -50,7 +80,8 @@ def stream_infer(infer, wav16k: np.ndarray, inp: Optional[Dict] = None,
     `inp['color_topk']` and a float `inp['compact_frac']` apply to every
     chunk; a `compact_frac` of "auto" is off here, as in JAX's stream: the
     budget is measured on a request's poses, which a stream does not know
-    ahead."""
+    ahead. `mesh` (by default `infer.mesh`) splits each frame's field work
+    over its devices."""
     inp = default_inp(**(inp or {}))
     own_hubert = audio_lib.hubert_available()
     if not own_hubert and "hubert_full" not in inp:
@@ -94,7 +125,9 @@ def stream_infer(infer, wav16k: np.ndarray, inp: Optional[Dict] = None,
         batch["transs"] = np.asarray(ds.ds["trans"])[idxs]
 
         batch = infer.forward_audio2secc(batch, inp)
-        launched = infer.launch_secc2video(batch, inp)  # stays on the device
+        # stays on the device; with no mesh given, the instance's own
+        launched = (infer.launch_secc2video(batch, inp) if mesh is None
+                    else infer.launch_secc2video(batch, inp, mesh=mesh))
         if pending is not None:
             yield from infer.drain_frames(pending)
         pending = launched

@@ -2,6 +2,14 @@
 (port of `genefaceplusplus_tpu/models/full_renderer.py`): the raw head
 render, the torso composited behind it, SR to twice the raw size. The crop
 helpers run on the host once at load; `render_full_frame` runs one frame.
+
+Under a mesh (`parallel/mesh.py`) the frame stays on the main device: the
+probe prepass, the head crop's offset, the march, the compaction's budget
+and ranks, the compositing and the SR need all of its rays. Only the
+field's points are split, the head's (fused, grid or split field) and the
+torso's pixels, each block evaluated on its shard's device by that
+device's replica; the outputs come back in order, so the frame is the
+unsharded one up to each device's float32 summation order.
 """
 
 from __future__ import annotations
@@ -13,11 +21,12 @@ import torch
 
 from genefaceplusplus_tpu_torch.models.radnerf import RADNeRF
 from genefaceplusplus_tpu_torch.models.radnerf_torso import (
-    TorsoField, composite_head_torso, sample_occupancy_2d)
+    TorsoField, TorsoOutput, composite_head_torso, sample_occupancy_2d)
 from genefaceplusplus_tpu_torch.models.renderer import RenderOptions, render_rays
 from genefaceplusplus_tpu_torch.ops import fused_field as ff
 from genefaceplusplus_tpu_torch.models.superresolution import Superresolution
 from genefaceplusplus_tpu_torch.ops.raymarch import near_far_from_aabb, occupancy_aabb
+from genefaceplusplus_tpu_torch.parallel.mesh import Mesh, broadcast, map_blocks, replicated
 
 
 def head_crop_offset(rays_o, rays_d, occ_aabb, image_hw: tuple, crop_hw: tuple,
@@ -186,7 +195,7 @@ def render_full_frame(head_model: RADNeRF, rays_o, rays_d, cond_window, occupanc
                       occupancy_2d=None, sr_model: Optional[Superresolution] = None,
                       torso_crop: Optional[tuple] = None, sr_crop: Optional[tuple] = None,
                       sr_bg=None, density_thresh_torso: Optional[float] = None,
-                      stop_head_gradient: bool = False) -> FrameOutput:
+                      stop_head_gradient: bool = False, mesh: Optional[Mesh] = None) -> FrameOutput:
     """One frame: the head over [the torso over] `bg_color` [, then SR].
 
     With `field_weights` (from `fused_field.weights_from_params`) the field
@@ -209,12 +218,17 @@ def render_full_frame(head_model: RADNeRF, rays_o, rays_d, cond_window, occupanc
     `torso_crop` (r0, c0, ch, cw) it runs on that static rect only
     (lossless: the mask is zero outside it). `sr_model` super-resolves the
     composite; with `sr_crop` and `sr_bg` (auto_sr_crop, the SR of the
-    background) only the rect that changes is super-resolved."""
+    background) only the rect that changes is super-resolved.
+
+    With `mesh` (its main device the frame's) the field's points and the
+    torso's pixels are split over the mesh's devices (module docstring)."""
     H, W = image_hw
+    if mesh is not None and mesh.main != rays_o.device:
+        raise ValueError(f"the mesh's main device is {mesh.main}, the frame's rays are on {rays_o.device}")
     with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_head_gradient):
         head_image, weights_sum, depth_map, crop_fits = _render_head(
             head_model, rays_o, rays_d, cond_window, occupancy, opts, image_hw, eye_area_percent,
-            index, head_crop, field_weights, fused_fn)
+            index, head_crop, field_weights, fused_fn, mesh)
 
     torso_alpha = torso_rgb = None
     if torso_model is not None:
@@ -232,14 +246,14 @@ def render_full_frame(head_model: RADNeRF, rays_o, rays_d, cond_window, occupanc
                 return a.reshape(H, W, c)[tr0:tr0 + tch, tc0:tc0 + tcw].reshape(-1, c)
 
             coords = sel(bg_coords, 2)
-            t_out = torso_model(coords, lm68, t_ind, sel(head_image, 3) if aware else None,
-                                sel(weights_sum[:, None], 1) if aware else None)
+            t_out = _torso(torso_model, coords, lm68, t_ind, sel(head_image, 3) if aware else None,
+                           sel(weights_sum[:, None], 1) if aware else None, mesh)
             alpha_c = t_out.alpha * (sample_occupancy_2d(occupancy_2d, coords) > thr)[:, None]
             alpha = _paste(alpha_c, (H, W), torso_crop)
             color = _paste(t_out.color, (H, W), torso_crop)
         else:
-            t_out = torso_model(bg_coords, lm68, t_ind, head_image if aware else None,
-                                weights_sum[:, None] if aware else None)
+            t_out = _torso(torso_model, bg_coords, lm68, t_ind, head_image if aware else None,
+                           weights_sum[:, None] if aware else None, mesh)
             alpha, color = t_out.alpha, t_out.color
             if occupancy_2d is not None:  # 2D occupancy culling as a mask
                 alpha = alpha * (sample_occupancy_2d(occupancy_2d, bg_coords) > thr)[:, None]
@@ -257,30 +271,64 @@ def render_full_frame(head_model: RADNeRF, rays_o, rays_d, cond_window, occupanc
                        head_crop_fits=crop_fits)
 
 
+def _field_fns(head_model: RADNeRF, cond_feat, ind_code, field_weights, fused_fn, mesh: Optional[Mesh]):
+    """The head's (field, sigma, colour) functions of the points for one
+    frame's condition: the field is `fused_fn` with the frame's bias rows
+    where `field_weights` is given, else the float32 `RADNeRF.field`; sigma
+    and colour are the float32 split field of `opts.color_topk`, as in JAX
+    (the top-K path runs no fused kernel). With `mesh` each splits its
+    points over the mesh, every block evaluated by its device's replicas."""
+    amb_dim = head_model.cfg.ambient_coord_dim
+    if field_weights is not None:
+        amb_bias, col_bias = ff.bias_rows(cond_feat, ind_code, field_weights)
+    if mesh is None:
+        models, consts = [head_model], [(cond_feat, ind_code)]
+        if field_weights is not None:
+            weights, biases = [field_weights], [(amb_bias, col_bias)]
+    else:
+        models, consts = replicated(mesh, head_model), broadcast(mesh, cond_feat, ind_code)
+        if field_weights is not None:
+            weights, biases = replicated(mesh, field_weights), broadcast(mesh, amb_bias, col_bias)
+
+    def field_one(i, xyz, dirs):
+        if field_weights is None:
+            return models[i].field(xyz, dirs, *consts[i])
+        return fused_fn(xyz, dirs, *biases[i], weights[i], amb_dim=amb_dim)
+
+    def sigma_one(i, xyz):
+        return models[i].field_sigma(xyz, consts[i][0])
+
+    def color_one(i, geo_feat, dirs):
+        return models[i].field_color(geo_feat, dirs, consts[i][1])
+
+    if mesh is None:
+        return (lambda *a: field_one(0, *a), lambda *a: sigma_one(0, *a), lambda *a: color_one(0, *a))
+    return (lambda *a: map_blocks(mesh, field_one, *a), lambda *a: map_blocks(mesh, sigma_one, *a),
+            lambda *a: map_blocks(mesh, color_one, *a))
+
+
+def _torso(torso_model: TorsoField, coords, lm68, t_ind, head_rgb, head_ws, mesh: Optional[Mesh]) -> TorsoOutput:
+    """`torso_model` on the pixels `coords` [, `head_rgb`, `head_ws`], the
+    pixels split over `mesh` where one is given."""
+    if mesh is None:
+        return torso_model(coords, lm68, t_ind, head_rgb, head_ws)
+    torsos, consts = replicated(mesh, torso_model), broadcast(mesh, lm68, t_ind)
+
+    def one(i, *pixels):  # (coords[, head_rgb, head_ws]) of shard i
+        return tuple(torsos[i](pixels[0], *consts[i], *pixels[1:]))
+
+    return TorsoOutput(*map_blocks(mesh, one, *((coords,) if head_rgb is None else (coords, head_rgb, head_ws))))
+
+
 def _render_head(head_model: RADNeRF, rays_o, rays_d, cond_window, occupancy, opts: RenderOptions,
-                 image_hw: tuple, eye_area_percent, index, head_crop, field_weights, fused_fn):
+                 image_hw: tuple, eye_area_percent, index, head_crop, field_weights, fused_fn,
+                 mesh: Optional[Mesh] = None):
     """(head image, weights sum, depth, crop fits) of `render_full_frame`'s
     head stage, over a zero background."""
     cfg = head_model.cfg
     cond_feat = head_model.cal_cond_feat(cond_window, eye_area_percent)
     ind_code = head_model.get_individual_code(index)
-    if field_weights is None:
-        def field_fn(xyz, dirs):
-            return head_model.field(xyz, dirs, cond_feat, ind_code)
-    else:
-        amb_bias, col_bias = ff.bias_rows(cond_feat, ind_code, field_weights)
-
-        def field_fn(xyz, dirs):
-            return fused_fn(xyz, dirs, amb_bias, col_bias, field_weights,
-                            amb_dim=cfg.ambient_coord_dim)
-
-    # the split field for opts.color_topk: the float32 RADNeRF stages, as in
-    # JAX (the top-K path runs no fused kernel)
-    def sigma_fn(xyz):
-        return head_model.field_sigma(xyz, cond_feat)
-
-    def color_fn(geo_feat, dirs):
-        return head_model.field_color(geo_feat, dirs, ind_code)
+    field_fn, sigma_fn, color_fn = _field_fns(head_model, cond_feat, ind_code, field_weights, fused_fn, mesh)
 
     H, W = image_hw
     crop_fits = None

@@ -41,6 +41,7 @@ import math
 import os
 import shutil
 import weakref
+from collections import Counter
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -805,7 +806,8 @@ def fused_field(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: int = A
 
     `fused_field.launches` counts launches of the kernel, in either mode:
     serving here, train mode in `fused_field_forward_train` (plain calls
-    do not count)."""
+    do not count); `fused_field.device_launches` counts them by device
+    ("cuda:0", ...), for a frame served over a mesh."""
     if xyz.device.type == "cpu":
         return fused_field_plain(xyz, dirs, amb_bias, col_bias, w, amb_dim)
     if xyz.device.type != "cuda":
@@ -825,11 +827,19 @@ def fused_field(xyz, dirs, amb_bias, col_bias, w: FieldWeights, amb_dim: int = A
             w.amb_B.data_ptr(), amb_bias.data_ptr(), col_bias.data_ptr(), sigma.data_ptr(),
             rgb.data_ptr(), amb.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, rc, "fused_field")
-    fused_field.launches += 1
+    count_launch(dev)
     return sigma, rgb, amb
 
 
 fused_field.launches = 0
+fused_field.device_launches = Counter()
+
+
+def count_launch(dev: torch.device) -> None:
+    """One launch of B1 on `dev`, in `fused_field.launches` and
+    `fused_field.device_launches`."""
+    fused_field.launches += 1
+    fused_field.device_launches[str(dev)] += 1
 
 
 def fused_field_forward_train(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
@@ -866,7 +876,7 @@ def fused_field_forward_train(xyz, dirs, amb_bias, col_bias, w: FieldWeights,
             out.rgb.data_ptr(), out.amb.data_ptr(), out.ops.data_ptr(), npad, out.relu.data_ptr(),
             out.gate.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, rc, "fused_field_forward_train")
-    fused_field.launches += 1
+    count_launch(dev)
     fused_field_forward_train.launches += 1
     return out
 

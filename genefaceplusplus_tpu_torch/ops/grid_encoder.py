@@ -96,10 +96,12 @@ class GridSpec:
         return int(math.ceil(self.level_scale(level))) + 1
 
 
-def _corner_bits(input_dim: int) -> torch.Tensor:
-    """[2^D, D] binary corner offsets (bit d of corner c is (c >> d) & 1)."""
-    c = torch.arange(2 ** input_dim)
-    return torch.stack([(c >> d) & 1 for d in range(input_dim)], dim=-1)
+def _corner_bits(input_dim: int, device=None) -> torch.Tensor:
+    """[2^D, D] binary corner offsets (bit d of corner c is (c >> d) & 1) as
+    bool, made on `device` (no copy from the host, which would wait for the
+    device's queue)."""
+    c = torch.arange(2 ** input_dim, device=device)
+    return torch.stack([(c >> d) & 1 for d in range(input_dim)], dim=-1).bool()
 
 
 def _mul_u32(a: torch.Tensor, b: int) -> torch.Tensor:
@@ -121,7 +123,7 @@ def _level_parts(x01: torch.Tensor, spec: GridSpec, lvl: int):
     modulo and the weights' products run on [N, 2^D] (as broadcasts, not
     gathers)."""
     D = spec.input_dim
-    sel = _corner_bits(D).to(device=x01.device, dtype=torch.bool)  # [2^D, D]
+    sel = _corner_bits(D, x01.device)  # [2^D, D]
     size = spec.offsets[lvl + 1] - spec.offsets[lvl]
     stride_dim = spec.level_resolution(lvl) + (0 if spec.align_corners else 1)
     pos = x01 * spec.level_scale(lvl) + (0.0 if spec.align_corners else 0.5)
@@ -143,7 +145,7 @@ def _level_parts(x01: torch.Tensor, spec: GridSpec, lvl: int):
             idx = h if idx is None else idx ^ h
     else:
         base = sum(pg[:, d:d + 1] * strides[d] for d in range(D) if strides[d]) & _U32  # each product < 2^51
-        corner = (sel.to(torch.int64) * torch.tensor(strides, device=sel.device)).sum(dim=-1)
+        corner = sum(sel[:, d].to(torch.int64) * strides[d] for d in range(D))  # [2^D]
         idx = (base + corner) & _U32
     rows = idx % size + spec.offsets[lvl]
     wds = [torch.where(sel[:, d], frac[:, d:d + 1], 1.0 - frac[:, d:d + 1]) for d in range(D)]
@@ -203,7 +205,7 @@ class GridEncodeFunction(torch.autograd.Function):
         x01 = ((x.reshape(-1, D) + bound) / (2.0 * bound)).float()
         keep = ~((x01 < 0.0) | (x01 > 1.0)).any(dim=-1, keepdim=True)
         g = (grad_out.reshape(-1, L, C) * keep[:, :, None]).to(embeddings.dtype)  # 0 outside the grid
-        sel = _corner_bits(D).to(device=x.device, dtype=torch.bool)
+        sel = _corner_bits(D, x.device)
         need_x, need_table = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
         g_table = torch.zeros_like(embeddings) if need_table else None
         g_x01 = torch.zeros_like(x01) if need_x else None

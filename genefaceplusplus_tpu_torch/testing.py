@@ -202,9 +202,9 @@ def save_reference_ckpt(path: str, state: Mapping[str, np.ndarray], global_step:
                path, _use_new_zipfile_serialization=False)
 
 
-def tiny_infer():
-    """A CPU `GeneFaceInfer` at 16^2 with a small a2m, from seeded port
-    modules over a synthetic dataset of 12 frames."""
+def tiny_infer(size: int = 16, mesh=None):
+    """A CPU `GeneFaceInfer` at `size`^2 with a small a2m, from seeded port
+    modules over a synthetic dataset of 12 frames, over `mesh` where given."""
     from genefaceplusplus_tpu_torch.data.dataset import RADNeRFDataset, synthetic
     from genefaceplusplus_tpu_torch.inference.pipeline import GeneFaceInfer
     from genefaceplusplus_tpu_torch.models.audio2motion.vae_model import a2m_model_from_hparams
@@ -215,11 +215,12 @@ def tiny_infer():
     cfg = RADNeRFConfig.from_hparams({"with_sr": False, "grid_size": 16, "smo_win_size": 3, "cond_win_size": 1,
                                       "individual_embedding_num": 16, "add_eye_blink_cond": True})
     g = torch.Generator().manual_seed(0)
-    ds = RADNeRFDataset(synthetic(num_frames=12, H=16, W=16), smo_win_size=3, with_sr=False)
+    ds = RADNeRFDataset(synthetic(num_frames=12, H=size, W=size), smo_win_size=3, with_sr=False)
     xx, yy, zz = np.meshgrid(*([np.linspace(-1, 1, 16)] * 3), indexing="ij")
     occupancy = (xx ** 2 + (2.2 * yy) ** 2 + (1.4 * zz) ** 2) < 0.16
     return GeneFaceInfer(cfg, RADNeRF(cfg, generator=g).state_dict(), ds, occupancy, device="cpu",
-                         a2m_hparams=a2m, a2m_params=a2m_model_from_hparams(a2m, generator=g).state_dict())
+                         a2m_hparams=a2m, a2m_params=a2m_model_from_hparams(a2m, generator=g).state_dict(),
+                         mesh=mesh)
 
 
 def reference_hubert_state(config: Mapping, seed: int) -> Dict[str, torch.Tensor]:

@@ -1153,3 +1153,31 @@ def test_h264_intra_takes_frames_past_shared_memory(qp):
     units, lengths = he.h264_intra(frames.cuda(), 0, qp)
     assert units.shape == (3, h264.unit_bytes(WIDE)) and units.stride(0) > units.shape[1]
     assert he.split_access_units(he.copy_units(units, lengths), 1) == h264.access_units(plain.rows, plain.bits, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 2 * ff.FWD_STEP + 3, 1_000_003])
+def test_kernel_over_a_mesh_equals_one_launch(cuda_setup, n):
+    """B1 over a mesh (`parallel.mesh.map_blocks`): the first two cards, or
+    two streams of one card, each shard launching its block with its
+    device's replica of the weights; the outputs equal one launch's bit for
+    bit (the kernel is per point), one launch a shard (an empty block
+    launches nothing)."""
+    from genefaceplusplus_tpu_torch.parallel import mesh as pm
+
+    dev, w, ab, cb = cuda_setup
+    mesh = pm.make_mesh(2) if torch.cuda.device_count() >= 2 else pm.Mesh([dev, dev])
+    ws, biases = pm.replicated(mesh, w), pm.broadcast(mesh, ab, cb)
+    xyz, d = _points(n, dev, seed=n)
+    ff.fused_field.device_launches.clear()
+    with torch.no_grad():
+        one = ff.fused_field(xyz, d, ab, cb, w)
+        sharded = pm.map_blocks(mesh, lambda i, x, y: ff.fused_field(x, y, *biases[i], ws[i]), xyz, d)
+    torch.cuda.synchronize()
+    for a, b in zip(one, sharded):
+        assert b.device == xyz.device and torch.equal(a, b)
+    want = {}
+    for block, dv in zip(torch.tensor_split(xyz, mesh.size), mesh.devices):
+        want[str(dv)] = want.get(str(dv), 0) + (block.shape[0] > 0)
+    want[str(xyz.device)] += 1  # the single launch
+    assert dict(ff.fused_field.device_launches) == {k: v for k, v in want.items() if v}

@@ -492,18 +492,32 @@ def test_cli_renders_with_compaction_flags(dirs, cli_plain, tmp_path, capsys, ar
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--n_devices", "2"], "one card"),
+    (["--n_devices", "2"], "2 CUDA devices asked for, 1 found"),
 ])
-def test_unported_flags_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["--device", "cpu", "--head_ckpt", "unused"] + argv)
+def test_unported_flags_raise(argv, match, monkeypatch):
+    """Every flag of JAX's CLI is ported; --n_devices asking for more cards
+    than the machine has raises naming both counts, before anything loads
+    (JAX's mesh takes the cards there are)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match=match):
+        cli.main(["--head_ckpt", "unused"] + argv)
 
 
 def test_debug_flag_is_accepted():
-    """--debug (the SECC and landmark panels) is ported: it passes the check
+    """--debug (the SECC and landmark panels) is ported: the parser takes it
     and its help names the panels; test_torch_debug_panels.py renders them."""
-    cli.unported_flags(cli.build_parser().parse_args(["--debug"]))
+    assert cli.build_parser().parse_args(["--debug"]).debug
     assert "panels" in cli.build_parser().format_help()
+
+
+def test_cli_n_devices_writes_the_one_device_frames(dirs, cli_plain, tmp_path):
+    """--device cpu --n_devices 2: each frame's field points split over two
+    CPU shards give the frames of --n_devices 1."""
+    path, plain = cli_plain
+    out = cli.main(["--device", "cpu", "--n_devices", "2", "--a2m_ckpt", dirs["a2m"], "--head_ckpt",
+                    dirs["trained"], "--drv_aud_features", path, "--out_name", str(tmp_path / "mesh.avi")])
+    np.testing.assert_array_equal(read_avi(out)[0], plain)
 
 
 def test_a_bare_wav_raises_and_the_cli_needs_a_card(dirs, tmp_path, monkeypatch):
